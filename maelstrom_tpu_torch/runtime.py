@@ -1,0 +1,479 @@
+"""The tick loop: vectorized protocol instances stepped in lockstep.
+
+Counterpart of ``maelstrom_tpu/tpu/runtime.py`` in its batch-leading
+(``lead``) layout. One *instance* is one simulated cluster (N server
+nodes + C clients) with its own message pool, partition matrix and RNG
+stream; the runtime stacks ``n_instances`` of them on a leading axis
+and steps them all each tick:
+
+    nemesis     : per-instance partition matrices from the schedule
+    deliver     : the delivery kernel (kernels/delivery.py)
+    node phase  : batched RNG, the per-slot core, the tick hook
+    client step : decode replies -> history events; draw/encode new ops
+    enqueue     : netsim.enqueue with latency and loss
+    invariants + the telemetry fold
+
+Every random draw derives from (master key, purpose, [tick,] instance
+id) through ``rng.fold_in``, exactly as in JAX, so an instance's
+trajectory is a pure function of (seed, its id) and bit-identical to
+the JAX runtime's. Tensors are updated out of place; nothing here is
+jitted — PyTorch runs eagerly.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from . import netsim, rng, wire, xla_math
+from .kernels import delivery
+from .netsim import NetConfig, NetStats, sum_i32
+from .telemetry import recorder as flight
+from .telemetry.recorder import TelemetryConfig
+
+# --- history events ---------------------------------------------------------
+
+# event lanes: [etype, vals[ev_vals], msg_id]
+EV_TYPE = 0
+
+EV_NONE = 0
+EV_INVOKE = 1
+EV_OK = 2
+EV_FAIL = 3
+EV_INFO = 4
+
+OP_LANES = 4
+TYPE_ERROR = 127
+_DEFINITE_CODES = (1, 10, 11, 12, 14, 20, 21, 22, 30)
+
+_I32 = torch.int32
+
+
+class ClientConfig(NamedTuple):
+    n_clients: int
+    rate: float              # P(new op per idle client per tick)
+    timeout_ticks: int
+    final_start: int = 1 << 30
+
+
+class Model:
+    """A vectorized node state machine with its client vocabulary.
+
+    Hooks take batched tensors: node-level hooks a flat ``[B, ...]``
+    batch of nodes, client-level hooks ``[I, C, ...]``. Only the fused
+    node-step protocol (``node_rng`` / ``inbox_step`` / ``fused_tick``)
+    exists in the port."""
+
+    name: str = "?"
+    body_lanes: int = 6
+    idempotent_fs: Tuple[int, ...] = ()
+    op_lanes: int = OP_LANES
+    ev_vals: int = 4
+
+    def init_state(self, n_nodes: int, keys: torch.Tensor):
+        """Node state for keys ``[I, N, 2]``: leaves ``[I, N, ...]``."""
+        raise NotImplementedError
+
+    def node_rng(self, mkeys):
+        raise NotImplementedError
+
+    def inbox_step(self, row, node_idx, msg, jitter, t, cfg):
+        raise NotImplementedError
+
+    def fused_tick(self, row, node_idx, t, jitter, cfg):
+        raise NotImplementedError
+
+    def invariants(self, node_state, cfg: NetConfig) -> torch.Tensor:
+        """Per-instance bool ``[I]``: True = violated this tick."""
+        return torch.zeros(node_state[0].shape[0], dtype=torch.bool,
+                           device=node_state[0].device)
+
+    def sample_op(self, keys, uniq, cfg):
+        raise NotImplementedError
+
+    def sample_final_op(self, keys, uniq, cfg):
+        return self.sample_op(keys, uniq, cfg)
+
+    def encode_request(self, op, msg_id, client_idx, keys, cfg):
+        raise NotImplementedError
+
+    def decode_reply(self, op, msg, cfg):
+        raise NotImplementedError
+
+
+def decode_error_reply(msg: torch.Tensor) -> torch.Tensor:
+    """Event type of an error reply ``[..., L]``: definite codes fail,
+    others are indeterminate."""
+    code = msg[..., wire.BODY]
+    definite = torch.zeros_like(code, dtype=torch.bool)
+    for c in _DEFINITE_CODES:
+        definite = definite | (code == c)
+    return torch.where(definite, EV_FAIL, EV_INFO).to(_I32)
+
+
+# --- client machine -----------------------------------------------------------
+
+
+class ClientState(NamedTuple):
+    status: torch.Tensor       # [I, C] 0 idle / 1 waiting
+    op: torch.Tensor           # [I, C, OP_LANES]
+    msg_id: torch.Tensor       # [I, C]
+    next_msg_id: torch.Tensor  # [I, C]
+    invoked: torch.Tensor      # [I, C] tick of invocation
+
+    @staticmethod
+    def init(I: int, C: int, op_lanes: int = OP_LANES, device=None):
+        z = lambda *s: torch.zeros((I, C) + s, dtype=_I32, device=device)
+        return ClientState(status=z(), op=z(op_lanes),
+                           msg_id=torch.full((I, C), -1, dtype=_I32,
+                                             device=device),
+                           next_msg_id=z(), invoked=z())
+
+
+def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
+                t: int, key: torch.Tensor, cfg: NetConfig,
+                ccfg: ClientConfig):
+    """One tick for all clients of all instances. ``inbox_clients [I, C,
+    K, L]``, ``key [I, 2]``. Returns ``(cs', requests [I, C, L], events
+    [I, C, 2, 2 + ev_vals])``: slot 0 = completion, slot 1 = invocation."""
+    I, C = cs.status.shape
+    V = model.ev_vals
+    dev = cs.status.device
+    events = torch.zeros((I, C, 2, 2 + V), dtype=_I32, device=dev)
+
+    # completions: a reply matching the outstanding msg id
+    msgs = inbox_clients
+    match = ((msgs[..., wire.VALID] == 1)
+             & (msgs[..., wire.REPLYTO] == cs.msg_id[..., None])
+             & (cs.status[..., None] == 1))                  # [I, C, K]
+    has_reply = match.any(dim=-1)
+    idx = match.to(_I32).argmax(dim=-1)
+    reply = msgs.gather(2, idx[..., None, None].expand(
+        I, C, 1, msgs.shape[-1]))[:, :, 0]                     # [I, C, L]
+
+    is_err = reply[..., wire.TYPE] == TYPE_ERROR
+    et_ok, val_ok = model.decode_reply(cs.op, reply, cfg)
+    etype_r = torch.where(is_err, decode_error_reply(reply), et_ok)
+    value = torch.where(is_err[..., None], torch.zeros_like(val_ok), val_ok)
+    value_r = torch.cat([cs.op[..., 0:1], value], dim=-1)      # [I, C, 4]
+
+    timed_out = ((cs.status == 1) & ~has_reply
+                 & ((t - cs.invoked) >= ccfg.timeout_ticks))
+    idem = torch.zeros_like(timed_out)
+    for f in model.idempotent_fs:
+        idem = idem | (cs.op[..., 0] == f)
+    etype_t = torch.where(idem, EV_FAIL, EV_INFO).to(_I32)
+
+    completed = has_reply | timed_out
+    comp_etype = torch.where(has_reply, etype_r, etype_t)
+    comp_vals = torch.where(has_reply[..., None], value_r, cs.op[..., :V])
+    events[:, :, 0, EV_TYPE] = torch.where(completed, comp_etype,
+                                           torch.zeros_like(comp_etype))
+    events[:, :, 0, 1:1 + V] = comp_vals
+    events[:, :, 0, 1 + V] = cs.msg_id
+    status = torch.where(completed, torch.zeros_like(cs.status), cs.status)
+
+    # new invocations from idle clients: k_rate, k_ops, k_enc = split(key,
+    # 3); the rate draw and both per-client key splits share one call
+    blocks = rng.split(rng.split(key, 3), C)                  # [I, 3, C, 2]
+    idle = status == 0
+    fire = idle & (rng.uniform_from_bits(rng.bits_of_split(blocks[:, 0]))
+                   < xla_math.f32(ccfg.rate))
+    op_keys = blocks[:, 1]                                     # [I, C, 2]
+    cidx = torch.arange(C, dtype=_I32, device=dev)
+    uniq = cs.next_msg_id * C + cidx
+    if t >= ccfg.final_start:
+        new_ops = model.sample_final_op(op_keys, uniq, cfg)
+    else:
+        new_ops = model.sample_op(op_keys, uniq, cfg)
+    op = torch.where(fire[..., None], new_ops, cs.op)
+    msg_id = torch.where(fire, cs.next_msg_id, cs.msg_id)
+    next_msg_id = torch.where(fire, cs.next_msg_id + 1, cs.next_msg_id)
+    invoked = torch.where(fire, torch.full_like(cs.invoked, t), cs.invoked)
+    status = torch.where(fire, torch.ones_like(status), status)
+
+    reqs = model.encode_request(op, msg_id, cidx, blocks[:, 2], cfg)
+    client_ids = cfg.n_nodes + cidx
+    reqs[..., wire.VALID] = fire.to(_I32)
+    reqs[..., wire.SRC] = client_ids
+    reqs[..., wire.ORIGIN] = client_ids
+    reqs[..., wire.MSGID] = msg_id
+
+    events[:, :, 1, EV_TYPE] = torch.where(fire, EV_INVOKE, EV_NONE).to(_I32)
+    events[:, :, 1, 1:1 + V] = op[..., :V]
+    events[:, :, 1, 1 + V] = msg_id
+    return (ClientState(status=status, op=op, msg_id=msg_id,
+                        next_msg_id=next_msg_id, invoked=invoked),
+            reqs, events)
+
+
+# --- nemesis ------------------------------------------------------------------
+
+
+class NemesisConfig(NamedTuple):
+    enabled: bool = False
+    interval: int = 50         # ticks between phase flips
+    kind: str = "random-halves"
+    stop_tick: int = 1 << 30   # final heal at/after this tick
+    schedule: tuple = ()       # kind="scripted": ((until_tick, ((dst,
+                               # src), ...)), ...) ordered by until_tick
+
+NEMESIS_KINDS = ("random-halves", "scripted")
+
+
+def partition_matrix(nem: NemesisConfig, cfg: NetConfig, t: int,
+                     instance_keys: torch.Tensor) -> torch.Tensor:
+    """Partition matrices ``[I, NT, NT]`` at tick ``t``: alternating
+    heal/partition phases every ``interval`` ticks with a fresh random
+    halving of the server nodes each phase (``random-halves``), or a
+    fixed per-phase schedule (``scripted``). Clients are never cut."""
+    NT, n = cfg.n_total, cfg.n_nodes
+    I = instance_keys.shape[0]
+    dev = instance_keys.device
+    none = torch.zeros((I, NT, NT), dtype=torch.bool, device=dev)
+    if not nem.enabled:
+        return none
+    if nem.kind not in NEMESIS_KINDS:
+        raise ValueError(f"nemesis kind {nem.kind!r} is not ported "
+                         f"(ported: {', '.join(NEMESIS_KINDS)})")
+    server = torch.arange(NT, device=dev) < n
+    smask = server[:, None] & server[None, :]
+    if nem.kind == "scripted":
+        if t >= nem.stop_tick:
+            return none
+        P = len(nem.schedule)
+        untils = np.array([u for u, _ in nem.schedule]
+                          + [np.iinfo(np.int32).max], dtype=np.int64)
+        phase_i = min(int(np.searchsorted(untils, t, side="right")), P)
+        mat = torch.zeros((NT, NT), dtype=torch.bool, device=dev)
+        if phase_i < P:
+            for dst, src in nem.schedule[phase_i][1]:
+                mat[dst, src] = True
+        return (mat & smask)[None].expand(I, NT, NT).contiguous()
+    phase = t // nem.interval
+    if not (phase % 2 == 1 and t < nem.stop_tick):
+        return none
+    key = rng.fold_in(instance_keys, phase)
+    side = rng.bernoulli(key, 0.5, (NT,))                      # [I, NT]
+    blocked = side[:, :, None] != side[:, None, :]
+    return blocked & smask[None]
+
+
+# --- node phase ---------------------------------------------------------------
+
+
+def node_phase(model: Model, node_state, inbox_nodes: torch.Tensor, t: int,
+               keys: torch.Tensor, cfg: NetConfig):
+    """All nodes of all instances handle their inboxes, then run the
+    tick hook. ``node_state`` leaves ``[I, N, ...]``, ``inbox_nodes
+    [I, N, K, L]``, ``keys [I, 2]``. Returns ``(state', outs [I,
+    N * (K + per-tick rows), L])``."""
+    I, N, K, L = inbox_nodes.shape
+    B = I * N
+    dev = inbox_nodes.device
+    nkeys = rng.split(keys, N)                                 # [I, N, 2]
+    mkeys = rng.fold_in(nkeys[:, :, None, :],
+                        torch.arange(K + 1, device=dev))       # [I,N,K+1,2]
+    slot_jit, tick_jit = model.node_rng(mkeys)
+    row = type(node_state)(*(x.reshape((B,) + x.shape[2:])
+                             for x in node_state))
+    node_idx = torch.arange(N, dtype=_I32, device=dev).repeat(I)
+    slot_jit = slot_jit.reshape(B, K)
+    msgs = inbox_nodes.reshape(B, K, L)
+    outs = []
+    for k in range(K):
+        row, out = model.inbox_step(row, node_idx, msgs[:, k], slot_jit[:, k],
+                                    t, cfg)
+        outs.append(out)
+    row, outs_t = model.fused_tick(row, node_idx, t, tick_jit.reshape(B),
+                                   cfg)
+    outs = torch.cat([torch.stack(outs, dim=1), outs_t], dim=1)
+    state = type(node_state)(*(x.reshape((I, N) + x.shape[1:]) for x in row))
+    return state, outs.reshape(I, -1, L)
+
+
+# --- the tick loop ------------------------------------------------------------
+
+
+class SimConfig(NamedTuple):
+    net: NetConfig
+    client: ClientConfig
+    nemesis: NemesisConfig
+    n_instances: int
+    n_ticks: int
+    record_instances: int
+    telemetry: TelemetryConfig = TelemetryConfig()
+
+
+class Carry(NamedTuple):
+    """The whole simulation state (lead layout, leaves ``[I, ...]``)."""
+    pool: torch.Tensor          # [I, S, L]
+    node_state: Any             # model row tuple, leaves [I, N, ...]
+    client_state: ClientState   # [I, C, ...]
+    stats: NetStats             # int32 scalars (fleet sums)
+    violations: torch.Tensor    # [I] ticks each instance violated
+    key: torch.Tensor           # the constant master key [2]
+    telemetry: Any = None       # flight recorder, None when disabled
+
+
+# RNG purpose tags (runtime.py in the JAX package)
+_RNG_INIT = 0
+_RNG_NEMESIS = 1
+_RNG_NODE = 2
+_RNG_CLIENT = 3
+_RNG_ENQUEUE = 4
+
+
+def instance_keys(master: torch.Tensor, purpose: int,
+                  instance_ids: torch.Tensor, t: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Per-instance keys ``[I, 2]``: fold in purpose, then tick (when
+    given), then each instance id."""
+    k = rng.fold_in(master, purpose)
+    if t is not None:
+        k = rng.fold_in(k, t)
+    return rng.fold_in(k[None, :], instance_ids)
+
+
+_TICK_PURPOSES = (_RNG_NEMESIS, _RNG_NODE, _RNG_CLIENT, _RNG_ENQUEUE)
+
+
+def tick_keys(master: torch.Tensor, instance_ids: torch.Tensor, t: int
+              ) -> torch.Tensor:
+    """The tick's instance keys for all four purposes in three batched
+    calls: ``[4, I, 2]`` in ``_TICK_PURPOSES`` order. The nemesis keys
+    skip the tick fold (a grudge holds for its whole phase); the others
+    equal ``instance_keys(master, purpose, ids, t)``."""
+    # _TICK_PURPOSES is the contiguous range 1..4
+    kp = rng.fold_in(master[None, :],
+                     torch.arange(_RNG_NEMESIS, _RNG_ENQUEUE + 1,
+                                  device=master.device))       # [4, 2]
+    kt = torch.cat([kp[:1], rng.fold_in(kp[1:], t)], dim=0)
+    return rng.fold_in(kt[:, None, :], instance_ids[None, :])
+
+
+def default_instance_ids(sim: SimConfig, device=None) -> torch.Tensor:
+    return torch.arange(sim.n_instances, dtype=_I32, device=device)
+
+
+def init_carry(model: Model, sim: SimConfig, seed: int, device=None,
+               instance_ids: Optional[torch.Tensor] = None) -> Carry:
+    I = sim.n_instances
+    cfg = sim.net
+    key = rng.prng_key(seed, device=device)
+    if instance_ids is None:
+        instance_ids = default_instance_ids(sim, device)
+    ikeys = instance_keys(key, _RNG_INIT, instance_ids)
+    node_state = model.init_state(cfg.n_nodes, rng.split(ikeys, cfg.n_nodes))
+    return Carry(
+        pool=torch.zeros((I, cfg.pool_slots, cfg.lanes), dtype=_I32,
+                         device=device),
+        node_state=node_state,
+        client_state=ClientState.init(I, sim.client.n_clients,
+                                      model.op_lanes, device),
+        stats=NetStats.zeros(device),
+        violations=torch.zeros((I,), dtype=_I32, device=device),
+        key=key,
+        telemetry=flight.init_telemetry(I, sim.telemetry, device),
+    )
+
+
+def _update_telemetry(tel, sim: SimConfig, t: int, events, invoked_prev,
+                      pool_occ, inbox, deltas, part_active, violated):
+    if tel is None:
+        return None
+    N = sim.net.n_nodes
+    n_sent, n_del, n_dropp, n_lost, n_ovf = deltas
+    serv = inbox[:, :N]
+    n_del_serv = sum_i32((serv[..., wire.VALID] == 1)
+                         & (serv[..., wire.ORIGIN] < N), dim=(1, 2))
+    return flight.record_tick(
+        tel, t, sim.telemetry,
+        n_sent=n_sent, n_del=n_del, n_del_serv=n_del_serv,
+        n_dropp=n_dropp, n_lost=n_lost, n_ovf=n_ovf,
+        pool_occ=pool_occ, part_active=part_active, violated=violated,
+        ok_mask=events[:, :, 0, EV_TYPE] == EV_OK,
+        invoke_mask=events[:, :, 1, EV_TYPE] == EV_INVOKE,
+        lat=t - invoked_prev)
+
+
+def make_tick_fn(model: Model, sim: SimConfig,
+                 instance_ids: Optional[torch.Tensor] = None,
+                 device=None) -> Callable:
+    """The lead-layout tick: ``tick_fn(carry, t) -> (carry', events)``
+    with the recorded instances' events ``[R, C, 2, 2 + ev_vals]`` (None
+    when nothing is recorded)."""
+    cfg = sim.net
+    ccfg = sim.client
+    N = cfg.n_nodes
+    if instance_ids is None:
+        instance_ids = default_instance_ids(sim, device)
+
+    # the phases are torch.profiler ranges (the JAX runtime's named
+    # scopes); they record nothing unless a profiler runs
+    def tick_fn(carry: Carry, t: int):
+        key = carry.key
+        with record_function("nemesis"):
+            nem_keys, node_keys, client_keys, enq_keys = tick_keys(
+                key, instance_ids, t)
+            partitions = partition_matrix(sim.nemesis, cfg, t, nem_keys)
+
+        with record_function("deliver"):
+            pool, inbox, n_del, n_dropp = delivery.deliver(
+                carry.pool, partitions, t, cfg)
+
+        with record_function("node_phase"):
+            node_state, node_outs = node_phase(
+                model, carry.node_state, inbox[:, :N], t, node_keys, cfg)
+
+        invoked_prev = carry.client_state.invoked
+        with record_function("client_step"):
+            client_state, reqs, events = client_step(
+                model, carry.client_state, inbox[:, N:], t, client_keys,
+                cfg, ccfg)
+
+        with record_function("enqueue"):
+            outs = torch.cat([node_outs, reqs], dim=1)
+            pool, n_sent, n_lost, n_ovf = netsim.enqueue(
+                pool, outs, t, enq_keys, cfg)
+
+        with record_function("telemetry"):
+            s = carry.stats
+            stats = NetStats(
+                sent=s.sent + sum_i32(n_sent),
+                delivered=s.delivered + sum_i32(n_del),
+                dropped_partition=s.dropped_partition + sum_i32(n_dropp),
+                dropped_loss=s.dropped_loss + sum_i32(n_lost),
+                dropped_overflow=s.dropped_overflow + sum_i32(n_ovf))
+            violated = model.invariants(node_state, cfg)
+            tel = _update_telemetry(
+                carry.telemetry, sim, t, events, invoked_prev,
+                netsim.pool_occupancy(pool), inbox,
+                (n_sent, n_del, n_dropp, n_lost, n_ovf),
+                partitions.any(dim=2).any(dim=1), violated)
+        new_carry = Carry(pool=pool, node_state=node_state,
+                          client_state=client_state, stats=stats,
+                          violations=carry.violations + violated.to(_I32),
+                          key=key, telemetry=tel)
+        R = sim.record_instances
+        return new_carry, (events[:R] if R > 0 else None)
+
+    return tick_fn
+
+
+def run_sim(model: Model, sim: SimConfig, seed: int, device=None,
+            instance_ids: Optional[torch.Tensor] = None
+            ) -> Tuple[Carry, Optional[torch.Tensor]]:
+    """Run the whole horizon in one loop; returns (final carry, events
+    stacked on a leading tick axis, or None)."""
+    carry = init_carry(model, sim, seed, device, instance_ids)
+    tick_fn = make_tick_fn(model, sim, instance_ids, device)
+    events = []
+    with torch.no_grad():
+        for t in range(sim.n_ticks):
+            carry, ev = tick_fn(carry, t)
+            events.append(ev)
+    return carry, (None if events[0] is None else torch.stack(events))

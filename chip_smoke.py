@@ -7,9 +7,15 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build every CUDA source of the port (one ``nvcc`` per source, all
    started together) and print nvcc's ``-Xptxas -v`` report;
-2. hold each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (tolerance: exact — all outputs are int32)
-   and time both with CUDA events;
+2. hold each kernel against its plain PyTorch version on the card
+   (tolerance: exact — all outputs are int32) at the Pallas test shape,
+   the flagship shape (S=16, K=1) and the CLI-default shape (S=128,
+   K=8), 4096 instances each, and on edge-case pools at small I
+   (``kernels/delivery_cases.py``); at the flagship and default shapes
+   time the kernel's device time per launch (CUPTI durations under
+   ``torch.profiler``, L2 flushed before each launch, and warm), the
+   wrapper's time per call (host issue included) and the plain version,
+   beside the kernel's bound;
 3. check on a small input that the card's run equals the CPU run of the
    plain versions, tick for tick (the CPU path is the one held to the
    JAX reference by the tests);
@@ -20,8 +26,11 @@ Phases (any failure exits non-zero and prints no result line):
    delivery kernel once per tick, and the verdict must be valid.
 
 Before the last line it prints the card's name and power limit and one
-JSON object with every kernel's launches, error, times and bound; the
-last line is ``{"ok": true, "device": {...}}``.
+JSON object with every kernel's launches, error, times and bound (``ms``
+is the device time at the flagship shape; ``shapes`` holds each timed
+shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
+``bound_share``; ``timing`` states the method); the last line is
+``{"ok": true, "device": {...}}``.
 
 ``--rehearse-on-cpu`` runs phases 2-4 at a tiny size with the plain
 versions (no card, no nvcc) to check the script's own logic; it exits 2
@@ -32,16 +41,11 @@ and prints no result line. ``--time-limit S`` runs the main path for
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
-
-# the card's peak rates (NVIDIA's H100 SXM data sheet)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12   # non-tensor-core 32-bit rate (FP32 figure)
 
 # the main path: bench.py's flagship lin-kv options (without the fault
 # fuzz distribution, whose all-healthy draw leaves the trajectory as is)
@@ -58,17 +62,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, iters: int, sync) -> float:
-    """Mean wall time of ``fn`` over ``iters`` runs after a warm-up:
-    CUDA events on the card, the host clock on the CPU."""
+    """Mean wall time of ``fn`` over ``iters`` back-to-back calls after
+    a warm-up: CUDA events on the card, the host clock on the CPU. Where
+    a call's kernels take less device time than the host takes to issue
+    them, this is the host's issue time, not the kernels' time."""
     for _ in range(3):
         fn()
     sync()
@@ -87,80 +85,103 @@ def time_ms(fn, iters: int, sync) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def deliver_bound(I, S, L, NT, K):
-    """(bound_ms, bound_by, bytes, ops) of one delivery round: each input
-    read once (pool, partition plane), each output written once (pool',
-    inbox, two counts); about six integer ops per (endpoint, slot, k)
-    scan step."""
-    nbytes = 2 * I * S * L * 4 + I * NT * K * L * 4 + I * NT * NT \
-        + 2 * I * 4
-    ops = 6 * I * NT * S * K
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops)
+TIMING = ("device_ms: mean kernel duration recorded by CUPTI under "
+          "torch.profiler over {n} launches, the 50 MB L2 cache flushed "
+          "(a 128 MB read) before each; device_warm_ms: the same without "
+          "the flush; wrapper_ms and plain_ms: CUDA events around {n} "
+          "back-to-back Python calls (host issue included)")
 
 
-def check_delivery(dev, shapes, timed_shape):
-    """Kernel vs plain version at each shape; returns the timed record."""
-    from maelstrom_tpu_torch import netsim, wire
+def _check(dev, label, pools, parts, t, cfg):
+    """Kernel vs plain version on one input, bit for bit."""
+    from maelstrom_tpu_torch import netsim
     from maelstrom_tpu_torch.kernels import delivery
-    record = None
+    pool = torch.from_numpy(pools).to(dev)
+    part = torch.from_numpy(parts).to(dev)
+    before = delivery.deliver.launches
+    got = delivery.deliver(pool, part, t, cfg)
+    ref = netsim.deliver_reference(pool, part, t, cfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        if delivery.deliver.launches != before + 1:
+            raise AssertionError("deliver did not launch its kernel")
+    err = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
+              for g, r in zip(got, ref))
+    if err != 0:
+        raise AssertionError(f"delivery kernel != plain version at "
+                             f"{label}: max abs err {err}")
+    return pool, part, err
+
+
+def check_delivery(dev, shapes, iters):
+    """Kernel vs plain version at each shape and on every edge-case
+    pool; device, wrapper and plain times with the bound at the timed
+    shapes. Returns the kernel's record for the JSON line."""
+    from maelstrom_tpu_torch import netsim
+    from maelstrom_tpu_torch.kernels import delivery, devtime
+    from maelstrom_tpu_torch.kernels import delivery_cases as dc
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: 0)
+    max_err = 0
+    for name, (n, c, S, K, body, I) in dc.EDGE_SHAPES.items():
+        cfg = dc.net_config(n, c, S, K, body)
+        cases = dc.edge_pools(cfg, I, 3)
+        for case, (pools, parts, t) in cases.items():
+            max_err = max(max_err, _check(dev, f"{name}/{case}", pools,
+                                          parts, t, cfg)[2])
+        log(f"phase 2: deliver edge pools at {name} I={I} S={S} K={K} "
+            f"L={cfg.lanes}: {', '.join(cases)} bit-equal to "
+            f"deliver_reference (tolerance 0)")
+    per_shape = {}
     for name, (n, c, S, K, body, I) in shapes.items():
-        cfg = netsim.NetConfig(n_nodes=n, n_clients=c, pool_slots=S,
-                               inbox_k=K, body_lanes=body, latency_mean=5.0,
-                               latency_dist=2, p_loss=0.0)
-        L, NT = cfg.lanes, cfg.n_total
-        rs = np.random.RandomState(5)
-        pools = np.zeros((I, S, L), np.int32)
-        occ = rs.random_sample((I, S)) < 0.6
-        pools[..., wire.VALID] = occ
-        for lane, hi in ((wire.SRC, NT), (wire.DEST, NT),
-                         (wire.ORIGIN, NT), (wire.DTICK, 30),
-                         (wire.TYPE, 14)):
-            pools[..., lane] = rs.randint(0, hi, (I, S)) * occ
-        pools[..., wire.BODY:] = rs.randint(0, 100, (I, S, L - wire.BODY)) \
-            * occ[..., None]
-        parts = rs.random_sample((I, NT, NT)) < 0.25
-        pool = torch.from_numpy(pools).to(dev)
-        part = torch.from_numpy(parts).to(dev)
-        t = 15
-        before = delivery.deliver.launches
-        got = delivery.deliver(pool, part, t, cfg)
-        ref = netsim.deliver_reference(pool, part, t, cfg)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            if delivery.deliver.launches != before + 1:
-                raise AssertionError("deliver did not launch its kernel")
-        err = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
-                  for g, r in zip(got, ref))
-        if err != 0:
-            raise AssertionError(f"delivery kernel != plain version at "
-                                 f"{name}: max abs err {err}")
+        cfg = dc.net_config(n, c, S, K, body)
+        L, NT, t = cfg.lanes, cfg.n_total, 15
+        pools, parts = dc.random_pools(np.random.RandomState(5), I, cfg)
+        pool, part, err = _check(dev, name, pools, parts, t, cfg)
+        max_err = max(max_err, err)
         log(f"phase 2: deliver {name} I={I} S={S} K={K} NT={NT} L={L}: "
             f"bit-equal to deliver_reference (tolerance 0)")
-        if name != timed_shape:
+        if name not in dc.TIMED:
             continue
-        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
-        iters = 200 if dev.type == "cuda" else 5
-        ms = time_ms(lambda: delivery.deliver(pool, part, t, cfg), iters,
-                     sync)
-        plain_ms = time_ms(
+        call = lambda: delivery.deliver(pool, part, t, cfg)
+        rec = {"I": I, "S": S, "K": K, "NT": NT, "L": L}
+        if on_card:
+            rec["device_ms"] = devtime.device_ms(
+                call, delivery.KERNEL_NAME, iters)
+            rec["device_warm_ms"] = devtime.device_ms(
+                call, delivery.KERNEL_NAME, iters, flush_l2=False)
+        else:
+            rec["device_ms"] = rec["device_warm_ms"] = None
+        rec["wrapper_ms"] = time_ms(call, iters, sync)
+        rec["plain_ms"] = time_ms(
             lambda: netsim.deliver_reference(pool, part, t, cfg),
             max(1, iters // 4), sync)
-        bound_ms, bound_by, nbytes, ops = deliver_bound(I, S, L, NT, K)
-        log(f"phase 2: deliver {name}: kernel {ms:.6f} ms, plain version "
-            f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-            f"{nbytes} B, {ops} int ops), library call: none")
-        record = {"name": "deliver", "route": "cuda",
-                  "source": "maelstrom_tpu_torch/csrc/deliver.cu",
-                  "replaces": "maelstrom_tpu/ops/delivery.py:51",
-                  "launches": None, "max_abs_err": err, "ms": ms,
-                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": None}
-    # the timed launches above were comparisons, not the main path
+        rec["bound_ms"], rec["bound_by"], nbytes, ops = dc.bound(
+            pool, part, t, cfg)
+        rec["bound_share"] = (rec["bound_ms"] / rec["device_ms"]
+                              if rec["device_ms"] else None)
+        rec["library_ms"] = None
+        dev_txt = ("not measured (no card)" if rec["device_ms"] is None
+                   else f"{rec['device_ms']:.6f} ms device time "
+                        f"({rec['bound_share']:.1%} of bound; "
+                        f"{rec['device_warm_ms']:.6f} ms with warm L2)")
+        log(f"phase 2: deliver {name}: kernel {dev_txt}, wrapper "
+            f"{rec['wrapper_ms']:.6f} ms per call, plain version "
+            f"{rec['plain_ms']:.6f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']}: {nbytes} B, {ops} int ops), library "
+            f"call: none")
+        per_shape[name] = rec
+    # the launches above were comparisons, not the main path
     delivery.deliver.launches = 0
-    return record
+    main = per_shape["flagship"]
+    return {"name": "deliver", "route": "cuda",
+            "source": "maelstrom_tpu_torch/csrc/deliver.cu",
+            "replaces": "maelstrom_tpu/ops/delivery.py:51",
+            "launches": None, "max_abs_err": max_err,
+            "ms": main["device_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "timing": TIMING.format(n=iters),
+            "shapes": per_shape}
 
 
 def check_small_run_matches_cpu(dev):
@@ -235,13 +256,13 @@ def main(argv) -> int:
             "False); nothing run")
         return 1
     import maelstrom_tpu_torch  # noqa: F401 — fails outside the repo
+    from maelstrom_tpu_torch.kernels import delivery_cases
     dev = torch.device("cpu" if rehearse else "cuda")
-    shapes = {"pallas-test": (3, 3, 32, 4, 6, 8),
-              "flagship": (3, 6, 16, 1, 12, 4096)}
+    shapes = dict(delivery_cases.SHAPES)
     opts = dict(MAIN_OPTS)
     if rehearse:
-        shapes = {"pallas-test": (3, 3, 32, 4, 6, 8),
-                  "flagship": (3, 6, 16, 1, 12, 64)}
+        shapes = {name: shape[:5] + (min(shape[5], 64),)
+                  for name, shape in shapes.items()}
         opts.update(n_instances=16, time_limit=0.3, nemesis_interval=0.1,
                     recovery_time=0.05)
     if "--time-limit" in argv:
@@ -258,20 +279,24 @@ def main(argv) -> int:
         log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
             f"on {torch.cuda.get_device_name(0)}")
 
-    record = check_delivery(dev, shapes, "flagship")
+    record = check_delivery(dev, shapes, 5 if rehearse else 200)
     if not rehearse:
         check_small_run_matches_cpu(dev)
     res, launches = run_main_path(dev, opts)
     record["launches"] = launches["deliver"]
-    for k in ("ms", "plain_ms", "bound_ms"):
-        record[k] = float(record[k])
-    log(f"kernel deliver: {record['ms']:.6f} ms per launch (bound "
-        f"{record['bound_ms']:.6f} ms, {record['bound_by']}), plain version "
-        f"{record['plain_ms']:.6f} ms, library call: none, "
-        f"{record['launches']} launches on the main path")
+    for name, r in record["shapes"].items():
+        dev_txt = ("not measured" if r["device_ms"] is None
+                   else f"{r['device_ms']:.6f} ms device time per launch "
+                        f"({r['bound_share']:.1%} of the bound)")
+        log(f"kernel deliver at {name}: {dev_txt}, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), wrapper "
+            f"{r['wrapper_ms']:.6f} ms per call, plain version "
+            f"{r['plain_ms']:.6f} ms, library call: none")
+    log(f"kernel deliver: {record['launches']} launches on the main path")
     if rehearse:
         log("chip_smoke: CPU rehearsal passed (no card: no result line)")
         return 2
+    from maelstrom_tpu_torch.kernels.devtime import card_line
     log(card_line())
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {

@@ -46,51 +46,61 @@ def nvcc_path() -> str:
         "installed")
 
 
-def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+def _source(name: str) -> str:
+    return os.path.join(CSRC, name + ".cu")
+
+
+def _lib_path(src: str) -> str:
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:12]}.so")
 
 
-def _start(name: str) -> Optional[subprocess.Popen]:
-    out = _lib_path(name)
+def _start(src: str) -> Optional[subprocess.Popen]:
+    out = _lib_path(src)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, name + ".cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp, proc.out = tmp, out
     return proc
 
 
-def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
+def _finish(name: str, src: str, proc: Optional[subprocess.Popen]) -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
     build_logs[name] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {src}:\n{log}")
     os.replace(proc.tmp, proc.out)   # atomic: concurrent builders agree
 
 
 def build_all(names: Sequence[str]) -> None:
     """Compile every named source that is not built yet, in parallel."""
-    procs = {n: _start(n) for n in names}
+    procs = {n: _start(_source(n)) for n in names}
     for n, p in procs.items():
-        _finish(n, p)
+        _finish(n, _source(n), p)
+
+
+def load_file(src: str) -> ctypes.CDLL:
+    """The loaded library for the CUDA source file ``src``, built if
+    needed (any path: an earlier version of a kernel, for comparison)."""
+    src = os.path.abspath(src)
+    lib = _loaded.get(src)
+    if lib is None:
+        _finish(src, src, _start(src))
+        lib = ctypes.CDLL(_lib_path(src))
+        _loaded[src] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(_lib_path(name))
-        _loaded[name] = lib
-    return lib
+    return load_file(_source(name))

@@ -14,8 +14,10 @@ Counterpart of ``maelstrom_tpu/tpu/netsim.py``, written over the whole
   links); pool overflow drops and counts.
 
 Both are bit-identical to ``vmap`` of their JAX counterparts: the
-stable empty-slots-first ``argsort``, first-maximum ``argmax`` and the
-zero rows of non-taken inbox slots are matched exactly.
+stable empty-slots-first ``argsort``, first-maximum ``argmax``, the
+lower-index-first order of ``lax.top_k`` among equal priorities, JAX's
+reading of a negative or too large DEST/ORIGIN index, and the zero rows
+of non-taken inbox slots are matched exactly.
 """
 
 from __future__ import annotations
@@ -79,6 +81,13 @@ def pool_occupancy(pool: torch.Tensor) -> torch.Tensor:
     return sum_i32(pool[..., wire.VALID] & 1, dim=-1)
 
 
+def jax_index(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` as JAX's integer indexing reads it along an axis of size
+    ``n``: a negative index counts from the end, then it is clamped."""
+    x = x.long()
+    return torch.where(x < 0, x + n, x).clamp(0, n - 1)
+
+
 def deliver_reference(pool: torch.Tensor, partitions: torch.Tensor, t: int,
                       cfg: NetConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -94,8 +103,8 @@ def deliver_reference(pool: torch.Tensor, partitions: torch.Tensor, t: int,
     valid = pool[..., wire.VALID] == 1
     dtick = pool[..., wire.DTICK]
     due = valid & (dtick <= t)
-    dest = pool[..., wire.DEST].long().clamp(0, NT - 1)
-    origin = pool[..., wire.ORIGIN].long().clamp(0, NT - 1)
+    dest = jax_index(pool[..., wire.DEST], NT)
+    origin = jax_index(pool[..., wire.ORIGIN], NT)
     blocked = partitions.reshape(I, NT * NT).gather(1, dest * NT + origin)
     drop_mask = due & blocked
 
@@ -109,9 +118,10 @@ def deliver_reference(pool: torch.Tensor, partitions: torch.Tensor, t: int,
         topi = prio.argmax(dim=2, keepdim=True)               # [I, NT, 1]
         topv = prio.gather(2, topi)
     else:
-        # candidate priorities are distinct, so the order of equal
-        # (zero) entries never reaches a taken row
-        topv, topi = prio.topk(K, dim=2)                      # [I, NT, K]
+        # lower slot first among equal priorities, as lax.top_k (they
+        # tie only where the int32 priority wraps and S is no power of 2)
+        topv, topi = prio.sort(dim=2, descending=True, stable=True)
+        topv, topi = topv[..., :K], topi[..., :K]             # [I, NT, K]
     take = topv > 0
     rows = pool.gather(1, topi.reshape(I, NT * K, 1).expand(I, NT * K, L))
     inbox = torch.where(take.reshape(I, NT * K, 1), rows, 0

@@ -23,7 +23,6 @@ import argparse
 import bisect
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -45,10 +44,10 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from . import harness, runtime
-    from .kernels import build
+    from .kernels import build, delivery, devtime
     from .models.raft import RaftModel
 
-    build.build_all(["deliver"])
+    build.build_all([delivery.SOURCE])
     dev = torch.device("cuda")
     model = RaftModel(n_nodes_hint=3, log_cap=64, heartbeat=8)
     opts = dict(node_count=3, concurrency=6, n_instances=args.instances,
@@ -111,13 +110,10 @@ def main(argv=None) -> int:
                    "device_busy_ms_per_tick": dev_us[ph] / 1e3 / n}
               for ph in PHASES}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    deliver = [v for name, v in by_name.items() if "deliver_kernel" in name]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    deliver = [v for name, v in by_name.items()
+               if delivery.KERNEL_NAME in name]
     rec = {
-        "card": card,
+        "card": devtime.card_line(),
         "instances": args.instances,
         "ticks_profiled": n,
         "from_tick": t - n,

@@ -13,7 +13,7 @@ from maelstrom_tpu.ops.delivery import deliver_pallas
 from maelstrom_tpu.tpu import netsim as jnetsim
 from maelstrom_tpu.tpu.netsim import NetConfig as JNetConfig
 from maelstrom_tpu_torch import netsim, wire
-from maelstrom_tpu_torch.kernels import delivery
+from maelstrom_tpu_torch.kernels import delivery, delivery_cases
 
 # (n_nodes, n_clients, S, K, body_lanes, I): the Pallas test shape, the
 # flagship lin-kv shape, and the widest defaults (S=128, K=8)
@@ -22,6 +22,19 @@ SHAPES = {
     "flagship": (3, 6, 16, 1, 12, 64),
     "wide": (3, 6, 128, 8, 12, 8),
 }
+# edge-case pools (kernels/delivery_cases.py) at the shapes chip_smoke.py
+# puts them through the kernel
+EDGE_SHAPES = delivery_cases.EDGE_SHAPES
+EDGE_CASES = ("empty", "full", "same-dtick", "out-of-range",
+              "all-partitioned", "few-candidates", "priority-wrap")
+EDGE_PARAMS = [(shape, case) for shape in sorted(EDGE_SHAPES)
+               for case in EDGE_CASES
+               + (("priority-tie",) if shape == "odd" else ())]
+# The Pallas kernel reads an out-of-range DEST/ORIGIN as "not blocked"
+# (its one-hot lookup matches no endpoint) and takes every slot of a
+# priority tie at once; vmap(netsim.deliver), the contract, does
+# neither, so those two cases are held against it alone.
+PALLAS_DIFFERS = ("out-of-range", "priority-tie")
 
 
 def _cfgs(n, c, S, K, body, lat=5.0, dist=2, p_loss=0.0):
@@ -83,6 +96,83 @@ def test_deliver_reference_matches_pallas_interpret(shape):
         np.testing.assert_array_equal(np.asarray(r), g)
 
 
+def _edge(shape, case, I=None):
+    n, c, S, K, body, I0 = EDGE_SHAPES[shape]
+    cfg, jcfg = _cfgs(n, c, S, K, body)
+    pools, parts, t = delivery_cases.edge_pools(cfg, I or I0, seed=3)[case]
+    return cfg, jcfg, pools, parts, t
+
+
+@pytest.mark.parametrize("shape,case", EDGE_PARAMS)
+def test_deliver_edge_cases_match_xla(shape, case):
+    cfg, jcfg, pools, parts, t = _edge(shape, case)
+    ref = jax.vmap(lambda p, pa: jnetsim.deliver(p, pa, jnp.int32(t),
+                                                 jcfg))(
+        jnp.asarray(pools), jnp.asarray(parts))
+    got = _port_deliver(pools, parts, t, cfg)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(np.asarray(r), g)
+
+
+@pytest.mark.parametrize("shape,case", [
+    (shape, case) for shape, case in EDGE_PARAMS
+    if case not in PALLAS_DIFFERS])
+def test_deliver_edge_cases_match_pallas_interpret(shape, case):
+    cfg, jcfg, pools, parts, t = _edge(shape, case, I=4)
+    ref = deliver_pallas(jnp.asarray(pools), jnp.asarray(parts),
+                         jnp.int32(t), jcfg, interpret=True)
+    got = _port_deliver(pools, parts, t, cfg)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(np.asarray(r), g)
+
+
+def test_edge_cases_reach_their_rules():
+    """Each edge pool exercises what its name says (plain version)."""
+    n, c, S, K, body, I = EDGE_SHAPES["odd"]
+    cfg, _ = _cfgs(n, c, S, K, body)
+    out = {case: _port_deliver(p, pa, t, cfg) for case, (p, pa, t)
+           in delivery_cases.edge_pools(cfg, I, seed=3).items()}
+    assert out["empty"][2].sum() == 0 and out["empty"][3].sum() == 0
+    assert (out["all-partitioned"][2] == 0).all()
+    assert (out["all-partitioned"][3] == S).all()
+    # full: every slot due, so what stays is candidates beyond K
+    assert (out["full"][2] > 0).all()
+    assert (out["full"][0][..., wire.VALID] == 1).any()
+    assert (out["few-candidates"][2] == cfg.n_total).all()
+    # priority-wrap: due slots with priority <= 0 stay in the pool
+    assert (out["priority-wrap"][0][..., wire.VALID] == 1).any()
+    # priority-tie: slots 0, 8, 16 tie and are taken in slot order
+    tie_rows = out["priority-tie"][1][:, 0, :, wire.DTICK]
+    tie_dticks = delivery_cases.edge_pools(cfg, I, seed=3)[
+        "priority-tie"][0][:, [0, 8, 16], wire.DTICK]
+    np.testing.assert_array_equal(tie_rows, tie_dticks[:, :K])
+
+
+@pytest.mark.parametrize("vec", [True, False])
+def test_deliver_geometry(vec):
+    """Every S in 1..256, K in 1..8 and L in 9..64 gets a launch with
+    blocks, a padded row stride (odd in 16-byte units, or in words on
+    the 4-byte path) and shared memory within the card's limit."""
+    for S in range(1, delivery.MAX_SLOTS + 1):
+        for K in range(1, min(8, S) + 1):
+            for L in range(9, 65):
+                if vec and L % 4:
+                    continue
+                geo = delivery.geometry(S, L, 9, K, vec)
+                assert 1 <= geo.warps_per_block <= 4    # >= 1 block
+                assert geo.row_stride >= L and geo.warp_bytes % 16 == 0
+                assert geo.warp_bytes >= S * geo.row_stride * 4 + 8 * S
+                assert geo.warp_bytes * geo.warps_per_block \
+                    <= delivery.SMEM_OPTIN_BYTES
+                unit = 4 if vec else 1
+                assert geo.row_stride % unit == 0
+                assert (geo.row_stride // unit) % 2 == 1
+    for bad in ((0, 20, 9, 1), (257, 20, 9, 1), (8, 20, 9, 9),
+                (8, 7, 9, 1)):
+        with pytest.raises(ValueError):
+            delivery.geometry(*bad, vec=False)
+
+
 def test_deliver_wrapper_counts_no_cpu_launch():
     """On a CPU tensor the wrapper runs the plain version: no launch."""
     cfg, _ = _cfgs(*SHAPES["flagship"][:5])
@@ -98,17 +188,23 @@ def test_deliver_kernel_matches_reference_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc: the delivery kernel has "
                     "no CPU or interpret mode")
+    inputs = []
     for shape in sorted(SHAPES):
         n, c, S, K, body, I = SHAPES[shape]
         cfg, _ = _cfgs(n, c, S, K, body)
         pools, parts = random_pools(np.random.RandomState(5), I, cfg)
+        inputs.append((shape, cfg, pools, parts, 15))
+    for shape, case in EDGE_PARAMS:
+        cfg, _, pools, parts, t = _edge(shape, case)
+        inputs.append((f"{shape}/{case}", cfg, pools, parts, t))
+    for name, cfg, pools, parts, t in inputs:
         p = torch.from_numpy(pools).cuda()
         pa = torch.from_numpy(parts).cuda()
-        got = delivery.deliver(p, pa, 15, cfg)
-        ref = netsim.deliver_reference(p, pa, 15, cfg)
+        got = delivery.deliver(p, pa, t, cfg)
+        ref = netsim.deliver_reference(p, pa, t, cfg)
         torch.cuda.synchronize()
         for r, g in zip(ref, got):
-            assert torch.equal(r, g)
+            assert torch.equal(r, g), name
 
 
 def _random_msgs(rs, I, M, cfg):

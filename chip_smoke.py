@@ -86,9 +86,10 @@ def time_ms(fn, iters: int, sync) -> float:
 
 
 TIMING = ("device_ms: mean kernel duration recorded by CUPTI under "
-          "torch.profiler over {n} launches, the 50 MB L2 cache flushed "
-          "(a 128 MB read) before each; device_warm_ms: the same without "
-          "the flush; wrapper_ms and plain_ms: CUDA events around {n} "
+          "torch.profiler over at least {n} recorded launches (sessions "
+          "of {n} calls, repeated where CUPTI lost records), the 50 MB L2 "
+          "cache flushed (a 128 MB read) before each; device_warm_ms: "
+          "the same without the flush; wrapper_ms and plain_ms: CUDA events around {n} "
           "back-to-back Python calls (host issue included)")
 
 

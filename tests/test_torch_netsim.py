@@ -182,6 +182,33 @@ def test_deliver_wrapper_counts_no_cpu_launch():
     assert delivery.deliver.launches == before
 
 
+@pytest.mark.parametrize("sessions,want", [
+    ([[2.0] * 200], 2.0),                       # every record kept
+    ([[2.0] * 182, [4.0] * 200], (182 * 2.0 + 200 * 4.0) / 382),
+    ([[1.0] * 30] * 5, None),                   # too few in 5 sessions
+    ([[1.0] * 201], None),                      # more kernels than calls
+])
+def test_device_ms_repeats_sessions_that_lost_records(monkeypatch,
+                                                      sessions, want):
+    """device_ms averages over at least ``iters`` recorded launches,
+    running further profiling sessions where CUPTI lost records, and
+    refuses a name that matches more kernels than calls."""
+    from maelstrom_tpu_torch.kernels import devtime
+    left = list(sessions)
+    monkeypatch.setattr(devtime.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(devtime.torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(devtime, "_session_us",
+                        lambda fn, name, iters, flush: left.pop(0))
+    call = lambda: None
+    if want is None:
+        with pytest.raises(RuntimeError, match="device_ms"):
+            devtime.device_ms(call, "k", 200, flush_l2=False)
+        return
+    got = devtime.device_ms(call, "k", 200, flush_l2=False)
+    assert got == pytest.approx(want / 1e3, rel=1e-12)
+    assert not left
+
+
 @pytest.mark.cuda
 def test_deliver_kernel_matches_reference_on_card():
     """The CUDA kernel against its plain version on the card (bit-equal)."""

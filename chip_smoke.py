@@ -16,14 +16,24 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.profiler``, L2 flushed before each launch, and warm), the
    wrapper's time per call (host issue included) and the plain version,
    beside the kernel's bound;
-3. check on a small input that the card's run equals the CPU run of the
-   plain versions, tick for tick (the CPU path is the one held to the
-   JAX reference by the tests);
-4. drive the main path — ``run_torch_test`` on lin-kv Raft at the
-   flagship width (3 nodes, 6 clients, 4096 instances, 4 simulated
-   seconds) — with every launch counter set to 0 just before and read
-   just after; every kernel of the path must have launched, the
-   delivery kernel once per tick, and the verdict must be valid.
+3. check on a small input (24 instances, 300 ticks) that the card's
+   run equals the CPU run of the plain versions at every 25th tick, all
+   carry leaves exact (the CPU path is the one held to the JAX
+   reference by the tests): under an active four-lane fault
+   distribution, then under an active fleet-shared fault plan with
+   crash, links, skew and membership;
+4. drive the main path — ``run_torch_test`` on lin-kv Raft exactly as
+   ``bench.py`` runs its flagship: 3 nodes, 6 clients, 4096 instances,
+   4 simulated seconds, under the all-healthy fault distribution
+   ``BENCH_FUZZ_DIST`` — with every launch counter set to 0 just before
+   and read just after; every kernel of the path must have launched,
+   the delivery kernel once per tick, the verdict must be valid, and
+   the network counters must equal the bare run's (the distribution
+   is value-neutral);
+5. drive the same fleet for 1,000 ticks bare and then under an active
+   four-lane fault distribution (counters reset before and read after
+   each): both valid, the delivery kernel once per tick, and the
+   fuzzed fleet's drawn windows fired in every lane.
 
 Before the last line it prints the card's name and power limit and one
 JSON object with every kernel's launches, error, times and bound (``ms``
@@ -32,10 +42,11 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 ``bound_share``; ``timing`` states the method); the last line is
 ``{"ok": true, "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2-4 at a tiny size with the plain
-versions (no card, no nvcc) to check the script's own logic; it exits 2
-and prints no result line. ``--time-limit S`` runs the main path for
-``S`` simulated seconds instead (a quicker check).
+``--rehearse-on-cpu`` runs phases 2, 4 and 5 at a tiny size with the
+plain versions (no card, no nvcc) to check the script's own logic; it
+exits 2 and prints no result line. ``--time-limit S`` runs the main
+path for ``S`` simulated seconds instead and phase 5 for at most ``S``
+(a quicker check).
 """
 
 from __future__ import annotations
@@ -47,8 +58,8 @@ import time
 import numpy as np
 import torch
 
-# the main path: bench.py's flagship lin-kv options (without the fault
-# fuzz distribution, whose all-healthy draw leaves the trajectory as is)
+# bench.py's flagship lin-kv options; the main path adds its fault
+# distribution (faults.fuzz.BENCH_FUZZ_DIST)
 MAIN_OPTS = dict(node_count=3, concurrency=6, n_instances=4096,
                  record_instances=1, time_limit=4.0, rate=200.0,
                  latency=5.0, rpc_timeout=1.0, nemesis=["partition"],
@@ -56,6 +67,28 @@ MAIN_OPTS = dict(node_count=3, concurrency=6, n_instances=4096,
                  seed=7, telemetry=True, inbox_k=1, pool_slots=16,
                  layout="lead")
 MODEL_KW = dict(n_nodes_hint=3, log_cap=64, heartbeat=8)
+# the bare flagship's network counters at full width and depth (NVIDIA
+# H100 80GB HBM3; PERF.md): the all-healthy distribution keeps them
+FLAGSHIP_NET = {"sent": 9708913, "delivered": 7537375,
+                "dropped-partition": 1675883, "dropped-loss": 484098,
+                "dropped-overflow": 0}
+# an active distribution over all four lanes
+ACTIVE_FUZZ = {"windows": [2, 3], "gap": [40, 200], "duration": [30, 100],
+               "crash": {"rate": 0.7, "victims": [1, 1]},
+               "links": {"rate": 0.6, "edges": [1, 3], "block": 0.5,
+                         "delay": [0, 20], "loss": [0.0, 0.3]},
+               "skew": {"rate": 0.5, "victims": [1, 2],
+                        "range": [0.5, 2.0]},
+               "membership": {"rate": 0.5, "victims": [1, 1]}}
+# an active fleet-shared plan over all four lanes (phase 3's 300 ticks)
+ACTIVE_PLAN = {"phases": [
+    {"until": 40, "members": [0, 1, 2]},
+    {"until": 80, "crash": [0], "skew": {"1": 2.0, "2": 0.75}},
+    {"until": 120, "links": [{"dst": 1, "src": 0, "block": True},
+                             {"dst": 0, "src": 1, "delay": 7},
+                             {"dst": 0, "src": 2, "loss": 0.4}]},
+    {"until": 170, "remove": [1]},
+    {"until": 200, "add": [1], "crash": [2]}]}
 
 
 def log(msg: str) -> None:
@@ -185,14 +218,14 @@ def check_delivery(dev, shapes, iters):
             "shapes": per_shape}
 
 
-def check_small_run_matches_cpu(dev):
+def check_small_run_matches_cpu(dev, label, faults):
     """The card's tick loop equals the CPU plain-version loop on a small
     input: every carry leaf at every 25th tick."""
     from maelstrom_tpu_torch import convert, harness, runtime
     from maelstrom_tpu_torch.models.raft import RaftModel
     model = RaftModel(**MODEL_KW)
     opts = dict(MAIN_OPTS, n_instances=24, time_limit=0.3,
-                nemesis_interval=0.1, recovery_time=0.05)
+                nemesis_interval=0.1, recovery_time=0.05, **faults)
     sim = harness.make_sim_config(model, opts)
     carries = []
     for d in (torch.device("cpu"), dev):
@@ -205,25 +238,31 @@ def check_small_run_matches_cpu(dev):
                 if t % 25 == 24:
                     seq.append(convert.carry_to_numpy(carry))
         carries.append(seq)
+    names = None
     for k, (a, b) in enumerate(zip(*carries)):
-        for name, x, y in _leaves(a, b):
-            if not np.array_equal(x, y):
+        leaves = dict(convert.carry_leaves(b))
+        names = names or sorted(leaves)
+        for name, x in convert.carry_leaves(a):
+            if not np.array_equal(x, leaves.pop(name)):
                 raise AssertionError(f"{dev} run differs from the CPU run "
-                                     f"at tick {25 * k + 24}: {name}")
+                                     f"at tick {25 * k + 24} under "
+                                     f"{label}: {name}")
+        if leaves:
+            raise AssertionError(f"{label}: leaves only on {dev}: "
+                                 f"{sorted(leaves)}")
+    fault_leaves = sorted({n.split(".")[1] for n in names} - {
+        "pool", "node_state", "client_state", "stats", "violations", "key",
+        "telemetry"})
     log(f"phase 3: {sim.n_instances}-instance {sim.n_ticks}-tick run on "
-        f"{dev} equals the CPU plain-version run at every 25th tick "
-        f"(all carry leaves, exact)")
+        f"{dev} under {label} equals the CPU plain-version run at every "
+        f"25th tick (all {len(names)} carry leaves, exact; fault leaves "
+        f"{', '.join(fault_leaves)})")
 
 
-def _leaves(a, b, prefix="carry"):
-    if isinstance(a, tuple) and hasattr(a, "_fields"):
-        for f in a._fields:
-            yield from _leaves(getattr(a, f), getattr(b, f), f"{prefix}.{f}")
-    elif a is not None:
-        yield prefix, np.asarray(a), np.asarray(b)
-
-
-def run_main_path(dev, opts):
+def run_path(dev, opts, label):
+    """``run_torch_test`` on one path, every launch counter set to 0
+    just before and read just after: a valid verdict and the delivery
+    kernel once per tick on the card."""
     from maelstrom_tpu_torch import harness
     from maelstrom_tpu_torch.kernels import delivery
     from maelstrom_tpu_torch.models.raft import RaftModel
@@ -234,29 +273,36 @@ def run_main_path(dev, opts):
     wall = time.monotonic() - t0
     launches = {"deliver": delivery.deliver.launches}
     ticks = res["perf"]["ticks"]
-    log(f"phase 4: lin-kv x{res['instance-count']} for {ticks} ticks: "
+    log(f"{label}: lin-kv x{res['instance-count']} for {ticks} ticks: "
         f"valid?={res['valid?']} wall {wall:.1f} s, "
         f"{res['perf']['ticks-per-sec']:.2f} ticks/s, "
         f"{res['perf']['msgs-per-sec']:.0f} simulated msgs/s, "
         f"net {json.dumps(res['net'])}, launches {launches}")
+    if "fault-fuzz" in res:
+        log(f"{label}: fault lanes {res['faults']['lanes']}, fleet "
+            f"coverage {json.dumps(res['fault-fuzz'])}")
     if res["valid?"] is not True:
-        raise AssertionError(f"main path verdict {res['valid?']!r}")
+        raise AssertionError(f"{label} verdict {res['valid?']!r}")
     if launches["deliver"] != ticks and dev.type == "cuda":
         raise AssertionError(f"delivery kernel launched "
                              f"{launches['deliver']} times for {ticks} "
                              f"ticks")
     if res["net"]["delivered"] <= 0 or res["checked-instances"] < 1:
-        raise AssertionError("main path delivered nothing")
+        raise AssertionError(f"{label} delivered nothing")
     return res, launches
 
 
 def main(argv) -> int:
+    start = time.monotonic()
+    mark = lambda phase: log(f"{phase} finished {time.monotonic() - start:.1f}"
+                             f" s into the script")
     rehearse = "--rehearse-on-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is "
             "False); nothing run")
         return 1
     import maelstrom_tpu_torch  # noqa: F401 — fails outside the repo
+    from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
     from maelstrom_tpu_torch.kernels import delivery_cases
     dev = torch.device("cpu" if rehearse else "cuda")
     shapes = dict(delivery_cases.SHAPES)
@@ -266,6 +312,7 @@ def main(argv) -> int:
                   for name, shape in shapes.items()}
         opts.update(n_instances=16, time_limit=0.3, nemesis_interval=0.1,
                     recovery_time=0.05)
+    full = opts == MAIN_OPTS and "--time-limit" not in argv
     if "--time-limit" in argv:
         opts["time_limit"] = float(argv[argv.index("--time-limit") + 1])
     else:
@@ -281,10 +328,43 @@ def main(argv) -> int:
             f"on {torch.cuda.get_device_name(0)}")
 
     record = check_delivery(dev, shapes, 5 if rehearse else 200)
+    mark("phase 2")
     if not rehearse:
-        check_small_run_matches_cpu(dev)
-    res, launches = run_main_path(dev, opts)
+        check_small_run_matches_cpu(dev, "an active four-lane fault "
+                                    "distribution",
+                                    dict(fault_fuzz=ACTIVE_FUZZ))
+        check_small_run_matches_cpu(dev, "an active fault plan (crash, "
+                                    "links, skew, membership)",
+                                    dict(fault_plan=ACTIVE_PLAN))
+        mark("phase 3")
+    res, launches = run_path(dev, dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
+                             "phase 4 (flagship, BENCH_FUZZ_DIST)")
+    if full and res["net"] != FLAGSHIP_NET:
+        raise AssertionError(f"phase 4 network counters {res['net']} "
+                             f"differ from the bare flagship's "
+                             f"{FLAGSHIP_NET}")
+    if full:
+        log("phase 4: network counters equal the bare flagship run's "
+            "exactly")
+    mark("phase 4")
+    short = dict(opts, time_limit=min(1.0, opts["time_limit"]))
+    bare, bare_launches = run_path(dev, short, "phase 5 (bare)")
+    fuzzed, fuzz_launches = run_path(dev, dict(short,
+                                               fault_fuzz=ACTIVE_FUZZ),
+                                     "phase 5 (active fault distribution)")
+    idle = [k for k, v in fuzzed["fault-fuzz"].items()
+            if k.endswith("-windows") and v == 0]
+    if idle:
+        raise AssertionError(f"phase 5: no window fired in {idle}")
+    log(f"phase 5: ticks/s bare {bare['perf']['ticks-per-sec']:.2f}, "
+        f"active fault distribution "
+        f"{fuzzed['perf']['ticks-per-sec']:.2f}")
+    mark("phase 5")
     record["launches"] = launches["deliver"]
+    record["launches_by_path"] = {
+        "phase 4 flagship, BENCH_FUZZ_DIST": launches["deliver"],
+        "phase 5 bare": bare_launches["deliver"],
+        "phase 5 active fault distribution": fuzz_launches["deliver"]}
     for name, r in record["shapes"].items():
         dev_txt = ("not measured" if r["device_ms"] is None
                    else f"{r['device_ms']:.6f} ms device time per launch "

@@ -1,9 +1,10 @@
 """Command line of the port: ``python -m maelstrom_tpu_torch test -w lin-kv``.
 
 Runs the lin-kv Raft fleet through :func:`harness.run_torch_test` and
-prints a JSON summary (verdict, network counters, throughput, device).
-Unset flags take the harness defaults (``harness.TORCH_DEFAULTS``).
-Exit code 0 when the run is valid, 1 when it is not.
+prints a JSON summary (verdict, network counters, throughput, device,
+and the fault block under a fault plan or distribution). Unset flags
+take the harness defaults (``harness.TORCH_DEFAULTS``). Exit code 0
+when the run is valid, 1 when it is not.
 """
 
 from __future__ import annotations
@@ -13,7 +14,17 @@ import json
 import sys
 from typing import List, Optional
 
+from .faults.spec import FAULT_KINDS
+from .runtime import NEMESIS_KINDS
+
 WORKLOADS = ("lin-kv",)
+
+
+def _positive_int(v: str) -> int:
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -30,8 +41,27 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--latency-dist",
                    choices=("constant", "uniform", "exponential"))
     p.add_argument("--nemesis", action="append", default=[],
-                   choices=("partition",))
+                   choices=("partition",) + FAULT_KINDS,
+                   help="fault kinds, composable (repeat the flag): the "
+                        "partition nemesis, and the fault-plan lanes "
+                        "generated on the nemesis interval grid")
     p.add_argument("--nemesis-interval", type=float)
+    p.add_argument("--nemesis-kind",
+                   choices=[k for k in NEMESIS_KINDS if k != "scripted"],
+                   help="partition grudge shape (default random-halves)")
+    p.add_argument("--fault-plan", metavar="FILE",
+                   help="JSON fault-plan file (phases of crash-restart, "
+                        "link-degradation, clock-skew and membership "
+                        "lanes); exclusive with the generated fault "
+                        "--nemesis kinds")
+    p.add_argument("--fault-fuzz", metavar="FILE",
+                   help="JSON fault distribution file: a randomized "
+                        "schedule per instance, drawn on the device; "
+                        "exclusive with --fault-plan and the fault "
+                        "--nemesis kinds")
+    p.add_argument("--fault-snapshot-every", type=_positive_int,
+                   help="ticks between snapshot-slab captures (default: "
+                        "the plan's own snapshot_every, else 1)")
     p.add_argument("--recovery-time", type=float)
     p.add_argument("--rpc-timeout", type=float)
     p.add_argument("--p-loss", type=float)
@@ -65,13 +95,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         opts["concurrency"] = (int(c[:-1]) * args.node_count
                                if c.endswith("n") else int(c))
     for flag in ("rate", "time_limit", "latency", "latency_dist",
-                 "nemesis_interval", "recovery_time", "rpc_timeout",
-                 "p_loss", "n_instances", "record_instances", "inbox_k",
-                 "pool_slots", "ms_per_tick", "pipeline", "chunk_ticks",
-                 "seed"):
+                 "nemesis_interval", "nemesis_kind", "recovery_time",
+                 "rpc_timeout", "p_loss", "n_instances", "record_instances",
+                 "inbox_k", "pool_slots", "ms_per_tick", "pipeline",
+                 "chunk_ticks", "fault_snapshot_every", "seed"):
         v = getattr(args, flag)
         if v is not None:
             opts[flag] = v
+    for flag in ("fault_plan", "fault_fuzz"):
+        path = getattr(args, flag)
+        if path is not None:
+            with open(path) as f:
+                opts[flag] = json.load(f)
     if args.nemesis:
         opts["nemesis"] = args.nemesis
     if args.no_telemetry:
@@ -86,6 +121,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     summary["perf"] = {k: perf[k] for k in ("wall-s", "ticks",
                                             "ticks-per-sec",
                                             "msgs-per-sec")}
+    for k in ("faults", "fault-fuzz"):
+        if k in res:
+            summary[k] = res[k]
     summary["store-dir"] = res.get("store-dir")
     print(json.dumps(summary))
     return 0 if res["valid?"] is True else 1

@@ -11,11 +11,12 @@ port's tick ``t + 1``.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Iterator, Tuple
 
 import numpy as np
 import torch
 
+from .faults.fuzz import FaultSchedule
 from .netsim import NetStats
 from .runtime import Carry, ClientState
 from .telemetry.recorder import Telemetry
@@ -37,9 +38,12 @@ def _tuple(cls, src, device):
 def carry_from_numpy(src: Any, row_type, device=None) -> Carry:
     """Build the port's carry from a carry-like object with numpy (or
     array-like) leaves: ``pool``, ``node_state`` (fields of
-    ``row_type``), ``client_state``, ``stats``, ``violations``, ``key``
-    and ``telemetry`` (None when disabled)."""
+    ``row_type``), ``client_state``, ``stats``, ``violations``, ``key``,
+    and the optional ``telemetry``, ``snapshots`` (a dict of durable
+    lanes) and ``fault_sched`` (None when absent)."""
     tel = getattr(src, "telemetry", None)
+    snaps = getattr(src, "snapshots", None)
+    sched = getattr(src, "fault_sched", None)
     return Carry(
         pool=_to_tensor(src.pool, device),
         node_state=_tuple(row_type, src.node_state, device),
@@ -48,6 +52,10 @@ def carry_from_numpy(src: Any, row_type, device=None) -> Carry:
         violations=_to_tensor(src.violations, device),
         key=_to_tensor(src.key, device),
         telemetry=None if tel is None else _tuple(Telemetry, tel, device),
+        snapshots=None if snaps is None else {
+            k: _to_tensor(v, device) for k, v in snaps.items()},
+        fault_sched=(None if sched is None
+                     else _tuple(FaultSchedule, sched, device)),
     )
 
 
@@ -67,4 +75,24 @@ def carry_to_numpy(carry: Carry) -> Carry:
         violations=_np(carry.violations),
         key=_np(carry.key).astype(np.uint32),
         telemetry=None if carry.telemetry is None else nt(carry.telemetry),
+        snapshots=None if carry.snapshots is None else {
+            k: _np(v) for k, v in carry.snapshots.items()},
+        fault_sched=(None if carry.fault_sched is None
+                     else nt(carry.fault_sched)),
     )
+
+
+def carry_leaves(carry: Any, prefix: str = "carry"
+                 ) -> Iterator[Tuple[str, np.ndarray]]:
+    """``(name, array)`` for every leaf of a carry with numpy leaves
+    (NamedTuples by field, dicts by key, ``None`` skipped). A JAX carry
+    with numpy leaves walks the same way, so two carries compare leaf
+    by leaf."""
+    if isinstance(carry, tuple) and hasattr(carry, "_fields"):
+        for f in carry._fields:
+            yield from carry_leaves(getattr(carry, f), f"{prefix}.{f}")
+    elif isinstance(carry, dict):
+        for k in sorted(carry):
+            yield from carry_leaves(carry[k], f"{prefix}.{k}")
+    elif carry is not None:
+        yield prefix, np.asarray(carry)

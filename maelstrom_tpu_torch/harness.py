@@ -24,6 +24,10 @@ import torch
 
 from .checkers import checker_failure, compose_valid
 from .decode import LazyHistories, decode_compact_rows, decode_dense
+from .faults import (FAULT_KINDS, compile_fault_fuzz, compile_fault_plan,
+                     generate_fault_plan)
+from .faults import fuzz as faults_fuzz
+from .faults.engine import plan_summary
 from .netsim import LATENCY_DISTS, NetConfig
 from .runtime import (ClientConfig, Model, NEMESIS_KINDS, NemesisConfig,
                       SimConfig, run_sim)
@@ -58,8 +62,24 @@ TORCH_DEFAULTS = dict(
     chunk_ticks=100,
     event_capacity=0,        # 0 = auto from the client rate
     scan_top_k=8,
+    nemesis_kind="random-halves",
+    nemesis_schedule=(),     # kind="scripted": ((until_tick, ((dst, src),
+                             # ...)), ...)
+    fault_plan=None,         # fault-plan dict (faults/spec.py)
+    fault_fuzz=None,         # fault distribution dict (faults/fuzz.py)
+    fault_snapshot_every=None,  # slab stride; None = the plan's own
     seed=0,
 )
+
+# run-lifecycle options of the JAX harness that change neither the
+# trajectory nor the verdict: accepted and not used
+LIFECYCLE_OPTS = ("heartbeat", "device_profile", "aot_store",
+                  "check_workers", "compile_cache")
+# JAX-harness options the port implements only at their neutral value
+NEUTRAL_OPTS = {"journal_instances": (0, None), "netid": (None, False),
+                "check_mode": ("farm", None)}
+KNOWN_OPTS = (set(TORCH_DEFAULTS) | set(LIFECYCLE_OPTS) | set(NEUTRAL_OPTS)
+              | {"store_root", "device"})
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -75,6 +95,18 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
+    """The static run configuration from CLI-style options. An option
+    the port does not implement raises, naming it: nothing is dropped
+    silently."""
+    unknown = sorted(set(opts) - KNOWN_OPTS)
+    if unknown:
+        raise ValueError(f"option(s) {', '.join(unknown)} not implemented "
+                         f"by maelstrom_tpu_torch")
+    for k, neutral in NEUTRAL_OPTS.items():
+        if opts.get(k) not in neutral:
+            raise ValueError(f"option {k}={opts[k]!r} is not implemented "
+                             f"by maelstrom_tpu_torch (only "
+                             f"{' or '.join(map(repr, neutral))})")
     o = {**TORCH_DEFAULTS, **opts}
     if o.get("layout", "lead") not in ("lead", "auto"):
         raise ValueError("maelstrom_tpu_torch implements the batch-leading "
@@ -87,9 +119,6 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
             f"time_limit {o['time_limit']}s at {mpt} ms/tick needs "
             f"{n_ticks} ticks, past the 2^20-tick delivery horizon; "
             f"raise ms_per_tick")
-    if o.get("journal_instances") or o.get("netid"):
-        raise ValueError("per-message journals (and their NETID lane) are "
-                         "not ported")
     net = NetConfig(
         n_nodes=o["node_count"], n_clients=o["concurrency"],
         pool_slots=o["pool_slots"], inbox_k=o["inbox_k"],
@@ -106,22 +135,24 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
         rate=min(1.0, float(o["rate"]) / o["concurrency"] / 1000.0 * mpt),
         timeout_ticks=int(o["rpc_timeout"] * 1000 / mpt),
         final_start=stop_tick + recovery_ticks // 2)
-    kind = o.get("nemesis_kind", "random-halves")
+    kind = o["nemesis_kind"]
     if kind not in NEMESIS_KINDS:
         raise ValueError(f"nemesis kind {kind!r} is not ported "
                          f"(ported: {', '.join(NEMESIS_KINDS)})")
-    unported = [k for k in (o["nemesis"] or []) if k != "partition"]
-    if unported:
-        raise ValueError(f"nemesis {', '.join(unported)} is not ported "
-                         f"(ported: partition)")
+    unknown = [k for k in (o["nemesis"] or [])
+               if k != "partition" and k not in FAULT_KINDS]
+    if unknown:
+        raise ValueError(f"nemesis {', '.join(unknown)} is not ported "
+                         f"(ported: partition, {', '.join(FAULT_KINDS)})")
+    interval = max(1, int(o["nemesis_interval"] * 1000 / mpt))
     nemesis = NemesisConfig(
         enabled="partition" in (o["nemesis"] or []),
-        interval=max(1, int(o["nemesis_interval"] * 1000 / mpt)),
-        kind=kind, stop_tick=stop_tick,
+        interval=interval, kind=kind, stop_tick=stop_tick,
         schedule=tuple(sorted(
             ((int(until), tuple((int(d), int(s)) for d, s in pairs))
-             for until, pairs in o.get("nemesis_schedule", ())),
+             for until, pairs in o["nemesis_schedule"]),
             key=lambda p: p[0])))
+    faults = _fault_config(o, n_ticks, interval, stop_tick)
     stride = int(o.get("telemetry_stride") or 0)
     if stride <= 0:
         stride = max(1, -(-n_ticks // 256))
@@ -134,7 +165,47 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
                      n_instances=o["n_instances"], n_ticks=n_ticks,
                      record_instances=min(o["record_instances"],
                                           o["n_instances"]),
-                     telemetry=telemetry)
+                     telemetry=telemetry, faults=faults)
+
+
+def _fault_config(o: Dict[str, Any], n_ticks: int, interval: int,
+                  stop_tick: int):
+    """The fault plan (an explicit ``fault_plan``, or the fault kinds in
+    ``nemesis`` generated on the partition interval grid) or the fuzz
+    distribution; both heal at ``stop_tick``. The JAX harness's rules:
+    one schedule source per run, and requested fault kinds that make no
+    fault are refused."""
+    fault_kinds = [k for k in (o["nemesis"] or []) if k in FAULT_KINDS]
+    plan = o["fault_plan"]
+    dist = o["fault_fuzz"]
+    if plan and fault_kinds:
+        raise ValueError(
+            f"--fault-plan and the generated fault nemesis kinds "
+            f"({', '.join(fault_kinds)}) are mutually exclusive — put "
+            f"the faults in the plan file")
+    if dist and (plan or fault_kinds):
+        raise ValueError(
+            "--fault-fuzz (per-instance randomized schedules) is "
+            "mutually exclusive with --fault-plan and the generated "
+            "fault nemesis kinds — one run speaks one schedule source")
+    if not plan and fault_kinds:
+        plan = generate_fault_plan(fault_kinds, o["node_count"], n_ticks,
+                                   interval, stop_tick)
+    every = o["fault_snapshot_every"]
+    every = None if every is None else int(every)
+    if dist:
+        faults = compile_fault_fuzz(dist, o["node_count"], stop_tick,
+                                    snapshot_every=every)
+    else:
+        faults = compile_fault_plan(plan, o["node_count"], stop_tick,
+                                    snapshot_every=every)
+    if fault_kinds and not faults.active:
+        raise ValueError(
+            f"--nemesis {'/'.join(fault_kinds)} generated no fault "
+            f"lanes for node_count={o['node_count']} (crash-restart "
+            f"and link-degrade need >= 2 server nodes; use clock-skew "
+            f"or an explicit --fault-plan for single-node workloads)")
+    return faults
 
 
 def resolve_pipeline(sim: SimConfig, opts: Dict[str, Any]) -> bool:
@@ -306,6 +377,14 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
     tel = _telemetry_summary(carry.telemetry)
     if tel is not None:
         results["telemetry"] = tel
+    if sim.faults.active:
+        results["faults"] = plan_summary(sim.faults)
+    if sim.faults.has_fuzz:
+        # schedule-space coverage: a CPU re-draw of the fleet's windows
+        results["fault-fuzz"] = faults_fuzz.fleet_coverage(
+            faults_fuzz.fleet_windows(sim.faults, sim.net.n_nodes,
+                                      int(opts["seed"]),
+                                      np.arange(sim.n_instances)))
     if phases.get("pipeline", {}).get("overflowed-chunks"):
         results["events-truncated"] = True
     if run_dir is not None:

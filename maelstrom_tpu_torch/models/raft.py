@@ -57,7 +57,8 @@ class RaftModel(Model):
     proxy_hops_lane = 3
 
     # the correct protocol (the JAX package's planted-bug variants flip
-    # these; the port carries only the correct one)
+    # these and recovers_snapshot below; the port carries only the
+    # correct one)
     vote_check_voted_for = True
     vote_check_log = True
     vote_check_log_index = True
@@ -123,8 +124,61 @@ class RaftModel(Model):
     def inbox_step(self, row, node_idx, msg, jitter, t, cfg):
         return raft_core.inbox_step(self, row, node_idx, msg, jitter, t, cfg)
 
-    def fused_tick(self, row, node_idx, t, jitter, cfg):
-        return raft_core.fused_tick(self, row, node_idx, t, jitter, cfg)
+    def fused_tick(self, row, node_idx, t, jitter, cfg, m_bits=None):
+        return raft_core.fused_tick(self, row, node_idx, t, jitter, cfg,
+                                    m_bits=m_bits)
+
+    # --- crash-restart recovery and membership (faults/) --------------------
+    #
+    # Raft persists term/votedFor and the log synchronously and rebuilds
+    # the state machine from the log on restart, so the applied KV and
+    # its cursors count as durable: the snapshot slab holds exactly
+    # these lanes, and a restart rebuilds the row as a follower with
+    # every volatile field (role, votes, replication cursors, leader
+    # hint, timers) reset. caught_up is durable so that a joining
+    # learner that crashes before catching up restarts as a learner.
+
+    DURABLE_LANES = ("term", "voted_for", "log_term", "log_body",
+                     "log_len", "kv", "commit_idx", "last_applied",
+                     "truncated_committed", "cfg_boot", "caught_up")
+
+    recovers_snapshot = True   # False: restart ignores durable storage
+
+    def snapshot_row(self, row: RaftRow):
+        """The durable subset, a dict of lanes (pure field selection)."""
+        return {k: getattr(row, k) for k in self.DURABLE_LANES}
+
+    def restart_row(self, keys, snap, t):
+        """Restart rows for node keys ``[I, N, 2]``: the init row with its
+        timers re-based on the restart tick ``t`` (the node-local clock
+        ``[I, N]`` under the skew lane, else the global tick), then the
+        slab's durable lanes ``snap`` (leaves ``[I, N, ...]``)."""
+        fresh = self.init_state(keys.shape[1], keys)
+        fresh = fresh._replace(
+            election_deadline=(fresh.election_deadline + t).to(_I32),
+            last_hb=(fresh.last_hb + t).to(_I32))
+        if not self.recovers_snapshot:
+            return fresh
+        return fresh._replace(**{k: snap[k] for k in self.DURABLE_LANES})
+
+    def boot_config(self, node_state: RaftRow, m_bits: int) -> RaftRow:
+        """Stamp the initial (phase-0) member bitmask as every node's
+        provisioning config."""
+        return node_state._replace(
+            cfg_boot=torch.full_like(node_state.cfg_boot, m_bits))
+
+    def join_row(self, row: RaftRow, m_bits: torch.Tensor) -> RaftRow:
+        """A joining node from its restart rows ``row`` (leaves ``[I, N,
+        ...]``): the current target bitmask ``m_bits [I]`` becomes its
+        provisioning config, and a node with an empty log starts as a
+        non-voting learner (``caught_up = 0``) until an AppendEntries
+        shows it holds the committed prefix."""
+        caught = (row.log_len > 0).to(_I32)
+        if not self.join_requires_catchup:
+            caught = torch.ones_like(caught)
+        return row._replace(
+            cfg_boot=m_bits.to(_I32)[:, None].expand_as(row.cfg_boot),
+            caught_up=caught)
 
     def apply_entry(self, row, do, entry, cfg):
         """Apply one committed entry per node to the KV state machine and

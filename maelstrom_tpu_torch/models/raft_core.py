@@ -151,10 +151,11 @@ def node_rng(model, mkeys: torch.Tensor):
 # --- the sequential core ---------------------------------------------------
 
 
-def inbox_step(model, row, node_idx, msg, jitter, t: int, cfg):
+def inbox_step(model, row, node_idx, msg, jitter, t, cfg):
     """One inbox slot for every node of the batch: ``(row', reply
     [B, L])`` from ``msg [B, L]``. Self-gates on invalid (all-zero)
-    slots like the JAX core."""
+    slots like the JAX core. ``t`` is the global tick (an int) or each
+    row's local clock ``[B]`` under the clock-skew lane."""
     n = cfg.n_nodes
     cap = model.log_cap
     mtype = msg[:, wire.TYPE]
@@ -348,11 +349,13 @@ def apply_frontier(model, row):
     return do, tget(row.log_body, row.last_applied)
 
 
-def fused_tick(model, row, node_idx, t: int, jitter, cfg):
+def fused_tick(model, row, node_idx, t, jitter, cfg, m_bits=None):
     """Election timer, leader commit advance, ``apply_max`` applies and
-    the peer-send table, for every node of the batch. Membership-free:
-    the target member mask is the full cluster. Returns ``(row', outs
-    [B, apply_max + n - 1, L])``."""
+    the peer-send table, for every node of the batch. ``t`` is the
+    global tick (an int) or each row's local clock ``[B]``; ``m_bits
+    [B]`` is the membership lane's target member bitmask, the full
+    cluster when ``None``. Returns ``(row', outs [B, apply_max + n - 1,
+    L])``."""
     n = cfg.n_nodes
     nid = node_idx
 
@@ -410,9 +413,11 @@ def fused_tick(model, row, node_idx, t: int, jitter, cfg):
         out[:, wire.ORIGIN] = nid
         replies.append(out)
 
-    # 3b) the reconfiguration driver, with the full cluster as target
+    # 3b) the reconfiguration driver: a leader whose configuration
+    # differs from the target appends one C_old,new entry, then C_new
+    # once it commits
     cap = model.log_cap
-    m_tgt = full_member_mask(n)
+    m_tgt = full_member_mask(n) if m_bits is None else m_bits
     is_leader_now = row.role == 2
     want_joint = (is_leader_now & ~joint & (c_new != m_tgt) & ~pending
                   & (row.log_len < cap))

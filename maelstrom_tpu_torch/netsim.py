@@ -22,7 +22,7 @@ of non-taken inbox slots are matched exactly.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -158,12 +158,19 @@ def latency_from_bits(bits: torch.Tensor, cfg: NetConfig) -> torch.Tensor:
 
 
 def enqueue(pool: torch.Tensor, msgs: torch.Tensor, t: int,
-            key: torch.Tensor, cfg: NetConfig
+            key: torch.Tensor, cfg: NetConfig,
+            edge_delay: Optional[torch.Tensor] = None,
+            edge_loss_pm: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                        torch.Tensor]:
     """Insert outgoing rows ``msgs [I, M, L]`` (invalid rows ignored)
     into ``pool [I, S, L]`` with keys ``[I, 2]``. Returns
     ``(pool', n_sent [I], n_lost [I], n_overflow [I])``.
+
+    ``edge_delay`` / ``edge_loss_pm`` are the fault engine's link planes
+    ``[I, NT, NT]`` per ``(dest, origin)`` edge: extra latency ticks and
+    a per-mille loss rolled on its own key ``fold_in(key, 2)``, so the
+    base draws stay as they are; zero planes are value-neutral.
 
     Slot ``j`` of the empty-slots-first order receives the ``j``-th live
     message; each slot gathers the one message aimed at it, as in the
@@ -173,12 +180,20 @@ def enqueue(pool: torch.Tensor, msgs: torch.Tensor, t: int,
     dev = pool.device
     msg_valid = msgs[..., wire.VALID] == 1
 
-    # k_lat, k_loss = split(key); both draw M values in one call
-    bits = rng.random_bits(rng.split(key, 2), (M,))          # [I, 2, M]
+    # k_lat, k_loss = split(key) and the edge-loss key fold_in(key, 2)
+    # are split(key, 3)'s blocks: every draw of M values in one call
+    n_keys = 2 if edge_loss_pm is None else 3
+    bits = rng.random_bits(rng.split(key, n_keys), (M,))     # [I, n, M]
     is_client_edge = ((msgs[..., wire.ORIGIN] >= cfg.n_nodes)
                       | (msgs[..., wire.DEST] >= cfg.n_nodes))
     lat = latency_from_bits(bits[:, 0], cfg)
     lat = torch.where(is_client_edge, torch.zeros_like(lat), lat)
+    if edge_delay is not None or edge_loss_pm is not None:
+        NT = cfg.n_total
+        edge = (jax_index(msgs[..., wire.DEST], NT) * NT
+                + jax_index(msgs[..., wire.ORIGIN], NT))       # [I, M]
+    if edge_delay is not None:
+        lat = lat + edge_delay.reshape(I, -1).gather(1, edge)
     dtick = (t + 1 + lat).to(torch.int32)
 
     if cfg.p_loss > 0:
@@ -186,6 +201,11 @@ def enqueue(pool: torch.Tensor, msgs: torch.Tensor, t: int,
                 < xla_math.f32(cfg.p_loss)) & msg_valid
     else:
         lost = torch.zeros((I, M), dtype=torch.bool, device=dev)
+    if edge_loss_pm is not None:
+        pm = edge_loss_pm.reshape(I, -1).gather(1, edge)
+        lost = lost | ((rng.uniform_from_bits(bits[:, 2])
+                        * xla_math.f32(1000.0) < pm.to(torch.float32))
+                       & msg_valid)
     live = msg_valid & ~lost
 
     pool_valid = pool[..., wire.VALID] == 1

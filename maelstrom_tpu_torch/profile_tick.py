@@ -2,19 +2,22 @@
 ``torch.profiler``.
 
     python -m maelstrom_tpu_torch.profile_tick [--instances 4096]
-        [--ticks 20] [--out chiprun_out/tick_profile.json]
+        [--ticks 20] [--fuzz] [--out chiprun_out/tick_profile.json]
 
 Runs the main-path configuration (3 nodes, 6 clients, inbox_k=1, 16
 pool slots, exponential latency, 5% loss, the partition nemesis,
-telemetry on) on ``cuda``: warms up past the first partition phase
-(t >= 400), times ``--ticks`` ticks on the host clock around a
-synchronize (wall ms/tick), then profiles the same number of ticks and
-reports per tick: the kernels launched, the device-busy time (sum of
-kernel durations) and so the idle share, the delivery kernel's device
-time, and per phase (the runtime's ``record_function`` scopes) the host
-time and the busy device time of its kernels. Prints one JSON object
-and writes it to ``--out``. Needs a CUDA card; refuses to run without
-one.
+telemetry on) on ``cuda``; ``--fuzz`` adds the benchmark's all-healthy
+fault distribution (``faults.fuzz.BENCH_FUZZ_DIST``) as a second
+configuration in the same process. Each configuration warms up past
+the first partition phase (t >= 400); then ``--ticks`` ticks are timed
+on the host clock around a synchronize (wall ms/tick), in turns bare,
+fuzz, fuzz, bare, and each configuration profiles the same number of
+ticks. Per configuration and per tick it reports the kernels launched,
+the device-busy time (sum of kernel durations) and so the idle share,
+the delivery kernel's device time, and per phase (the runtime's
+``record_function`` ranges) the host time and the busy device time of
+its kernels. Prints one JSON object and writes it to ``--out``. Needs a
+CUDA card; refuses to run without one.
 """
 
 from __future__ import annotations
@@ -27,66 +30,54 @@ import time
 
 import torch
 
-PHASES = ("nemesis", "deliver", "node_phase", "client_step", "enqueue",
-          "telemetry")
+PHASES = ("nemesis", "faults", "deliver", "node_phase", "client_step",
+          "enqueue", "telemetry")
+
+MAIN_OPTS = dict(node_count=3, concurrency=6, record_instances=1,
+                 time_limit=4.0, rate=200.0, latency=5.0, rpc_timeout=1.0,
+                 nemesis=["partition"], nemesis_interval=0.4, p_loss=0.05,
+                 recovery_time=0.3, seed=7, telemetry=True, inbox_k=1,
+                 pool_slots=16)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m maelstrom_tpu_torch."
-                                      "profile_tick")
-    ap.add_argument("--instances", type=int, default=4096)
-    ap.add_argument("--ticks", type=int, default=20)
-    ap.add_argument("--warmup-to", type=int, default=420)
-    ap.add_argument("--out", default="chiprun_out/tick_profile.json")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_tick needs a CUDA card")
-    from torch.profiler import ProfilerActivity, profile
+class _Fleet:
+    """One configuration's carry and tick, stepped from tick 0."""
 
-    from . import harness, runtime
-    from .kernels import build, delivery, devtime
-    from .models.raft import RaftModel
+    def __init__(self, model, opts, dev):
+        from . import harness, runtime
+        sim = harness.make_sim_config(model, opts)
+        self.carry = runtime.init_carry(model, sim, opts["seed"], dev)
+        self.tick = runtime.make_tick_fn(model, sim, device=dev)
+        self.t = 0
 
-    build.build_all([delivery.SOURCE])
-    dev = torch.device("cuda")
-    model = RaftModel(n_nodes_hint=3, log_cap=64, heartbeat=8)
-    opts = dict(node_count=3, concurrency=6, n_instances=args.instances,
-                record_instances=1, time_limit=4.0, rate=200.0,
-                latency=5.0, rpc_timeout=1.0, nemesis=["partition"],
-                nemesis_interval=0.4, p_loss=0.05, recovery_time=0.3,
-                seed=7, telemetry=True, inbox_k=1, pool_slots=16)
-    sim = harness.make_sim_config(model, opts)
-    carry = runtime.init_carry(model, sim, 7, dev)
-    tick = runtime.make_tick_fn(model, sim, device=dev)
-    t = 0
-    with torch.no_grad():
-        while t < args.warmup_to:
-            carry, _ = tick(carry, t)
-            t += 1
+    def run(self, n: int) -> None:
+        for _ in range(n):
+            self.carry, _ = self.tick(self.carry, self.t)
+            self.t += 1
+
+    def wall_ms(self, n: int) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(args.ticks):
-            carry, _ = tick(carry, t)
-            t += 1
+        self.run(n)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.ticks
+        return (time.perf_counter() - t0) * 1e3 / n
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.ticks):
-                carry, _ = tick(carry, t)
-                t += 1
-            torch.cuda.synchronize()
-    n = args.ticks
+
+def _breakdown(fleet: _Fleet, n: int, wall_ms: float, kernel_name: str):
+    """Profile ``n`` ticks: kernels, busy and idle share, per phase."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fleet.run(n)
+        torch.cuda.synchronize()
     # host side: each phase's record_function range on the CPU; device
     # side: the kernels (and copies) on the card, each charged to the
     # phase whose device-timeline annotation range holds its start
-    events = prof.events()
     on_card = lambda e: str(e.device_type).endswith("CUDA")
     host_us = {ph: 0.0 for ph in PHASES}
     spans = []
     kernels = []
-    for e in events:
+    for e in prof.events():
         if e.name in PHASES:
             if on_card(e):
                 spans.append((e.time_range.start, e.time_range.end, e.name))
@@ -97,37 +88,79 @@ def main(argv=None) -> int:
     spans.sort()
     starts = [lo for lo, _, _ in spans]
     dev_us = {ph: 0.0 for ph in PHASES}
+    kernels_in = {ph: 0 for ph in PHASES}
     by_name = {}
     for k in kernels:
         d = k.time_range.elapsed_us()
         i = bisect.bisect_right(starts, k.time_range.start) - 1
         if i >= 0 and k.time_range.start <= spans[i][1]:
             dev_us[spans[i][2]] += d
+            kernels_in[spans[i][2]] += 1
         c, tot = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (c + 1, tot + d)
     busy_us = sum(k.time_range.elapsed_us() for k in kernels)
-    phases = {ph: {"host_ms_per_tick": host_us[ph] / 1e3 / n,
-                   "device_busy_ms_per_tick": dev_us[ph] / 1e3 / n}
-              for ph in PHASES}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    deliver = [v for name, v in by_name.items()
-               if delivery.KERNEL_NAME in name]
-    rec = {
-        "card": devtime.card_line(),
-        "instances": args.instances,
+    deliver = [v for name, v in by_name.items() if kernel_name in name]
+    return {
         "ticks_profiled": n,
-        "from_tick": t - n,
+        "from_tick": fleet.t - n,
         "wall_ms_per_tick": wall_ms,
         "device_kernels_per_tick": len(kernels) / n,
         "device_busy_ms_per_tick": busy_us / 1e3 / n,
         "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / n / wall_ms),
         "deliver_kernel_device_ms": (deliver[0][1] / deliver[0][0] / 1e3
                                      if deliver else None),
-        "phases": phases,
+        "phases": {ph: {"host_ms_per_tick": host_us[ph] / 1e3 / n,
+                        "device_busy_ms_per_tick": dev_us[ph] / 1e3 / n,
+                        "device_kernels_per_tick": kernels_in[ph] / n}
+                   for ph in PHASES},
         "top_kernels": [{"kernel": name[:120], "per_tick": c / n,
                          "device_ms_per_tick": tot / 1e3 / n}
                         for name, (c, tot) in top],
     }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m maelstrom_tpu_torch."
+                                      "profile_tick")
+    ap.add_argument("--instances", type=int, default=4096)
+    ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--warmup-to", type=int, default=420)
+    ap.add_argument("--fuzz", action="store_true",
+                    help="also profile under the benchmark's all-healthy "
+                         "fault distribution, in the same process")
+    ap.add_argument("--out", default="chiprun_out/tick_profile.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_tick needs a CUDA card")
+
+    from .faults.fuzz import BENCH_FUZZ_DIST
+    from .kernels import build, delivery, devtime
+    from .models.raft import RaftModel
+
+    build.build_all([delivery.SOURCE])
+    dev = torch.device("cuda")
+    model = RaftModel(n_nodes_hint=3, log_cap=64, heartbeat=8)
+    opts = dict(MAIN_OPTS, n_instances=args.instances)
+    configs = {"bare": opts}
+    if args.fuzz:
+        configs["fuzz"] = dict(opts, fault_fuzz=BENCH_FUZZ_DIST)
+    fleets = {}
+    with torch.no_grad():
+        for name, o in configs.items():
+            fleets[name] = _Fleet(model, o, dev)
+            fleets[name].run(args.warmup_to)
+        order = list(configs) + list(configs)[::-1]   # bare, fuzz, fuzz, bare
+        walls = {name: [] for name in configs}
+        for name in order:
+            walls[name].append(fleets[name].wall_ms(args.ticks))
+        rec = {"card": devtime.card_line(), "instances": args.instances,
+               "wall_order": order, "configs": {}}
+        for name, fleet in fleets.items():
+            wall = sum(walls[name]) / len(walls[name])
+            rec["configs"][name] = dict(
+                _breakdown(fleet, args.ticks, wall, delivery.KERNEL_NAME),
+                wall_ms_runs=walls[name])
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=1)

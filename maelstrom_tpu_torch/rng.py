@@ -7,7 +7,7 @@ tick. This module mirrors JAX's default threefry implementation with
 ``jax_threefry_partitionable=True`` (``jax/_src/prng.py``:
 ``threefry_seed``, ``iota_2x32_shape``, the fold-like split and the
 partitionable random bits; ``jax/_src/random.py``: ``uniform``,
-``randint``, ``bernoulli``).
+``randint``, ``bernoulli``, ``_shuffle`` behind ``permutation``).
 
 Representation: a key is an int64 tensor ``[..., 2]`` holding two
 uint32 words; all arithmetic is int64 masked to 32 bits, which is
@@ -184,3 +184,21 @@ def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int] = ()
     """``jax.random.bernoulli(key, p, shape)`` (mode 'low'): a float32
     uniform compared against float32 ``p``."""
     return uniform(key, shape) < xla_math.f32(p)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` batched: ``[..., 2] -> [...,
+    n]`` int32. JAX's ``_shuffle``: ``ceil(3 ln(max(1, n)) / ln(2^32 -
+    1))`` rounds (one for n up to ~1,600, none for n = 1), each
+    splitting the key, drawing 32-bit sort keys from the second half
+    and reordering by a stable sort on them (``lax.sort_key_val``)."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    x = torch.arange(n, dtype=torch.int32, device=key.device).expand(
+        key.shape[:-1] + (n,))
+    for _ in range(rounds):
+        halves = split(key, 2)
+        key = halves[..., 0, :]
+        order = torch.argsort(random_bits(halves[..., 1, :], (n,)), dim=-1,
+                              stable=True)
+        x = x.gather(-1, order)
+    return x

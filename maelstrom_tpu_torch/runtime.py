@@ -7,10 +7,14 @@ stream; the runtime stacks ``n_instances`` of them on a leading axis
 and steps them all each tick:
 
     nemesis     : per-instance partition matrices from the schedule
+    faults      : the fault planes (faults/): crash and park wipes,
+                  edge blocks folded into the partitions
     deliver     : the delivery kernel (kernels/delivery.py)
     node phase  : batched RNG, the per-slot core, the tick hook
     client step : decode replies -> history events; draw/encode new ops
-    enqueue     : netsim.enqueue with latency and loss
+    enqueue     : crash/park send masks, client retarget, then
+                  netsim.enqueue with latency, loss and the link planes
+    faults      : the snapshot slab update
     invariants + the telemetry fold
 
 Every random draw derives from (master key, purpose, [tick,] instance
@@ -29,6 +33,9 @@ import torch
 from torch.profiler import record_function
 
 from . import netsim, rng, wire, xla_math
+from .faults import engine as faults_engine
+from .faults import fuzz as faults_fuzz
+from .faults.engine import NO_PLANES, FaultConfig
 from .kernels import delivery
 from .netsim import NetConfig, NetStats, sum_i32
 from .telemetry import recorder as flight
@@ -83,7 +90,7 @@ class Model:
     def inbox_step(self, row, node_idx, msg, jitter, t, cfg):
         raise NotImplementedError
 
-    def fused_tick(self, row, node_idx, t, jitter, cfg):
+    def fused_tick(self, row, node_idx, t, jitter, cfg, m_bits=None):
         raise NotImplementedError
 
     def invariants(self, node_state, cfg: NetConfig) -> torch.Tensor:
@@ -221,15 +228,19 @@ class NemesisConfig(NamedTuple):
     schedule: tuple = ()       # kind="scripted": ((until_tick, ((dst,
                                # src), ...)), ...) ordered by until_tick
 
-NEMESIS_KINDS = ("random-halves", "scripted")
+NEMESIS_KINDS = ("random-halves", "isolated-node", "majorities-ring",
+                 "scripted")
 
 
 def partition_matrix(nem: NemesisConfig, cfg: NetConfig, t: int,
                      instance_keys: torch.Tensor) -> torch.Tensor:
     """Partition matrices ``[I, NT, NT]`` at tick ``t``: alternating
     heal/partition phases every ``interval`` ticks with a fresh random
-    halving of the server nodes each phase (``random-halves``), or a
-    fixed per-phase schedule (``scripted``). Clients are never cut."""
+    grudge each phase — a halving of the server nodes
+    (``random-halves``), one node cut off from the others
+    (``isolated-node``), or each node seeing a distinct majority around a
+    random ring (``majorities-ring``) — or a fixed per-phase schedule
+    (``scripted``). Clients are never cut."""
     NT, n = cfg.n_total, cfg.n_nodes
     I = instance_keys.shape[0]
     dev = instance_keys.device
@@ -257,8 +268,20 @@ def partition_matrix(nem: NemesisConfig, cfg: NetConfig, t: int,
     if not (phase % 2 == 1 and t < nem.stop_tick):
         return none
     key = rng.fold_in(instance_keys, phase)
-    side = rng.bernoulli(key, 0.5, (NT,))                      # [I, NT]
-    blocked = side[:, :, None] != side[:, None, :]
+    if nem.kind == "isolated-node":
+        victim = rng.randint(key, (), 0, n)                    # [I]
+        isolated = torch.arange(NT, device=dev) == victim[:, None]
+        blocked = isolated[:, :, None] ^ isolated[:, None, :]
+    elif nem.kind == "majorities-ring":
+        perm = rng.permutation(key, n).long()                  # [I, n]
+        pos = torch.zeros((I, NT), dtype=_I32, device=dev).scatter(
+            1, perm, torch.arange(n, dtype=_I32, device=dev).expand(I, n))
+        maj = n // 2 + 1
+        dist = torch.remainder(pos[:, None, :] - pos[:, :, None], n)
+        blocked = ~((dist <= maj // 2) | (dist >= n - (maj - 1) // 2))
+    else:  # random-halves
+        side = rng.bernoulli(key, 0.5, (NT,))                  # [I, NT]
+        blocked = side[:, :, None] != side[:, None, :]
     return blocked & smask[None]
 
 
@@ -266,10 +289,16 @@ def partition_matrix(nem: NemesisConfig, cfg: NetConfig, t: int,
 
 
 def node_phase(model: Model, node_state, inbox_nodes: torch.Tensor, t: int,
-               keys: torch.Tensor, cfg: NetConfig):
+               keys: torch.Tensor, cfg: NetConfig,
+               t_nodes: Optional[torch.Tensor] = None,
+               m_bits: Optional[torch.Tensor] = None):
     """All nodes of all instances handle their inboxes, then run the
     tick hook. ``node_state`` leaves ``[I, N, ...]``, ``inbox_nodes
-    [I, N, K, L]``, ``keys [I, 2]``. Returns ``(state', outs [I,
+    [I, N, K, L]``, ``keys [I, 2]``. ``t_nodes [I, N]`` (clock-skew
+    lane) replaces the global ``t`` with each node's local clock;
+    ``m_bits [I]`` (membership lane) is the target member bitmask.
+    Without them every node sees the Python int ``t`` and the full
+    cluster, as before the fault lanes. Returns ``(state', outs [I,
     N * (K + per-tick rows), L])``."""
     I, N, K, L = inbox_nodes.shape
     B = I * N
@@ -283,13 +312,17 @@ def node_phase(model: Model, node_state, inbox_nodes: torch.Tensor, t: int,
     node_idx = torch.arange(N, dtype=_I32, device=dev).repeat(I)
     slot_jit = slot_jit.reshape(B, K)
     msgs = inbox_nodes.reshape(B, K, L)
+    if t_nodes is not None:
+        t = t_nodes.reshape(B)
+    if m_bits is not None:
+        m_bits = m_bits[:, None].expand(I, N).reshape(B)
     outs = []
     for k in range(K):
         row, out = model.inbox_step(row, node_idx, msgs[:, k], slot_jit[:, k],
                                     t, cfg)
         outs.append(out)
     row, outs_t = model.fused_tick(row, node_idx, t, tick_jit.reshape(B),
-                                   cfg)
+                                   cfg, m_bits=m_bits)
     outs = torch.cat([torch.stack(outs, dim=1), outs_t], dim=1)
     state = type(node_state)(*(x.reshape((I, N) + x.shape[1:]) for x in row))
     return state, outs.reshape(I, -1, L)
@@ -306,6 +339,8 @@ class SimConfig(NamedTuple):
     n_ticks: int
     record_instances: int
     telemetry: TelemetryConfig = TelemetryConfig()
+    faults: FaultConfig = FaultConfig()   # the fault plan or fuzz
+                                          # distribution (faults/)
 
 
 class Carry(NamedTuple):
@@ -317,6 +352,11 @@ class Carry(NamedTuple):
     violations: torch.Tensor    # [I] ticks each instance violated
     key: torch.Tensor           # the constant master key [2]
     telemetry: Any = None       # flight recorder, None when disabled
+    snapshots: Any = None       # snapshot slab: Model.snapshot_row's
+                                # dict of durable lanes [I, N, ...]; None
+                                # unless a crash or membership lane runs
+    fault_sched: Any = None     # faults.fuzz.FaultSchedule [I, ...],
+                                # drawn at init; None unless fuzzing
 
 
 # RNG purpose tags (runtime.py in the JAX package)
@@ -325,6 +365,8 @@ _RNG_NEMESIS = 1
 _RNG_NODE = 2
 _RNG_CLIENT = 3
 _RNG_ENQUEUE = 4
+_RNG_RESTART = 5      # crash-restart and join re-init draws
+_RNG_FAULTS = faults_fuzz.RNG_PURPOSE   # = 6: the fuzzed schedules
 
 
 def instance_keys(master: torch.Tensor, purpose: int,
@@ -341,16 +383,18 @@ def instance_keys(master: torch.Tensor, purpose: int,
 _TICK_PURPOSES = (_RNG_NEMESIS, _RNG_NODE, _RNG_CLIENT, _RNG_ENQUEUE)
 
 
-def tick_keys(master: torch.Tensor, instance_ids: torch.Tensor, t: int
-              ) -> torch.Tensor:
+def tick_keys(master: torch.Tensor, instance_ids: torch.Tensor, t: int,
+              restart: bool = False) -> torch.Tensor:
     """The tick's instance keys for all four purposes in three batched
-    calls: ``[4, I, 2]`` in ``_TICK_PURPOSES`` order. The nemesis keys
-    skip the tick fold (a grudge holds for its whole phase); the others
+    calls: ``[4, I, 2]`` in ``_TICK_PURPOSES`` order, and with
+    ``restart`` a fifth row for ``_RNG_RESTART``. The nemesis keys skip
+    the tick fold (a grudge holds for its whole phase); the others
     equal ``instance_keys(master, purpose, ids, t)``."""
-    # _TICK_PURPOSES is the contiguous range 1..4
+    # _TICK_PURPOSES and _RNG_RESTART are the contiguous range 1..5
+    last = _RNG_RESTART if restart else _RNG_ENQUEUE
     kp = rng.fold_in(master[None, :],
-                     torch.arange(_RNG_NEMESIS, _RNG_ENQUEUE + 1,
-                                  device=master.device))       # [4, 2]
+                     torch.arange(_RNG_NEMESIS, last + 1,
+                                  device=master.device))       # [4|5, 2]
     kt = torch.cat([kp[:1], rng.fold_in(kp[1:], t)], dim=0)
     return rng.fold_in(kt[:, None, :], instance_ids[None, :])
 
@@ -368,6 +412,18 @@ def init_carry(model: Model, sim: SimConfig, seed: int, device=None,
         instance_ids = default_instance_ids(sim, device)
     ikeys = instance_keys(key, _RNG_INIT, instance_ids)
     node_state = model.init_state(cfg.n_nodes, rng.split(ikeys, cfg.n_nodes))
+    fx = sim.faults
+    # a plan's phase-0 members provision the boot config before the slab
+    # seeds, so a restart restores the same provisioning; fuzzed
+    # membership starts from the full cluster, init_state's default
+    if fx.has_members and not fx.has_fuzz:
+        node_state = model.boot_config(
+            node_state, sum(1 << v for v in fx.members[0]))
+    snapshots = (model.snapshot_row(node_state)
+                 if fx.has_crash or fx.has_members else None)
+    fault_sched = (faults_fuzz.draw_schedule(
+        instance_keys(key, _RNG_FAULTS, instance_ids), fx, cfg.n_nodes)
+        if fx.has_fuzz else None)
     return Carry(
         pool=torch.zeros((I, cfg.pool_slots, cfg.lanes), dtype=_I32,
                          device=device),
@@ -378,6 +434,8 @@ def init_carry(model: Model, sim: SimConfig, seed: int, device=None,
         violations=torch.zeros((I,), dtype=_I32, device=device),
         key=key,
         telemetry=flight.init_telemetry(I, sim.telemetry, device),
+        snapshots=snapshots,
+        fault_sched=fault_sched,
     )
 
 
@@ -408,18 +466,58 @@ def make_tick_fn(model: Model, sim: SimConfig,
     when nothing is recorded)."""
     cfg = sim.net
     ccfg = sim.client
+    fx = sim.faults
     N = cfg.n_nodes
+    L = cfg.lanes
+    I = sim.n_instances
     if instance_ids is None:
         instance_ids = default_instance_ids(sim, device)
+    tables = (faults_engine.plan_tables(fx, cfg, device)
+              if fx.active and not fx.has_fuzz else None)
+    wipes = fx.has_crash or fx.has_members
+
+    def fault_planes(carry: Carry, t: int):
+        if fx.has_fuzz:
+            # a lane configured at rate 0 stays in the tick
+            return faults_fuzz.schedule_planes(carry.fault_sched, fx, cfg,
+                                               t)
+        if tables is not None:
+            return faults_engine.tick_planes(fx, tables, t, I)
+        return NO_PLANES
 
     # the phases are torch.profiler ranges (the JAX runtime's named
     # scopes); they record nothing unless a profiler runs
     def tick_fn(carry: Carry, t: int):
         key = carry.key
         with record_function("nemesis"):
-            nem_keys, node_keys, client_keys, enq_keys = tick_keys(
-                key, instance_ids, t)
+            keys = tick_keys(key, instance_ids, t, restart=wipes)
+            nem_keys, node_keys, client_keys, enq_keys = keys[:4]
             partitions = partition_matrix(sim.nemesis, cfg, t, nem_keys)
+
+        node_state = carry.node_state
+        m_bits = park = None
+        with record_function("faults"):
+            planes = fault_planes(carry, t)
+            if planes.member is not None:
+                m_bits = faults_engine.member_bits(planes.member)
+                # every non-member tick and the join tick itself
+                park = ~(planes.member & planes.member_prev)
+            if wipes:
+                # crashed nodes are held in reset, non-(stable-)members
+                # parked at their join rows, both rebuilt from the slab
+                fresh = faults_engine.restart_rows(
+                    model, carry.snapshots,
+                    t if planes.t_nodes is None else planes.t_nodes,
+                    keys[4], N)
+                if planes.crash is not None:
+                    node_state = faults_engine.wipe_crashed(
+                        node_state, fresh, planes.crash)
+                if park is not None:
+                    node_state = faults_engine.wipe_parked(
+                        model, node_state, fresh, park, m_bits)
+            if planes.block is not None:
+                # edge blocks and crashed or parked receivers
+                partitions = partitions | planes.block
 
         with record_function("deliver"):
             pool, inbox, n_del, n_dropp = delivery.deliver(
@@ -427,7 +525,8 @@ def make_tick_fn(model: Model, sim: SimConfig,
 
         with record_function("node_phase"):
             node_state, node_outs = node_phase(
-                model, carry.node_state, inbox[:, :N], t, node_keys, cfg)
+                model, node_state, inbox[:, :N], t, node_keys, cfg,
+                t_nodes=planes.t_nodes, m_bits=m_bits)
 
         invoked_prev = carry.client_state.invoked
         with record_function("client_step"):
@@ -436,9 +535,32 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 cfg, ccfg)
 
         with record_function("enqueue"):
+            sends = None if planes.crash is None else ~planes.crash
+            if planes.member is not None:
+                sends = (planes.member if sends is None
+                         else sends & planes.member)
+                # clients only target nodes that exist
+                reqs = faults_engine.retarget_clients(reqs, planes.member)
+            if sends is not None:
+                # crashed and parked nodes send nothing
+                per_node = node_outs.view(I, N, -1, L)
+                per_node[..., wire.VALID] *= sends.to(_I32)[:, :, None]
             outs = torch.cat([node_outs, reqs], dim=1)
             pool, n_sent, n_lost, n_ovf = netsim.enqueue(
-                pool, outs, t, enq_keys, cfg)
+                pool, outs, t, enq_keys, cfg, edge_delay=planes.delay,
+                edge_loss_pm=planes.loss_pm)
+
+        snapshots = carry.snapshots
+        if snapshots is not None:
+            with record_function("faults"):
+                # held nodes never overwrite their slab row: it keeps the
+                # state the next restart or join restores
+                hold = planes.crash
+                if park is not None:
+                    hold = park if hold is None else hold | park
+                snapshots = faults_engine.update_snapshots(
+                    model, node_state, snapshots, hold, t,
+                    fx.snapshot_every)
 
         with record_function("telemetry"):
             s = carry.stats
@@ -457,7 +579,8 @@ def make_tick_fn(model: Model, sim: SimConfig,
         new_carry = Carry(pool=pool, node_state=node_state,
                           client_state=client_state, stats=stats,
                           violations=carry.violations + violated.to(_I32),
-                          key=key, telemetry=tel)
+                          key=key, telemetry=tel, snapshots=snapshots,
+                          fault_sched=carry.fault_sched)
         R = sim.record_instances
         return new_carry, (events[:R] if R > 0 else None)
 

@@ -1,7 +1,9 @@
 """The port's threefry keys and draws against ``jax.random``, bit for bit,
 over a sweep of seeds, purposes, ticks and instance ids: ``PRNGKey``,
 ``fold_in``, ``split`` (3, 4, N), ``randint`` at every bound the lin-kv
-path uses, ``bernoulli(0.5)`` and ``uniform`` on (0, 1) and (1e-6, 1)."""
+path and the fault fuzzer use (degenerate ranges included),
+``bernoulli(0.5)``, ``uniform`` on (0, 1) and (1e-6, 1), and
+``permutation``."""
 
 import jax
 import jax.numpy as jnp
@@ -114,3 +116,44 @@ def test_randint_from_bits_matches_split_draws():
         np.asarray(ref).view(np.int32),
         rng.uniform_from_bits(rng.bits_of_split(blocks)).numpy()
         .view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 17])
+def test_permutation(n):
+    """``jax.random.permutation(key, n)`` over 256 keys: zero rounds for
+    n = 1, one stable sort round on 32-bit keys otherwise."""
+    jk = _batch_keys(11, 256)
+    ref = jax.vmap(lambda k: jax.random.permutation(k, n))(jk)
+    got = rng.permutation(torch.from_numpy(_np_key(jk)), n)
+    assert got.dtype == torch.int32 and got.shape == (jk.shape[0], n)
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+@pytest.mark.parametrize("shape", [(), (5,), (2, 3)])
+@pytest.mark.parametrize("lo,hi", [(0, 1000), (3, 4), (40, 201), (7, 7),
+                                   (9, 2), (-5, 6), (64, 129)])
+def test_randint_ranges(shape, lo, hi):
+    """Scalar and vector randint, degenerate ranges ``[lo, lo]`` (hi =
+    lo + 1) and empty ones (hi <= lo returns lo), as the fuzzer draws."""
+    jk = _batch_keys(5, 64)
+    ref = jax.vmap(lambda k: jax.random.randint(k, shape, lo, hi))(jk)
+    got = rng.randint(torch.from_numpy(_np_key(jk)), shape, lo, hi)
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+def test_tick_keys_with_restart_keys():
+    """The fault lanes' fifth row: ``_RNG_RESTART`` keys at tick t, the
+    JAX runtime's crash and park wipe keys; the other rows unchanged."""
+    master = jax.random.PRNGKey(9)
+    ids = jnp.arange(21, dtype=jnp.int32)
+    tids = torch.arange(21, dtype=torch.int32)
+    for t in (0, 77):
+        got = runtime.tick_keys(rng.prng_key(9), tids, t, restart=True)
+        assert got.shape == (5, 21, 2)
+        ref = jruntime._instance_keys(master, jruntime._RNG_RESTART, ids, t)
+        np.testing.assert_array_equal(_np_key(ref), got[4].numpy())
+        np.testing.assert_array_equal(
+            runtime.tick_keys(rng.prng_key(9), tids, t).numpy(),
+            got[:4].numpy())
+    assert (runtime._RNG_RESTART, runtime._RNG_FAULTS) == \
+        (jruntime._RNG_RESTART, jruntime._RNG_FAULTS)

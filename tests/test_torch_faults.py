@@ -11,7 +11,10 @@ under a plan gives the JAX harness's histories, verdicts and counters;
 and ``make_sim_config`` refuses what the port does not implement.
 Tolerance 0 throughout: the state is int32 and the draws bit-defined."""
 
+import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -356,3 +359,27 @@ def test_fault_options_compile_as_jax():
         ref = jharness.make_sim_config(jmodel, opts).faults
         got = harness.make_sim_config(model, opts).faults
         assert tuple(got) == tuple(ref) and got.active
+
+
+def test_cli_fault_flags_on_cpu(tmp_path):
+    """``python -m maelstrom_tpu_torch test`` takes a plan file, the
+    slab stride and a nemesis kind, and reports the plan's lanes."""
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps(CRASH_LINKS_SKEW_PLAN))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "maelstrom_tpu_torch", "test", "-w",
+           "lin-kv", "--node-count", "3", "--concurrency", "2",
+           "--n-instances", "4", "--record-instances", "1",
+           "--time-limit", "0.2", "--nemesis", "partition",
+           "--nemesis-interval", "0.05", "--nemesis-kind", "isolated-node",
+           "--fault-plan", str(plan), "--fault-snapshot-every", "3",
+           "--inbox-k", "1", "--pool-slots", "16",
+           "--store", str(tmp_path), "--device", "cpu"]
+    out = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout)
+    assert res["valid?"] is True
+    assert res["faults"] == {"phases": 5, "lanes": [
+        "crash-restart", "link-degradation", "clock-skew"],
+        "snapshot-every": 3, "stop-tick": 100}

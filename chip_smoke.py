@@ -9,19 +9,23 @@ Phases (any failure exits non-zero and prints no result line):
    started together) and print nvcc's ``-Xptxas -v`` report;
 2. hold each kernel against its plain PyTorch version on the card
    (tolerance: exact — all outputs are int32) at the Pallas test shape,
-   the flagship shape (S=16, K=1) and the CLI-default shape (S=128,
-   K=8), 4096 instances each, and on edge-case pools at small I
-   (``kernels/delivery_cases.py``); at the flagship and default shapes
-   time the kernel's device time per launch (CUPTI durations under
-   ``torch.profiler``, L2 flushed before each launch, and warm), the
-   wrapper's time per call (host issue included) and the plain version,
-   beside the kernel's bound;
-3. check on a small input (24 instances, 300 ticks) that the card's
-   run equals the CPU run of the plain versions at every 25th tick, all
-   carry leaves exact (the CPU path is the one held to the JAX
-   reference by the tests): under an active four-lane fault
+   the flagship shape (S=16, K=1), the CLI-default shape (S=128, K=8)
+   and the 25-node broadcast shape (S=256, K=8, NT=50, L=10), 4096
+   instances each, and on edge-case pools at small I
+   (``kernels/delivery_cases.py``, rows of L = 9, 10, 14 and 20); at the
+   last three shapes time the kernel's device time per launch (CUPTI
+   durations under ``torch.profiler``, L2 flushed before each launch,
+   and warm), the wrapper's time per call (host issue included) and the
+   plain version, beside the kernel's bound;
+3. check on a small input (24 instances) that the card's run equals
+   the CPU run of the plain versions at every 25th tick, all carry
+   leaves exact (the CPU path is the one held to the JAX reference by
+   the tests): lin-kv for 300 ticks under an active four-lane fault
    distribution, then under an active fleet-shared fault plan with
-   crash, links, skew and membership;
+   crash, links, skew and membership; then each tutorial workload for
+   200 ticks (echo, unique-ids, broadcast at 25 nodes in a tree4,
+   g-set, g-counter, pn-counter; g-set and pn-counter under a crash and
+   links plan);
 4. drive the main path — ``run_torch_test`` on lin-kv Raft exactly as
    ``bench.py`` runs its flagship: 3 nodes, 6 clients, 4096 instances,
    4 simulated seconds, under the all-healthy fault distribution
@@ -30,23 +34,31 @@ Phases (any failure exits non-zero and prints no result line):
    the delivery kernel once per tick, the verdict must be valid, and
    the network counters must equal the bare run's (the distribution
    is value-neutral);
-5. drive the same fleet for 1,000 ticks bare and then under an active
+5. drive the same fleet for 400 ticks bare and then under an active
    four-lane fault distribution (counters reset before and read after
    each): both valid, the delivery kernel once per tick, and the
-   fuzzed fleet's drawn windows fired in every lane.
+   fuzzed fleet's drawn windows fired in every lane;
+6. drive the guide's broadcast fleet (``fleets.BROADCAST_25``: 25 nodes
+   in a tree4, 25 clients, 4096 instances, 2,000 ticks, S=256, K=8)
+   the same way: valid, the delivery kernel once per tick, no overflow;
+7. drive the other tutorial workloads at their family settings
+   (``fleets.FAMILIES``, 4096 instances, 1,000 ticks each) the same
+   way: each valid, the delivery kernel once per tick.
 
 Before the last line it prints the card's name and power limit and one
 JSON object with every kernel's launches, error, times and bound (``ms``
 is the device time at the flagship shape; ``shapes`` holds each timed
 shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
-``bound_share``; ``timing`` states the method); the last line is
-``{"ok": true, "device": {...}}``.
+``bound_share``; ``launches_by_path`` the launches of every driven
+path; ``timing`` states the method); the last line is ``{"ok": true,
+"device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2, 4 and 5 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-7 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
-exits 2 and prints no result line. ``--time-limit S`` runs the main
-path for ``S`` simulated seconds instead and phase 5 for at most ``S``
-(a quicker check).
+exits 2 and prints no result line (its broadcast runs 5 nodes, not 25).
+``--time-limit S`` runs the paths of phases 4-7 for at most ``S``
+simulated seconds instead (a quicker check; the broadcast fleet for at
+least 1 s, which it needs to converge after the heal).
 """
 
 from __future__ import annotations
@@ -58,15 +70,6 @@ import time
 import numpy as np
 import torch
 
-# bench.py's flagship lin-kv options; the main path adds its fault
-# distribution (faults.fuzz.BENCH_FUZZ_DIST)
-MAIN_OPTS = dict(node_count=3, concurrency=6, n_instances=4096,
-                 record_instances=1, time_limit=4.0, rate=200.0,
-                 latency=5.0, rpc_timeout=1.0, nemesis=["partition"],
-                 nemesis_interval=0.4, p_loss=0.05, recovery_time=0.3,
-                 seed=7, telemetry=True, inbox_k=1, pool_slots=16,
-                 layout="lead")
-MODEL_KW = dict(n_nodes_hint=3, log_cap=64, heartbeat=8)
 # the bare flagship's network counters at full width and depth (NVIDIA
 # H100 80GB HBM3; PERF.md): the all-healthy distribution keeps them
 FLAGSHIP_NET = {"sent": 9708913, "delivered": 7537375,
@@ -89,6 +92,17 @@ ACTIVE_PLAN = {"phases": [
                              {"dst": 0, "src": 2, "loss": 0.4}]},
     {"until": 170, "remove": [1]},
     {"until": 200, "add": [1], "crash": [2]}]}
+# crashes and degraded links for the gossip workloads (phase 3's 200
+# ticks, healed at tick 150)
+CRASH_LINKS_PLAN = {"phases": [
+    {"until": 30},
+    {"until": 80, "crash": [0]},
+    {"until": 120, "links": [{"dst": 1, "src": 0, "block": True},
+                             {"dst": 0, "src": 2, "delay": 6},
+                             {"dst": 2, "src": 1, "loss": 0.5}]},
+    {"until": 145, "crash": [1, 2]}]}
+TUTORIAL = ("echo", "unique-ids", "broadcast", "g-set", "g-counter",
+            "pn-counter")
 
 
 def log(msg: str) -> None:
@@ -218,14 +232,10 @@ def check_delivery(dev, shapes, iters):
             "shapes": per_shape}
 
 
-def check_small_run_matches_cpu(dev, label, faults):
+def check_small_run_matches_cpu(dev, label, model, opts):
     """The card's tick loop equals the CPU plain-version loop on a small
     input: every carry leaf at every 25th tick."""
     from maelstrom_tpu_torch import convert, harness, runtime
-    from maelstrom_tpu_torch.models.raft import RaftModel
-    model = RaftModel(**MODEL_KW)
-    opts = dict(MAIN_OPTS, n_instances=24, time_limit=0.3,
-                nemesis_interval=0.1, recovery_time=0.05, **faults)
     sim = harness.make_sim_config(model, opts)
     carries = []
     for d in (torch.device("cpu"), dev):
@@ -250,31 +260,31 @@ def check_small_run_matches_cpu(dev, label, faults):
         if leaves:
             raise AssertionError(f"{label}: leaves only on {dev}: "
                                  f"{sorted(leaves)}")
+    if int(carries[1][-1].stats.delivered) <= 0:
+        raise AssertionError(f"{label}: nothing delivered")
     fault_leaves = sorted({n.split(".")[1] for n in names} - {
         "pool", "node_state", "client_state", "stats", "violations", "key",
         "telemetry"})
     log(f"phase 3: {sim.n_instances}-instance {sim.n_ticks}-tick run on "
         f"{dev} under {label} equals the CPU plain-version run at every "
         f"25th tick (all {len(names)} carry leaves, exact; fault leaves "
-        f"{', '.join(fault_leaves)})")
+        f"{', '.join(fault_leaves) or 'none'})")
 
 
-def run_path(dev, opts, label):
+def run_path(dev, model, opts, label):
     """``run_torch_test`` on one path, every launch counter set to 0
     just before and read just after: a valid verdict and the delivery
     kernel once per tick on the card."""
     from maelstrom_tpu_torch import harness
     from maelstrom_tpu_torch.kernels import delivery
-    from maelstrom_tpu_torch.models.raft import RaftModel
     delivery.deliver.launches = 0
     t0 = time.monotonic()
-    res = harness.run_torch_test(RaftModel(**MODEL_KW), opts,
-                                 device=str(dev))
+    res = harness.run_torch_test(model, opts, device=str(dev))
     wall = time.monotonic() - t0
     launches = {"deliver": delivery.deliver.launches}
     ticks = res["perf"]["ticks"]
-    log(f"{label}: lin-kv x{res['instance-count']} for {ticks} ticks: "
-        f"valid?={res['valid?']} wall {wall:.1f} s, "
+    log(f"{label}: {model.name} x{res['instance-count']} for {ticks} "
+        f"ticks: valid?={res['valid?']} wall {wall:.1f} s, "
         f"{res['perf']['ticks-per-sec']:.2f} ticks/s, "
         f"{res['perf']['msgs-per-sec']:.0f} simulated msgs/s, "
         f"net {json.dumps(res['net'])}, launches {launches}")
@@ -292,6 +302,13 @@ def run_path(dev, opts, label):
     return res, launches
 
 
+def small(opts, n_instances=24, time_limit=0.3):
+    """A fleet's options cut to a small input: partitions every 0.1 s,
+    healed 0.05 s before the end."""
+    return dict(opts, n_instances=n_instances, time_limit=time_limit,
+                nemesis_interval=0.1, recovery_time=0.05)
+
+
 def main(argv) -> int:
     start = time.monotonic()
     mark = lambda phase: log(f"{phase} finished {time.monotonic() - start:.1f}"
@@ -302,20 +319,36 @@ def main(argv) -> int:
             "False); nothing run")
         return 1
     import maelstrom_tpu_torch  # noqa: F401 — fails outside the repo
+    from maelstrom_tpu_torch import fleets
     from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
     from maelstrom_tpu_torch.kernels import delivery_cases
     dev = torch.device("cpu" if rehearse else "cuda")
     shapes = dict(delivery_cases.SHAPES)
-    opts = dict(MAIN_OPTS)
+    flagship, opts = fleets.fleet("lin-kv")
+    paths = {w: fleets.fleet(w) for w in TUTORIAL if w != "broadcast"}
+    bmodel, bopts = fleets.fleet("broadcast")
     if rehearse:
         shapes = {name: shape[:5] + (min(shape[5], 64),)
                   for name, shape in shapes.items()}
-        opts.update(n_instances=16, time_limit=0.3, nemesis_interval=0.1,
-                    recovery_time=0.05)
-    full = opts == MAIN_OPTS and "--time-limit" not in argv
+        opts = small(opts, 16)
+        # 25 nodes need about 1 s to converge after the heal: the
+        # rehearsal checks the script's logic on a 5-node tree
+        from maelstrom_tpu_torch.models import get_model
+        bmodel = get_model("broadcast", 5, fleets.BROADCAST_25_TOPOLOGY)
+        bopts = small(bopts, 4, 0.2) | dict(node_count=5, concurrency=5)
+        paths = {w: (m, small(o, 8, 0.2) | dict(recovery_time=0.1))
+                 for w, (m, o) in paths.items()}
+    limit = None
     if "--time-limit" in argv:
-        opts["time_limit"] = float(argv[argv.index("--time-limit") + 1])
-    else:
+        limit = float(argv[argv.index("--time-limit") + 1])
+        opts["time_limit"] = limit
+        if not rehearse:
+            # the 25-node tree takes ~1 s to converge (0.3 s of recovery)
+            bopts["time_limit"] = max(min(limit, bopts["time_limit"]), 1.0)
+        for _, o in paths.values():
+            o["time_limit"] = min(limit, o["time_limit"])
+    full = not rehearse and limit is None
+    if not rehearse:
         from maelstrom_tpu_torch.kernels import build
         t0 = time.monotonic()
         build.build_all(["deliver"])
@@ -331,13 +364,24 @@ def main(argv) -> int:
     mark("phase 2")
     if not rehearse:
         check_small_run_matches_cpu(dev, "an active four-lane fault "
-                                    "distribution",
-                                    dict(fault_fuzz=ACTIVE_FUZZ))
+                                    "distribution", flagship,
+                                    small(opts, time_limit=0.3)
+                                    | dict(fault_fuzz=ACTIVE_FUZZ))
         check_small_run_matches_cpu(dev, "an active fault plan (crash, "
-                                    "links, skew, membership)",
-                                    dict(fault_plan=ACTIVE_PLAN))
+                                    "links, skew, membership)", flagship,
+                                    small(opts, time_limit=0.3)
+                                    | dict(fault_plan=ACTIVE_PLAN))
+        for w in TUTORIAL:
+            model, o = (bmodel, bopts) if w == "broadcast" else paths[w]
+            o = small(o, time_limit=0.2)
+            label = w
+            if w in ("g-set", "pn-counter"):
+                o["fault_plan"] = CRASH_LINKS_PLAN
+                label += " under a crash and links plan"
+            check_small_run_matches_cpu(dev, label, model, o)
         mark("phase 3")
-    res, launches = run_path(dev, dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
+    res, launches = run_path(dev, flagship,
+                             dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
                              "phase 4 (flagship, BENCH_FUZZ_DIST)")
     if full and res["net"] != FLAGSHIP_NET:
         raise AssertionError(f"phase 4 network counters {res['net']} "
@@ -347,10 +391,13 @@ def main(argv) -> int:
         log("phase 4: network counters equal the bare flagship run's "
             "exactly")
     mark("phase 4")
-    short = dict(opts, time_limit=min(1.0, opts["time_limit"]))
-    bare, bare_launches = run_path(dev, short, "phase 5 (bare)")
-    fuzzed, fuzz_launches = run_path(dev, dict(short,
-                                               fault_fuzz=ACTIVE_FUZZ),
+    # 400 ticks (the fleet's fault windows fire in every lane well before
+    # the heal at tick 200): cut from 1,000 to keep the script near half
+    # its time limit
+    short = dict(opts, time_limit=min(0.4, opts["time_limit"]))
+    bare, bare_launches = run_path(dev, flagship, short, "phase 5 (bare)")
+    fuzzed, fuzz_launches = run_path(dev, flagship,
+                                     dict(short, fault_fuzz=ACTIVE_FUZZ),
                                      "phase 5 (active fault distribution)")
     idle = [k for k, v in fuzzed["fault-fuzz"].items()
             if k.endswith("-windows") and v == 0]
@@ -360,11 +407,29 @@ def main(argv) -> int:
         f"active fault distribution "
         f"{fuzzed['perf']['ticks-per-sec']:.2f}")
     mark("phase 5")
-    record["launches"] = launches["deliver"]
-    record["launches_by_path"] = {
+    bres, b_launches = run_path(dev, bmodel, bopts,
+                                "phase 6 (broadcast, 25 nodes, tree4)")
+    if bres["net"]["dropped-overflow"] != 0:
+        raise AssertionError(f"phase 6: {bres['net']['dropped-overflow']} "
+                             f"sends dropped for pool overflow")
+    lost = [r.get("lost-count") for r in bres["instances"]]
+    log(f"phase 6: broadcast fleet {bres['perf']['ticks-per-sec']:.2f} "
+        f"ticks/s, {bres['perf']['msgs-per-sec']:.0f} simulated msgs/s, "
+        f"lost-count per recorded instance {lost}")
+    mark("phase 6")
+    by_path = {
         "phase 4 flagship, BENCH_FUZZ_DIST": launches["deliver"],
         "phase 5 bare": bare_launches["deliver"],
-        "phase 5 active fault distribution": fuzz_launches["deliver"]}
+        "phase 5 active fault distribution": fuzz_launches["deliver"],
+        "phase 6 broadcast-25 tree4": b_launches["deliver"]}
+    for w, (model, o) in paths.items():
+        fres, f_launches = run_path(dev, model, o, f"phase 7 ({w})")
+        log(f"phase 7: {w} dropped-overflow "
+            f"{fres['net']['dropped-overflow']}")
+        by_path[f"phase 7 {w}"] = f_launches["deliver"]
+    mark("phase 7")
+    record["launches"] = launches["deliver"]
+    record["launches_by_path"] = by_path
     for name, r in record["shapes"].items():
         dev_txt = ("not measured" if r["device_ms"] is None
                    else f"{r['device_ms']:.6f} ms device time per launch "
@@ -373,7 +438,8 @@ def main(argv) -> int:
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), wrapper "
             f"{r['wrapper_ms']:.6f} ms per call, plain version "
             f"{r['plain_ms']:.6f} ms, library call: none")
-    log(f"kernel deliver: {record['launches']} launches on the main path")
+    log(f"kernel deliver: {record['launches']} launches on the main path, "
+        f"by path {json.dumps(by_path)}")
     if rehearse:
         log("chip_smoke: CPU rehearsal passed (no card: no result line)")
         return 2

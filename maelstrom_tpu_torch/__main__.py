@@ -1,7 +1,9 @@
 """Command line of the port: ``python -m maelstrom_tpu_torch test -w lin-kv``.
 
-Runs the lin-kv Raft fleet through :func:`harness.run_torch_test` and
-prints a JSON summary (verdict, network counters, throughput, device,
+Runs a ported workload's fleet (``models.WORKLOADS``: lin-kv Raft and
+the tutorial workloads echo, unique-ids, broadcast, g-set, g-counter
+and pn-counter) through :func:`harness.run_torch_test` and prints a
+JSON summary (verdict, network counters, throughput, device,
 and the fault block under a fault plan or distribution). Unset flags
 take the harness defaults (``harness.TORCH_DEFAULTS``). Exit code 0
 when the run is valid, 1 when it is not.
@@ -16,8 +18,7 @@ from typing import List, Optional
 
 from .faults.spec import FAULT_KINDS
 from .runtime import NEMESIS_KINDS
-
-WORKLOADS = ("lin-kv",)
+from .topology import TOPOLOGIES
 
 
 def _positive_int(v: str) -> int:
@@ -31,8 +32,11 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m maelstrom_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("test", help="run a workload on the device fleet")
-    p.add_argument("-w", "--workload", required=True, choices=WORKLOADS)
+    p.add_argument("-w", "--workload", required=True,
+                   help="a ported workload; any other name raises")
     p.add_argument("--node-count", type=int, default=3)
+    p.add_argument("--topology", default="grid", choices=sorted(TOPOLOGIES),
+                   help="gossip topology of broadcast and g-set")
     p.add_argument("--concurrency", default=None,
                    help="clients per instance: N, or Kn for K per node")
     p.add_argument("--rate", type=float, help="ops/sec per instance")
@@ -70,10 +74,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--inbox-k", type=int)
     p.add_argument("--pool-slots", type=int)
     p.add_argument("--ms-per-tick", type=int)
-    p.add_argument("--log-cap", type=int, default=96,
-                   help="Raft log capacity per node")
-    p.add_argument("--heartbeat-ticks", type=int, default=15,
-                   help="Raft leader heartbeat cadence in ticks")
+    p.add_argument("--log-cap", type=int,
+                   help="Raft log capacity per node (lin-kv; default 96)")
+    p.add_argument("--heartbeat-ticks", type=int,
+                   help="Raft leader heartbeat cadence in ticks (lin-kv; "
+                        "default 15)")
     p.add_argument("--no-telemetry", action="store_true")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
     p.add_argument("--chunk-ticks", type=int)
@@ -87,7 +92,7 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     from .harness import run_torch_test
-    from .models.raft import RaftModel
+    from .models import get_model
 
     opts = {"node_count": args.node_count, "store_root": args.store}
     if args.concurrency is not None:
@@ -111,8 +116,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         opts["nemesis"] = args.nemesis
     if args.no_telemetry:
         opts["telemetry"] = False
-    model = RaftModel(n_nodes_hint=args.node_count, log_cap=args.log_cap,
-                      heartbeat=args.heartbeat_ticks)
+    raft_kw = {k: v for k, v in (("log_cap", args.log_cap),
+                                 ("heartbeat", args.heartbeat_ticks))
+               if v is not None}
+    if raft_kw and args.workload != "lin-kv":
+        raise ValueError("--log-cap and --heartbeat-ticks are options of "
+                         "lin-kv only")
+    model = get_model(args.workload, args.node_count, args.topology,
+                      raft_kw)
     res = run_torch_test(model, opts, device=args.device)
     summary = {k: res[k] for k in ("valid?", "instance-count",
                                    "checked-instances", "valid-instances",

@@ -4,9 +4,13 @@ The JAX package's ``Carry`` (lead layout) with its leaves turned into
 numpy arrays — keys as uint32 — maps field by field onto the port's
 carry on any device, and back. Fields are matched by name (NamedTuple
 ``_fields``), so this module needs nothing of the JAX package: the
-simulation state is the whole carry (lin-kv Raft has no static model
-parameters), and a JAX carry at tick ``t`` handed over here continues as the
-port's tick ``t + 1``.
+simulation state is the whole carry (a model's static params, such as a
+topology's adjacency matrix, are rebuilt from its options), and a JAX
+carry at tick ``t`` handed over here continues as the port's tick
+``t + 1``. Node state and the slab come in three shapes: a bare array
+(the legacy models: a scalar per node for echo and unique-ids, two
+bitmask words for the gossip sets, an ``[N, 2]`` table for the
+counters), a row tuple (Raft), and a dict of lanes (Raft's slab).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from .faults.fuzz import FaultSchedule
 from .netsim import NetStats
 from .runtime import Carry, ClientState
 from .telemetry.recorder import Telemetry
+from .tree import tree_map
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -35,25 +40,36 @@ def _tuple(cls, src, device):
     return cls(*(_to_tensor(getattr(src, f), device) for f in cls._fields))
 
 
-def carry_from_numpy(src: Any, row_type, device=None) -> Carry:
+def _state(src, row_type, device):
+    """Node state or a slab: a row tuple (matched to ``row_type`` by
+    field name), a dict of lanes, a bare array, or None."""
+    if src is None:
+        return None
+    if hasattr(src, "_fields"):
+        return _tuple(row_type, src, device)
+    if isinstance(src, dict):
+        return {k: _to_tensor(v, device) for k, v in src.items()}
+    return _to_tensor(src, device)
+
+
+def carry_from_numpy(src: Any, row_type=None, device=None) -> Carry:
     """Build the port's carry from a carry-like object with numpy (or
-    array-like) leaves: ``pool``, ``node_state`` (fields of
-    ``row_type``), ``client_state``, ``stats``, ``violations``, ``key``,
-    and the optional ``telemetry``, ``snapshots`` (a dict of durable
-    lanes) and ``fault_sched`` (None when absent)."""
+    array-like) leaves: ``pool``, ``node_state`` (a bare array, as the
+    legacy models keep it, or a tuple with the fields of ``row_type``),
+    ``client_state``, ``stats``, ``violations``, ``key``, and the
+    optional ``telemetry``, ``snapshots`` (the slab: an array, or a dict
+    of durable lanes) and ``fault_sched`` (None when absent)."""
     tel = getattr(src, "telemetry", None)
-    snaps = getattr(src, "snapshots", None)
     sched = getattr(src, "fault_sched", None)
     return Carry(
         pool=_to_tensor(src.pool, device),
-        node_state=_tuple(row_type, src.node_state, device),
+        node_state=_state(src.node_state, row_type, device),
         client_state=_tuple(ClientState, src.client_state, device),
         stats=_tuple(NetStats, src.stats, device),
         violations=_to_tensor(src.violations, device),
         key=_to_tensor(src.key, device),
         telemetry=None if tel is None else _tuple(Telemetry, tel, device),
-        snapshots=None if snaps is None else {
-            k: _to_tensor(v, device) for k, v in snaps.items()},
+        snapshots=_state(getattr(src, "snapshots", None), row_type, device),
         fault_sched=(None if sched is None
                      else _tuple(FaultSchedule, sched, device)),
     )
@@ -66,20 +82,8 @@ def _np(x: torch.Tensor) -> np.ndarray:
 def carry_to_numpy(carry: Carry) -> Carry:
     """The port's carry with numpy leaves (int32/bool; the key as uint32,
     as the JAX carry holds it)."""
-    nt = lambda t: type(t)(*(_np(x) for x in t))
-    return Carry(
-        pool=_np(carry.pool),
-        node_state=nt(carry.node_state),
-        client_state=nt(carry.client_state),
-        stats=nt(carry.stats),
-        violations=_np(carry.violations),
-        key=_np(carry.key).astype(np.uint32),
-        telemetry=None if carry.telemetry is None else nt(carry.telemetry),
-        snapshots=None if carry.snapshots is None else {
-            k: _np(v) for k, v in carry.snapshots.items()},
-        fault_sched=(None if carry.fault_sched is None
-                     else nt(carry.fault_sched)),
-    )
+    return tree_map(_np, carry)._replace(
+        key=_np(carry.key).astype(np.uint32))
 
 
 def carry_leaves(carry: Any, prefix: str = "carry"

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import rng, wire
+from ..tree import tree_map
 
 NEUTRAL_RATE = 64          # skew rates are 64ths; 64 == 1.0x (exact)
 
@@ -245,9 +246,9 @@ def restart_rows(model, snapshots, t_nodes, wipe_keys: torch.Tensor,
 
 
 def _pick(mask: torch.Tensor, new, old):
-    """Row-tuple select: ``new`` where ``mask [I, N]``, else ``old``."""
-    return type(old)(*(torch.where(mask.reshape(mask.shape + (1,) * (
-        a.dim() - 2)), b, a) for a, b in zip(old, new)))
+    """Node-state select: ``new`` where ``mask [I, N]``, else ``old``."""
+    return tree_map(lambda a, b: torch.where(
+        mask.reshape(mask.shape + (1,) * (a.dim() - 2)), b, a), old, new)
 
 
 def wipe_crashed(node_state, fresh, crash_mask: torch.Tensor):
@@ -278,16 +279,16 @@ def retarget_clients(reqs: torch.Tensor, member: torch.Tensor
     return reqs
 
 
-def update_snapshots(model, node_state, snapshots: Dict[str, torch.Tensor],
-                     hold: torch.Tensor, t: int, every: int):
+def update_snapshots(model, node_state, snapshots, hold: torch.Tensor,
+                     t: int, every: int):
     """Fold the tick's end state into the snapshot slab: nodes not held
     (crashed or parked) write ``Model.snapshot_row``; with ``every > 1``
     only on ticks with ``(t + 1) % every == 0``."""
     if (t + 1) % every != 0:
         return snapshots
-    fresh = model.snapshot_row(node_state)
-    return {k: torch.where(hold.reshape(hold.shape + (1,) * (s.dim() - 2)),
-                           s, fresh[k]) for k, s in snapshots.items()}
+    return tree_map(lambda s, f: torch.where(
+        hold.reshape(hold.shape + (1,) * (s.dim() - 2)), s, f),
+        snapshots, model.snapshot_row(node_state))
 
 
 # --- host-side reporting ---------------------------------------------------

@@ -23,17 +23,24 @@ from ..netsim import NetConfig, jax_index
 INT32_MAX = 2**31 - 1
 
 # the Pallas kernel's test shape (checked only), the flagship lin-kv run
-# (the main path) and the CLI defaults S=128, K=8 (both timed)
+# (the main path), the CLI defaults S=128, K=8, and the guide's 25-node
+# broadcast fleet (S=256, K=8, NT=50, L=10: the 4-byte path) (timed)
 SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
           "flagship": (3, 6, 16, 1, 12, 4096),
-          "defaults": (3, 6, 128, 8, 12, 4096)}
-TIMED = ("flagship", "defaults")
-# edge-case pools go through the kernel at small I: the shapes above and
-# an S that is no power of two, where wrapped priorities can tie
+          "defaults": (3, 6, 128, 8, 12, 4096),
+          "broadcast-25": (25, 25, 256, 8, 2, 4096)}
+TIMED = ("flagship", "defaults", "broadcast-25")
+# edge-case pools go through the kernel at small I: the shapes above, an
+# S that is no power of two, where wrapped priorities can tie, and the
+# tutorial workloads' rows on the 4-byte path (L = 9, 10, 14)
 EDGE_SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
                "flagship": (3, 6, 16, 1, 12, 64),
                "defaults": (3, 6, 128, 8, 12, 64),
-               "odd": (3, 3, 24, 3, 6, 8)}
+               "odd": (3, 3, 24, 3, 6, 8),
+               "broadcast-25": (25, 25, 256, 8, 2, 16),
+               "unique-ids": (3, 6, 16, 1, 1, 64),
+               "g-set": (3, 6, 16, 1, 2, 64),
+               "pn-counter": (3, 6, 16, 1, 6, 64)}
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12

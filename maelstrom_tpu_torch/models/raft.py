@@ -55,6 +55,7 @@ class RaftModel(Model):
     entry_lanes = ENTRY_LANES
     idempotent_fs = (F_READ,)
     proxy_hops_lane = 3
+    fused_node = True
 
     # the correct protocol (the JAX package's planted-bug variants flip
     # these and recovers_snapshot below; the port carries only the
@@ -209,7 +210,7 @@ class RaftModel(Model):
 
     # --- on-device invariants ----------------------------------------------
 
-    def invariants(self, ns: RaftRow, cfg) -> torch.Tensor:
+    def invariants(self, ns: RaftRow, cfg, params=None) -> torch.Tensor:
         """Per instance: at most one leader per term, committed prefixes
         agree (against the max-commit node), no committed entry ever
         overwritten. ``ns`` leaves ``[I, N, ...]``; returns bool ``[I]``."""
@@ -233,7 +234,7 @@ class RaftModel(Model):
 
     # --- client side --------------------------------------------------------
 
-    def sample_op(self, keys, uniq, cfg):
+    def sample_op(self, keys, uniq, cfg, params=None):
         """Ops ``[I, C, 4]`` (f, key, v1, v2) from keys ``[I, C, 2]``."""
         ks = rng.split(keys, 4)                      # [I, C, 4, 2]
         # uniform(ks[0]) and randint(ks[1..3]) draw from ks[0] and the
@@ -252,7 +253,8 @@ class RaftModel(Model):
                 sel(r < xla_math.f32(2 / 3), F_WRITE, F_CAS))
         return torch.stack([f, kk, v1, v2], dim=-1)
 
-    def encode_request(self, op, msg_id, client_idx, keys, cfg):
+    def encode_request(self, op, msg_id, client_idx, keys, cfg,
+                       params=None):
         dest = rng.randint(keys, (), 0, cfg.n_nodes)
         mtype = sel(op[..., 0] == F_READ, T_READ,
                     sel(op[..., 0] == F_WRITE, T_WRITE, T_CAS))
@@ -261,7 +263,7 @@ class RaftModel(Model):
                              body_lanes=self.body_lanes,
                              batch_shape=op.shape[:-1], device=op.device)
 
-    def decode_reply(self, op, msg, cfg):
+    def decode_reply(self, op, msg, cfg, params=None):
         mtype = msg[..., wire.TYPE]
         ok = (mtype == T_READ_OK) | (mtype == T_WRITE_OK) | (mtype == T_CAS_OK)
         etype = sel(ok, EV_OK, EV_INFO)

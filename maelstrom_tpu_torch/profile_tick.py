@@ -1,13 +1,18 @@
-"""Where a tick's time goes on the card: the flagship lin-kv fleet under
-``torch.profiler``.
+"""Where a tick's time goes on the card: a fleet under ``torch.profiler``.
 
-    python -m maelstrom_tpu_torch.profile_tick [--instances 4096]
-        [--ticks 20] [--fuzz] [--out chiprun_out/tick_profile.json]
+    python -m maelstrom_tpu_torch.profile_tick [--workload lin-kv]
+        [--node-count N] [--topology T] [--pool-slots S]
+        [--instances 4096] [--ticks 20] [--fuzz]
+        [--out chiprun_out/tick_profile.json]
 
-Runs the main-path configuration (3 nodes, 6 clients, inbox_k=1, 16
-pool slots, exponential latency, 5% loss, the partition nemesis,
-telemetry on) on ``cuda``; ``--fuzz`` adds the benchmark's all-healthy
-fault distribution (``faults.fuzz.BENCH_FUZZ_DIST``) as a second
+Runs a fleet of ``fleets.py`` on ``cuda``: for lin-kv (the default) the
+flagship (3 nodes, 6 clients, inbox_k=1, 16 pool slots, exponential
+latency, 5% loss, the partition nemesis, telemetry on); for broadcast
+the guide's 25-node tree4 fleet (25 clients, S=256, K=8); for the other
+tutorial workloads their family run. ``--node-count`` (clients follow
+at one per node for broadcast), ``--topology`` and ``--pool-slots``
+change it. ``--fuzz`` adds the benchmark's all-healthy fault
+distribution (``faults.fuzz.BENCH_FUZZ_DIST``) as a second
 configuration in the same process. Each configuration warms up past
 the first partition phase (t >= 400); then ``--ticks`` ticks are timed
 on the host clock around a synchronize (wall ms/tick), in turns bare,
@@ -18,6 +23,12 @@ the delivery kernel's device time, and per phase (the runtime's
 ``record_function`` ranges) the host time and the busy device time of
 its kernels. Prints one JSON object and writes it to ``--out``. Needs a
 CUDA card; refuses to run without one.
+
+``--count-ops`` needs no card: it steps the same fleet at 8 instances
+on the CPU and prints the operators dispatched per tick, views left
+out — on the card nearly each is one kernel launch (4,136 for the
+flagship against the 4,134 kernels its card profile shows), so it
+predicts a tick's launches before a chip run.
 """
 
 from __future__ import annotations
@@ -32,12 +43,6 @@ import torch
 
 PHASES = ("nemesis", "faults", "deliver", "node_phase", "client_step",
           "enqueue", "telemetry")
-
-MAIN_OPTS = dict(node_count=3, concurrency=6, record_instances=1,
-                 time_limit=4.0, rate=200.0, latency=5.0, rpc_timeout=1.0,
-                 nemesis=["partition"], nemesis_interval=0.4, p_loss=0.05,
-                 recovery_time=0.3, seed=7, telemetry=True, inbox_k=1,
-                 pool_slots=16)
 
 
 class _Fleet:
@@ -120,43 +125,111 @@ def _breakdown(fleet: _Fleet, n: int, wall_ms: float, kernel_name: str):
     }
 
 
+# operators that only make views: they launch no kernel
+_VIEW_OPS = frozenset((
+    "view", "_unsafe_view", "reshape", "expand", "expand_as", "select",
+    "slice", "as_strided", "unsqueeze", "squeeze", "t", "permute",
+    "transpose", "detach", "alias", "unbind", "split", "split_with_sizes",
+    "chunk", "narrow", "view_as", "lift_fresh"))
+
+
+def dispatched_ops_per_tick(model, opts, from_tick: int, ticks: int
+                            ) -> float:
+    """Non-view operators dispatched per tick over ``[from_tick,
+    from_tick + ticks)`` of a CPU run of the fleet."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from . import harness, runtime
+
+    class _Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in _VIEW_OPS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    sim = harness.make_sim_config(model, opts)
+    carry = runtime.init_carry(model, sim, opts["seed"], "cpu")
+    tick = runtime.make_tick_fn(model, sim, device="cpu")
+    counter = _Count()
+    with torch.no_grad():
+        for t in range(from_tick + ticks):
+            if t == from_tick:
+                counter.__enter__()
+            carry, _ = tick(carry, t)
+        counter.__exit__(None, None, None)
+    return counter.n / ticks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m maelstrom_tpu_torch."
                                       "profile_tick")
+    ap.add_argument("--workload", default="lin-kv",
+                    help="a ported workload (models.WORKLOADS)")
+    ap.add_argument("--node-count", type=int)
+    ap.add_argument("--topology",
+                    help="gossip topology (broadcast, g-set)")
+    ap.add_argument("--pool-slots", type=int)
     ap.add_argument("--instances", type=int, default=4096)
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--warmup-to", type=int, default=420)
     ap.add_argument("--fuzz", action="store_true",
                     help="also profile under the benchmark's all-healthy "
                          "fault distribution, in the same process")
+    ap.add_argument("--count-ops", action="store_true",
+                    help="count the operators a tick dispatches, on the "
+                         "CPU at 8 instances (no card needed)")
     ap.add_argument("--out", default="chiprun_out/tick_profile.json")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
+    if not args.count_ops and not torch.cuda.is_available():
         raise SystemExit("profile_tick needs a CUDA card")
 
+    from . import fleets
     from .faults.fuzz import BENCH_FUZZ_DIST
     from .kernels import build, delivery, devtime
-    from .models.raft import RaftModel
+    from .models import get_model
 
+    model, opts = fleets.fleet(args.workload)
+    opts["n_instances"] = args.instances
+    if args.pool_slots is not None:
+        opts["pool_slots"] = args.pool_slots
+    if args.node_count is not None or args.topology is not None:
+        n = args.node_count or opts["node_count"]
+        if args.workload == "broadcast":
+            opts["concurrency"] = n
+        opts["node_count"] = n
+        model = get_model(args.workload, n, args.topology
+                          or getattr(model, "topology", "grid"),
+                          fleets.FLAGSHIP_MODEL_KW
+                          if args.workload == "lin-kv" else None)
+    if args.count_ops:
+        n = dispatched_ops_per_tick(model, dict(opts, n_instances=8),
+                                    args.warmup_to, args.ticks)
+        print(json.dumps({"workload": args.workload,
+                          "dispatched_ops_per_tick": n}))
+        return 0
     build.build_all([delivery.SOURCE])
     dev = torch.device("cuda")
-    model = RaftModel(n_nodes_hint=3, log_cap=64, heartbeat=8)
-    opts = dict(MAIN_OPTS, n_instances=args.instances)
     configs = {"bare": opts}
     if args.fuzz:
         configs["fuzz"] = dict(opts, fault_fuzz=BENCH_FUZZ_DIST)
-    fleets = {}
+    runs = {}
     with torch.no_grad():
         for name, o in configs.items():
-            fleets[name] = _Fleet(model, o, dev)
-            fleets[name].run(args.warmup_to)
+            runs[name] = _Fleet(model, o, dev)
+            runs[name].run(args.warmup_to)
         order = list(configs) + list(configs)[::-1]   # bare, fuzz, fuzz, bare
         walls = {name: [] for name in configs}
         for name in order:
-            walls[name].append(fleets[name].wall_ms(args.ticks))
-        rec = {"card": devtime.card_line(), "instances": args.instances,
+            walls[name].append(runs[name].wall_ms(args.ticks))
+        rec = {"card": devtime.card_line(), "workload": args.workload,
+               "node_count": opts["node_count"],
+               "topology": getattr(model, "topology", None),
+               "pool_slots": opts["pool_slots"],
+               "inbox_k": opts["inbox_k"], "instances": args.instances,
                "wall_order": order, "configs": {}}
-        for name, fleet in fleets.items():
+        for name, fleet in runs.items():
             wall = sum(walls[name]) / len(walls[name])
             rec["configs"][name] = dict(
                 _breakdown(fleet, args.ticks, wall, delivery.KERNEL_NAME),

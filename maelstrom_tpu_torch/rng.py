@@ -165,8 +165,10 @@ def randint_from_bits(hi_bits: torch.Tensor, lo_bits: torch.Tensor,
     else:   # static bounds: the span and multiplier are Python ints
         lo, hi = int(minval), int(maxval)
         span = ((hi - lo) & M32) if hi > lo else 1
+    # JAX squares the multiplier in uint32: past a span of 2**16 the
+    # square wraps (for a span of 10**6 it wraps to 0)
     mult = (1 << 16) % span
-    mult = (mult * mult) % span
+    mult = ((mult * mult) & M32) % span
     off = ((hi_bits % span) * mult) & M32
     off = (off + (lo_bits % span)) & M32
     off = off % span

@@ -10,7 +10,8 @@ and steps them all each tick:
     faults      : the fault planes (faults/): crash and park wipes,
                   edge blocks folded into the partitions
     deliver     : the delivery kernel (kernels/delivery.py)
-    node phase  : batched RNG, the per-slot core, the tick hook
+    node phase  : batched RNG, the per-slot handle (or fused core),
+                  the tick hook
     client step : decode replies -> history events; draw/encode new ops
     enqueue     : crash/park send masks, client retarget, then
                   netsim.enqueue with latency, loss and the link planes
@@ -40,6 +41,7 @@ from .kernels import delivery
 from .netsim import NetConfig, NetStats, sum_i32
 from .telemetry import recorder as flight
 from .telemetry.recorder import TelemetryConfig
+from .tree import tree_leaves, tree_map
 
 # --- history events ---------------------------------------------------------
 
@@ -70,19 +72,53 @@ class Model:
     """A vectorized node state machine with its client vocabulary.
 
     Hooks take batched tensors: node-level hooks a flat ``[B, ...]``
-    batch of nodes, client-level hooks ``[I, C, ...]``. Only the fused
-    node-step protocol (``node_rng`` / ``inbox_step`` / ``fused_tick``)
-    exists in the port."""
+    batch of nodes, client-level hooks ``[I, C, ...]``. A model speaks
+    one of two node protocols, as in JAX:
+
+    - the legacy one (``fused_node = False``): ``handle`` runs on every
+      inbox slot in turn, zero rows included (a model self-gates on the
+      message type), emitting ``max_out`` rows per slot, then ``tick``
+      emits ``tick_out`` rows; the runtime stamps SRC and ORIGIN;
+    - the fused one (``fused_node = True``, Raft): ``node_rng`` draws
+      the tick's randomness, ``inbox_step`` runs per slot and
+      ``fused_tick`` ends the tick; rows come out stamped.
+
+    ``params`` is the model's static parameter tensor (a topology's
+    adjacency matrix), built once per run by ``make_params`` and passed
+    to the legacy node hooks, the client hooks and the invariants."""
 
     name: str = "?"
     body_lanes: int = 6
+    max_out: int = 1          # rows emitted per handled message (legacy)
+    tick_out: int = 0         # rows emitted by the tick hook (legacy)
+    fused_node: bool = False
     idempotent_fs: Tuple[int, ...] = ()
     op_lanes: int = OP_LANES
     ev_vals: int = 4
 
+    def make_params(self, n_nodes: int, device=None):
+        return None
+
     def init_state(self, n_nodes: int, keys: torch.Tensor):
         """Node state for keys ``[I, N, 2]``: leaves ``[I, N, ...]``."""
         raise NotImplementedError
+
+    # --- the legacy protocol ------------------------------------------------
+
+    def handle(self, row, node_idx, msg, t, keys, cfg, params):
+        """One inbox slot: ``msg [B, L]``, slot keys ``[B, 2]``; returns
+        ``(row', outs [B, max_out, L])``. An all-zero ``msg`` must leave
+        the row as it is and emit invalid rows."""
+        raise NotImplementedError
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        """The per-tick hook with keys ``[B, 2]``: ``(row', outs [B,
+        tick_out, L])``."""
+        return row, torch.zeros((node_idx.shape[0], self.tick_out,
+                                 cfg.lanes), dtype=_I32,
+                                device=node_idx.device)
+
+    # --- the fused protocol -------------------------------------------------
 
     def node_rng(self, mkeys):
         raise NotImplementedError
@@ -93,22 +129,50 @@ class Model:
     def fused_tick(self, row, node_idx, t, jitter, cfg, m_bits=None):
         raise NotImplementedError
 
-    def invariants(self, node_state, cfg: NetConfig) -> torch.Tensor:
+    # --- crash-restart and membership (faults/): a cold restart -------------
+
+    def snapshot_row(self, row):
+        """The durable subset of a row kept in the snapshot slab: all of
+        it, unless the model says otherwise."""
+        return row
+
+    def restart_row(self, keys, snap, t):
+        """Restart rows for node keys ``[I, N, 2]``: the init rows (the
+        slab ``snap`` and the tick ``t`` ignored)."""
+        return self.init_state(keys.shape[-2], keys)
+
+    def join_row(self, row, m_bits):
+        """A joining node's row from its restart rows: unchanged."""
+        return row
+
+    def boot_config(self, node_state, m_bits):
+        return node_state
+
+    def invariants(self, node_state, cfg: NetConfig, params=None
+                   ) -> torch.Tensor:
         """Per-instance bool ``[I]``: True = violated this tick."""
-        return torch.zeros(node_state[0].shape[0], dtype=torch.bool,
-                           device=node_state[0].device)
+        x = tree_leaves(node_state)[0]
+        return torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
 
-    def sample_op(self, keys, uniq, cfg):
+    def sample_op(self, keys, uniq, cfg, params=None):
         raise NotImplementedError
 
-    def sample_final_op(self, keys, uniq, cfg):
-        return self.sample_op(keys, uniq, cfg)
+    def sample_final_op(self, keys, uniq, cfg, params=None):
+        return self.sample_op(keys, uniq, cfg, params)
 
-    def encode_request(self, op, msg_id, client_idx, keys, cfg):
+    def encode_request(self, op, msg_id, client_idx, keys, cfg,
+                       params=None):
         raise NotImplementedError
 
-    def decode_reply(self, op, msg, cfg):
+    def decode_reply(self, op, msg, cfg, params=None):
         raise NotImplementedError
+
+
+def op_rows(f: int, a: torch.Tensor) -> torch.Tensor:
+    """Client op rows ``[..., 4]``: ``(f, a, 0, 0)`` for an f code and
+    an int32 lane ``a [...]``."""
+    z = torch.zeros_like(a)
+    return torch.stack([torch.full_like(a, f), a, z, z], dim=-1)
 
 
 def decode_error_reply(msg: torch.Tensor) -> torch.Tensor:
@@ -142,7 +206,7 @@ class ClientState(NamedTuple):
 
 def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
                 t: int, key: torch.Tensor, cfg: NetConfig,
-                ccfg: ClientConfig):
+                ccfg: ClientConfig, params=None):
     """One tick for all clients of all instances. ``inbox_clients [I, C,
     K, L]``, ``key [I, 2]``. Returns ``(cs', requests [I, C, L], events
     [I, C, 2, 2 + ev_vals])``: slot 0 = completion, slot 1 = invocation."""
@@ -162,7 +226,7 @@ def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
         I, C, 1, msgs.shape[-1]))[:, :, 0]                     # [I, C, L]
 
     is_err = reply[..., wire.TYPE] == TYPE_ERROR
-    et_ok, val_ok = model.decode_reply(cs.op, reply, cfg)
+    et_ok, val_ok = model.decode_reply(cs.op, reply, cfg, params)
     etype_r = torch.where(is_err, decode_error_reply(reply), et_ok)
     value = torch.where(is_err[..., None], torch.zeros_like(val_ok), val_ok)
     value_r = torch.cat([cs.op[..., 0:1], value], dim=-1)      # [I, C, 4]
@@ -193,16 +257,17 @@ def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
     cidx = torch.arange(C, dtype=_I32, device=dev)
     uniq = cs.next_msg_id * C + cidx
     if t >= ccfg.final_start:
-        new_ops = model.sample_final_op(op_keys, uniq, cfg)
+        new_ops = model.sample_final_op(op_keys, uniq, cfg, params)
     else:
-        new_ops = model.sample_op(op_keys, uniq, cfg)
+        new_ops = model.sample_op(op_keys, uniq, cfg, params)
     op = torch.where(fire[..., None], new_ops, cs.op)
     msg_id = torch.where(fire, cs.next_msg_id, cs.msg_id)
     next_msg_id = torch.where(fire, cs.next_msg_id + 1, cs.next_msg_id)
     invoked = torch.where(fire, torch.full_like(cs.invoked, t), cs.invoked)
     status = torch.where(fire, torch.ones_like(status), status)
 
-    reqs = model.encode_request(op, msg_id, cidx, blocks[:, 2], cfg)
+    reqs = model.encode_request(op, msg_id, cidx, blocks[:, 2], cfg,
+                                params)
     client_ids = cfg.n_nodes + cidx
     reqs[..., wire.VALID] = fire.to(_I32)
     reqs[..., wire.SRC] = client_ids
@@ -288,43 +353,67 @@ def partition_matrix(nem: NemesisConfig, cfg: NetConfig, t: int,
 # --- node phase ---------------------------------------------------------------
 
 
+def stamp(outs: torch.Tensor, node_idx: torch.Tensor) -> torch.Tensor:
+    """The legacy driver's stamp of emitted rows ``outs [B, M, L]``
+    (in place): SRC becomes the emitting node where it is still 0 (a
+    model copies a client's SRC when it proxies), ORIGIN always."""
+    src = outs[..., wire.SRC]
+    outs[..., wire.SRC] = torch.where(src == 0, node_idx[:, None], src)
+    outs[..., wire.ORIGIN] = node_idx[:, None]
+    return outs
+
+
 def node_phase(model: Model, node_state, inbox_nodes: torch.Tensor, t: int,
                keys: torch.Tensor, cfg: NetConfig,
                t_nodes: Optional[torch.Tensor] = None,
-               m_bits: Optional[torch.Tensor] = None):
+               m_bits: Optional[torch.Tensor] = None, params=None):
     """All nodes of all instances handle their inboxes, then run the
     tick hook. ``node_state`` leaves ``[I, N, ...]``, ``inbox_nodes
     [I, N, K, L]``, ``keys [I, 2]``. ``t_nodes [I, N]`` (clock-skew
     lane) replaces the global ``t`` with each node's local clock;
-    ``m_bits [I]`` (membership lane) is the target member bitmask.
-    Without them every node sees the Python int ``t`` and the full
-    cluster, as before the fault lanes. Returns ``(state', outs [I,
-    N * (K + per-tick rows), L])``."""
+    ``m_bits [I]`` (membership lane) is the target member bitmask, read
+    by fused models only. Without them every node sees the Python int
+    ``t`` and the full cluster, as before the fault lanes. Node ``n``'s
+    slot ``i`` draws from ``fold_in(split(keys, N)[n], i)`` and its tick
+    hook from slot ``K``'s key. Returns ``(state', outs [I, N * M, L])``
+    with each node's ``M`` rows in the JAX order: per slot its reply
+    rows, then the tick hook's rows."""
     I, N, K, L = inbox_nodes.shape
     B = I * N
     dev = inbox_nodes.device
     nkeys = rng.split(keys, N)                                 # [I, N, 2]
     mkeys = rng.fold_in(nkeys[:, :, None, :],
                         torch.arange(K + 1, device=dev))       # [I,N,K+1,2]
-    slot_jit, tick_jit = model.node_rng(mkeys)
-    row = type(node_state)(*(x.reshape((B,) + x.shape[2:])
-                             for x in node_state))
+    row = tree_map(lambda x: x.reshape((B,) + x.shape[2:]), node_state)
     node_idx = torch.arange(N, dtype=_I32, device=dev).repeat(I)
-    slot_jit = slot_jit.reshape(B, K)
     msgs = inbox_nodes.reshape(B, K, L)
     if t_nodes is not None:
         t = t_nodes.reshape(B)
-    if m_bits is not None:
-        m_bits = m_bits[:, None].expand(I, N).reshape(B)
     outs = []
-    for k in range(K):
-        row, out = model.inbox_step(row, node_idx, msgs[:, k], slot_jit[:, k],
-                                    t, cfg)
-        outs.append(out)
-    row, outs_t = model.fused_tick(row, node_idx, t, tick_jit.reshape(B),
-                                   cfg, m_bits=m_bits)
-    outs = torch.cat([torch.stack(outs, dim=1), outs_t], dim=1)
-    state = type(node_state)(*(x.reshape((I, N) + x.shape[1:]) for x in row))
+    if model.fused_node:
+        slot_jit, tick_jit = model.node_rng(mkeys)
+        slot_jit = slot_jit.reshape(B, K)
+        if m_bits is not None:
+            m_bits = m_bits[:, None].expand(I, N).reshape(B)
+        for k in range(K):
+            row, out = model.inbox_step(row, node_idx, msgs[:, k],
+                                        slot_jit[:, k], t, cfg)
+            outs.append(out[:, None])
+        row, outs_t = model.fused_tick(row, node_idx, t,
+                                       tick_jit.reshape(B), cfg,
+                                       m_bits=m_bits)
+        outs = torch.cat(outs + [outs_t], dim=1)
+    else:
+        mkeys = mkeys.reshape(B, K + 1, 2)
+        for k in range(K):
+            # handle self-gates on the zero rows of empty slots
+            row, out = model.handle(row, node_idx, msgs[:, k], t,
+                                    mkeys[:, k], cfg, params)
+            outs.append(out)
+        row, outs_t = model.tick(row, node_idx, t, mkeys[:, K], cfg,
+                                 params)
+        outs = stamp(torch.cat(outs + [outs_t], dim=1), node_idx)
+    state = tree_map(lambda x: x.reshape((I, N) + x.shape[1:]), row)
     return state, outs.reshape(I, -1, L)
 
 
@@ -346,14 +435,14 @@ class SimConfig(NamedTuple):
 class Carry(NamedTuple):
     """The whole simulation state (lead layout, leaves ``[I, ...]``)."""
     pool: torch.Tensor          # [I, S, L]
-    node_state: Any             # model row tuple, leaves [I, N, ...]
+    node_state: Any             # a tensor or row tuple, leaves [I, N, ...]
     client_state: ClientState   # [I, C, ...]
     stats: NetStats             # int32 scalars (fleet sums)
     violations: torch.Tensor    # [I] ticks each instance violated
     key: torch.Tensor           # the constant master key [2]
     telemetry: Any = None       # flight recorder, None when disabled
     snapshots: Any = None       # snapshot slab: Model.snapshot_row's
-                                # dict of durable lanes [I, N, ...]; None
+                                # lanes [I, N, ...] (a dict for Raft); None
                                 # unless a crash or membership lane runs
     fault_sched: Any = None     # faults.fuzz.FaultSchedule [I, ...],
                                 # drawn at init; None unless fuzzing
@@ -463,7 +552,9 @@ def make_tick_fn(model: Model, sim: SimConfig,
                  device=None) -> Callable:
     """The lead-layout tick: ``tick_fn(carry, t) -> (carry', events)``
     with the recorded instances' events ``[R, C, 2, 2 + ev_vals]`` (None
-    when nothing is recorded)."""
+    when nothing is recorded). The model's static params are built
+    here, once for the run."""
+    params = model.make_params(sim.net.n_nodes, device)
     cfg = sim.net
     ccfg = sim.client
     fx = sim.faults
@@ -526,13 +617,13 @@ def make_tick_fn(model: Model, sim: SimConfig,
         with record_function("node_phase"):
             node_state, node_outs = node_phase(
                 model, node_state, inbox[:, :N], t, node_keys, cfg,
-                t_nodes=planes.t_nodes, m_bits=m_bits)
+                t_nodes=planes.t_nodes, m_bits=m_bits, params=params)
 
         invoked_prev = carry.client_state.invoked
         with record_function("client_step"):
             client_state, reqs, events = client_step(
                 model, carry.client_state, inbox[:, N:], t, client_keys,
-                cfg, ccfg)
+                cfg, ccfg, params)
 
         with record_function("enqueue"):
             sends = None if planes.crash is None else ~planes.crash
@@ -570,7 +661,7 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 dropped_partition=s.dropped_partition + sum_i32(n_dropp),
                 dropped_loss=s.dropped_loss + sum_i32(n_lost),
                 dropped_overflow=s.dropped_overflow + sum_i32(n_ovf))
-            violated = model.invariants(node_state, cfg)
+            violated = model.invariants(node_state, cfg, params)
             tel = _update_telemetry(
                 carry.telemetry, sim, t, events, invoked_prev,
                 netsim.pool_occupancy(pool), inbox,

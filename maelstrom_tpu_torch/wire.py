@@ -66,3 +66,21 @@ def make_msg(src, dest, type_, msg_id=-1, reply_to=-1, body=(),
     for i, b in enumerate(body):
         m[..., BODY + i] = b
     return m
+
+
+def reply_rows(msg: torch.Tensor, valid: torch.Tensor, type_, lanes_: int,
+               body=()) -> torch.Tensor:
+    """One reply row per request row ``msg [B, L]``, as ``[B, 1, lanes]``:
+    VALID from ``valid``, DEST the request's SRC, REPLYTO its MSGID,
+    and ``type_`` and the body lanes (ints or ``[B]`` tensors). SRC and
+    ORIGIN stay 0 for the runtime's stamp."""
+    out = torch.zeros((msg.shape[0], 1, lanes_), dtype=torch.int32,
+                      device=msg.device)
+    out[:, 0, VALID] = valid.to(torch.int32)
+    out[:, 0, DEST] = msg[:, SRC]
+    out[:, 0, TYPE] = type_
+    out[:, 0, REPLYTO] = msg[:, MSGID]
+    for i, b in enumerate(body):
+        out[:, 0, BODY + i] = b
+    return out
+

@@ -86,6 +86,22 @@ def test_draws(seed):
                                   rng.randint(tk, (4,), 2, 9).numpy())
 
 
+@pytest.mark.parametrize("lo,hi", [(0, 1_000_000), (-5, 6), (0, 6),
+                                   (0, 25), (0, 65_537), (-(2**31), 2**31 - 1),
+                                   (3, 3 + 2**20)])
+def test_randint_wide_spans(lo, hi):
+    """Spans past 2**16, where JAX's uint32 square of the multiplier
+    wraps (echo's payload draws from [0, 10**6)), and the counters'
+    signed deltas, as static bounds and as tensor bounds."""
+    jk = _batch_keys(5, 256)
+    tk = torch.from_numpy(_np_key(jk))
+    ref = np.asarray(jax.vmap(lambda k: jax.random.randint(
+        k, (), lo, hi, dtype=jnp.int32))(jk))
+    np.testing.assert_array_equal(ref, rng.randint(tk, (), lo, hi).numpy())
+    np.testing.assert_array_equal(ref, rng.randint(
+        tk, (), torch.tensor(lo), torch.tensor(hi)).numpy())
+
+
 def test_tick_keys_match_instance_keys():
     """The batched per-tick derivation equals JAX's _instance_keys for
     every purpose (the nemesis purpose without the tick fold)."""

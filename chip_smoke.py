@@ -9,21 +9,22 @@ Phases (any failure exits non-zero and prints no result line):
    started together) and print nvcc's ``-Xptxas -v`` report;
 2. hold each kernel against its plain PyTorch version on the card
    (tolerance: exact — all outputs are int32) at the Pallas test shape,
-   the flagship shape (S=16, K=1), the CLI-default shape (S=128, K=8)
-   and the 25-node broadcast shape (S=256, K=8, NT=50, L=10), 4096
-   instances each, and on edge-case pools at small I
-   (``kernels/delivery_cases.py``, rows of L = 9, 10, 14 and 20); at the
-   last three shapes time the kernel's device time per launch (CUPTI
+   the flagship shape (S=16, K=1), the CLI-default shape (S=128, K=8),
+   the 25-node broadcast shape (S=256, K=8, NT=50, L=10) and the txn
+   and kafka shapes (below), 4096 instances each, and on edge-case pools
+   at small I (``kernels/delivery_cases.py``, rows of L = 9, 10, 14, 20,
+   26, 32 and 66); at ``delivery_cases.TIMED``'s five shapes time the
+   kernel's device time per launch (CUPTI
    durations under ``torch.profiler``, L2 flushed before each launch,
    and warm), the wrapper's time per call (host issue included) and the
    plain version, beside the kernel's bound;
 3. check on a small input (24 instances) that the card's run equals
    the CPU run of the plain versions at every 25th tick, all carry
    leaves exact (the CPU path is the one held to the JAX reference by
-   the tests): lin-kv for 300 ticks under an active four-lane fault
+   the tests): lin-kv for 250 ticks under an active four-lane fault
    distribution, then under an active fleet-shared fault plan with
    crash, links, skew and membership; then each tutorial workload for
-   200 ticks (echo, unique-ids, broadcast at 25 nodes in a tree4,
+   150 ticks (echo, unique-ids, broadcast at 25 nodes in a tree4,
    g-set, g-counter, pn-counter; g-set and pn-counter under a crash and
    links plan);
 4. drive the main path — ``run_torch_test`` on lin-kv Raft exactly as
@@ -34,16 +35,29 @@ Phases (any failure exits non-zero and prints no result line):
    the delivery kernel once per tick, the verdict must be valid, and
    the network counters must equal the bare run's (the distribution
    is value-neutral);
-5. drive the same fleet for 400 ticks bare and then under an active
+5. drive the same fleet for 250 ticks bare and then under an active
    four-lane fault distribution (counters reset before and read after
    each): both valid, the delivery kernel once per tick, and the
    fuzzed fleet's drawn windows fired in every lane;
 6. drive the guide's broadcast fleet (``fleets.BROADCAST_25``: 25 nodes
-   in a tree4, 25 clients, 4096 instances, 2,000 ticks, S=256, K=8)
+   in a tree4, 25 clients, 4096 instances, 1,000 ticks, S=256, K=8)
    the same way: valid, the delivery kernel once per tick, no overflow;
 7. drive the other tutorial workloads at their family settings
-   (``fleets.FAMILIES``, 4096 instances, 1,000 ticks each) the same
-   way: each valid, the delivery kernel once per tick.
+   (``fleets.FAMILIES``, 4096 instances, 600 ticks each) the same
+   way: each valid, the delivery kernel once per tick;
+8. drive the txn-list-append fleet (``fleets.TXN``: 3 nodes, 6
+   clients, 4096 instances, 1,000 ticks, four recorded instances
+   checked by Elle), then txn-rw-register at the same settings for 800
+   ticks, then kafka at the bench's settings (``fleets.KAFKA``: 1 node,
+   no nemesis) for 800 ticks the same way: each valid, the delivery
+   kernel once per tick; it logs the recorded instances' txn counts and
+   any Elle anomaly types.
+
+Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
+txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
+txn-list-append (bare, and under a crash and links plan, whose slab
+carries the 2-D list kv), txn-rw-register-bug-dirty-apply, kafka with
+crash_clients and kafka-bug-offset-reuse, 200 ticks each.
 
 Before the last line it prints the card's name and power limit and one
 JSON object with every kernel's launches, error, times and bound (``ms``
@@ -53,10 +67,10 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-7 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-8 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25).
-``--time-limit S`` runs the paths of phases 4-7 for at most ``S``
+``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
 simulated seconds instead (a quicker check; the broadcast fleet for at
 least 1 s, which it needs to converge after the heal).
 """
@@ -83,7 +97,7 @@ ACTIVE_FUZZ = {"windows": [2, 3], "gap": [40, 200], "duration": [30, 100],
                "skew": {"rate": 0.5, "victims": [1, 2],
                         "range": [0.5, 2.0]},
                "membership": {"rate": 0.5, "victims": [1, 1]}}
-# an active fleet-shared plan over all four lanes (phase 3's 300 ticks)
+# an active fleet-shared plan over all four lanes (phase 3's 250 ticks)
 ACTIVE_PLAN = {"phases": [
     {"until": 40, "members": [0, 1, 2]},
     {"until": 80, "crash": [0], "skew": {"1": 2.0, "2": 0.75}},
@@ -92,8 +106,8 @@ ACTIVE_PLAN = {"phases": [
                              {"dst": 0, "src": 2, "loss": 0.4}]},
     {"until": 170, "remove": [1]},
     {"until": 200, "add": [1], "crash": [2]}]}
-# crashes and degraded links for the gossip workloads (phase 3's 200
-# ticks, healed at tick 150)
+# crashes and degraded links (phase 3: healed at tick 100 in the gossip
+# workloads' 150-tick runs, at 150 in txn-list-append's 200)
 CRASH_LINKS_PLAN = {"phases": [
     {"until": 30},
     {"until": 80, "crash": [0]},
@@ -103,6 +117,17 @@ CRASH_LINKS_PLAN = {"phases": [
     {"until": 145, "crash": [1, 2]}]}
 TUTORIAL = ("echo", "unique-ids", "broadcast", "g-set", "g-counter",
             "pn-counter")
+# phase 3's txn and kafka runs: (label, workload, model flags, plan)
+TXN_KAFKA_SMALL = (
+    ("txn-list-append", "txn-list-append", {}, None),
+    ("txn-list-append under a crash and links plan", "txn-list-append", {},
+     CRASH_LINKS_PLAN),
+    ("txn-rw-register-bug-dirty-apply", "txn-rw-register-bug-dirty-apply",
+     {}, None),
+    ("kafka with crash_clients", "kafka", {"crash_clients": True}, None),
+    ("kafka-bug-offset-reuse", "kafka-bug-offset-reuse", {}, None))
+# phase 8's fleets, the slice's path (txn-list-append) first
+TXN_KAFKA = ("txn-list-append", "txn-rw-register", "kafka")
 
 
 def log(msg: str) -> None:
@@ -302,11 +327,11 @@ def run_path(dev, model, opts, label):
     return res, launches
 
 
-def small(opts, n_instances=24, time_limit=0.3):
-    """A fleet's options cut to a small input: partitions every 0.1 s,
-    healed 0.05 s before the end."""
+def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
+    """A fleet's options cut to a small input: partitions every
+    ``interval`` s, healed 0.05 s before the end."""
     return dict(opts, n_instances=n_instances, time_limit=time_limit,
-                nemesis_interval=0.1, recovery_time=0.05)
+                nemesis_interval=interval, recovery_time=0.05)
 
 
 def main(argv) -> int:
@@ -327,6 +352,18 @@ def main(argv) -> int:
     flagship, opts = fleets.fleet("lin-kv")
     paths = {w: fleets.fleet(w) for w in TUTORIAL if w != "broadcast"}
     bmodel, bopts = fleets.fleet("broadcast")
+    txn_paths = {w: fleets.fleet(w) for w in TXN_KAFKA}
+    # paths cut to keep the script well inside its 1,200 s limit on a
+    # slow host (PERF.md §6): the broadcast fleet to 1 s (from 2;
+    # healed at tick 700), the families to 0.6 s (from 1: healed before
+    # the first partition phase at tick 400), this slice's
+    # txn-rw-register and kafka fleets to 0.8 s (txn-rw-register
+    # partitioned in [400, 500)); txn-list-append keeps 1 s
+    bopts["time_limit"] = 1.0
+    for _, o in paths.values():
+        o["time_limit"] = 0.6
+    for w in ("txn-rw-register", "kafka"):
+        txn_paths[w][1]["time_limit"] = 0.8
     if rehearse:
         shapes = {name: shape[:5] + (min(shape[5], 64),)
                   for name, shape in shapes.items()}
@@ -338,6 +375,10 @@ def main(argv) -> int:
         bopts = small(bopts, 4, 0.2) | dict(node_count=5, concurrency=5)
         paths = {w: (m, small(o, 8, 0.2) | dict(recovery_time=0.1))
                  for w, (m, o) in paths.items()}
+        # Raft elects its first leader after 60-120 ticks: 0.3 s leaves
+        # the txn fleets time to commit
+        txn_paths = {w: (m, small(o, 8, 0.3) | dict(recovery_time=0.1))
+                     for w, (m, o) in txn_paths.items()}
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -345,7 +386,7 @@ def main(argv) -> int:
         if not rehearse:
             # the 25-node tree takes ~1 s to converge (0.3 s of recovery)
             bopts["time_limit"] = max(min(limit, bopts["time_limit"]), 1.0)
-        for _, o in paths.values():
+        for _, o in list(paths.values()) + list(txn_paths.values()):
             o["time_limit"] = min(limit, o["time_limit"])
     full = not rehearse and limit is None
     if not rehearse:
@@ -365,19 +406,26 @@ def main(argv) -> int:
     if not rehearse:
         check_small_run_matches_cpu(dev, "an active four-lane fault "
                                     "distribution", flagship,
-                                    small(opts, time_limit=0.3)
+                                    small(opts, time_limit=0.25)
                                     | dict(fault_fuzz=ACTIVE_FUZZ))
         check_small_run_matches_cpu(dev, "an active fault plan (crash, "
                                     "links, skew, membership)", flagship,
-                                    small(opts, time_limit=0.3)
+                                    small(opts, time_limit=0.25)
                                     | dict(fault_plan=ACTIVE_PLAN))
         for w in TUTORIAL:
             model, o = (bmodel, bopts) if w == "broadcast" else paths[w]
-            o = small(o, time_limit=0.2)
+            # 150 ticks, partitioned in [50, 100) (cut from 200)
+            o = small(o, time_limit=0.15, interval=0.05)
             label = w
             if w in ("g-set", "pn-counter"):
                 o["fault_plan"] = CRASH_LINKS_PLAN
                 label += " under a crash and links plan"
+            check_small_run_matches_cpu(dev, label, model, o)
+        for label, w, mopts, plan in TXN_KAFKA_SMALL:
+            model, o = fleets.fleet(w, mopts)
+            o = small(o, time_limit=0.2)
+            if plan is not None:
+                o["fault_plan"] = plan
             check_small_run_matches_cpu(dev, label, model, o)
         mark("phase 3")
     res, launches = run_path(dev, flagship,
@@ -391,10 +439,9 @@ def main(argv) -> int:
         log("phase 4: network counters equal the bare flagship run's "
             "exactly")
     mark("phase 4")
-    # 400 ticks (the fleet's fault windows fire in every lane well before
-    # the heal at tick 200): cut from 1,000 to keep the script near half
-    # its time limit
-    short = dict(opts, time_limit=min(0.4, opts["time_limit"]))
+    # 250 ticks (the fleet's fault windows fire in every lane before the
+    # heal at tick 125): cut from 1,000 to keep the script inside its limit
+    short = dict(opts, time_limit=min(0.25, opts["time_limit"]))
     bare, bare_launches = run_path(dev, flagship, short, "phase 5 (bare)")
     fuzzed, fuzz_launches = run_path(dev, flagship,
                                      dict(short, fault_fuzz=ACTIVE_FUZZ),
@@ -428,6 +475,24 @@ def main(argv) -> int:
             f"{fres['net']['dropped-overflow']}")
         by_path[f"phase 7 {w}"] = f_launches["deliver"]
     mark("phase 7")
+    for w, (model, o) in txn_paths.items():
+        tres, t_launches = run_path(dev, model, o, f"phase 8 ({w})")
+        inst = tres["instances"]
+        counts = ([r.get("txn-count") for r in inst] if w.startswith("txn")
+                  else [(r.get("send-count"), r.get("poll-count"))
+                        for r in inst])
+        kinds = sorted(set().union(*(r.get("anomaly-types") or []
+                                     for r in inst)))
+        log(f"phase 8: {w} check-s {tres['perf']['phases']['check-s']}, "
+            f"{'txn-count' if w.startswith('txn') else '(send, poll) count'}"
+            f" per recorded instance {counts}, anomaly types "
+            f"{kinds or 'none'}, dropped-overflow "
+            f"{tres['net']['dropped-overflow']}")
+        if w.startswith("txn") and not any(counts):
+            raise AssertionError(f"phase 8: {w} committed no txn in the "
+                                 f"recorded instances")
+        by_path[f"phase 8 {w}"] = t_launches["deliver"]
+    mark("phase 8")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     for name, r in record["shapes"].items():

@@ -1,12 +1,14 @@
 """Command line of the port: ``python -m maelstrom_tpu_torch test -w lin-kv``.
 
-Runs a ported workload's fleet (``models.WORKLOADS``: lin-kv Raft and
-the tutorial workloads echo, unique-ids, broadcast, g-set, g-counter
-and pn-counter) through :func:`harness.run_torch_test` and prints a
-JSON summary (verdict, network counters, throughput, device,
-and the fault block under a fault plan or distribution). Unset flags
-take the harness defaults (``harness.TORCH_DEFAULTS``). Exit code 0
-when the run is valid, 1 when it is not.
+Runs a ported workload's fleet (``models.WORKLOADS``: lin-kv Raft, the
+tutorial workloads echo, unique-ids, broadcast, g-set, g-counter and
+pn-counter, kafka, and txn-list-append and txn-rw-register over Raft;
+``models.MUTANTS``: the kafka and txn mutants) through
+:func:`harness.run_torch_test` and prints a JSON summary (verdict,
+network counters, throughput, device, and the fault block under a fault
+plan or distribution). Unset flags take the harness defaults
+(``harness.TORCH_DEFAULTS``). Exit code 0 when the run is valid, 1 when
+it is not.
 """
 
 from __future__ import annotations
@@ -79,6 +81,18 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--heartbeat-ticks", type=int,
                    help="Raft leader heartbeat cadence in ticks (lin-kv; "
                         "default 15)")
+    p.add_argument("--key-count", type=int,
+                   help="keys of the kv, txn and kafka models")
+    p.add_argument("--crash-clients", action="store_true",
+                   help="kafka: clients randomly crash and resume from "
+                        "the committed offsets")
+    p.add_argument("--txn-dirty-apply", action="store_true",
+                   help="txn workloads: run the dirty-apply mutant")
+    p.add_argument("--consistency-models", metavar="MODEL",
+                   help="the model Elle checks the txn workloads against "
+                        "(default strict-serializable)")
+    p.add_argument("--txn", action="store_true",
+                   help="kafka transactions: not ported (refused)")
     p.add_argument("--no-telemetry", action="store_true")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
     p.add_argument("--chunk-ticks", type=int)
@@ -122,8 +136,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     if raft_kw and args.workload != "lin-kv":
         raise ValueError("--log-cap and --heartbeat-ticks are options of "
                          "lin-kv only")
+    if args.txn:
+        raise ValueError("--txn (kafka transactions) is a process and "
+                         "native-runtime feature of the JAX package; "
+                         "maelstrom_tpu_torch does not port it")
+    model_opts = {k: True for k in ("crash_clients", "txn_dirty_apply")
+                  if getattr(args, k)}
+    opts.update(model_opts)
+    if args.consistency_models:
+        opts["consistency_models"] = args.consistency_models
     model = get_model(args.workload, args.node_count, args.topology,
-                      raft_kw)
+                      raft_kw, opts=model_opts)
+    if args.key_count and hasattr(model, "n_keys"):
+        model.n_keys = args.key_count
     res = run_torch_test(model, opts, device=args.device)
     summary = {k: res[k] for k in ("valid?", "instance-count",
                                    "checked-instances", "valid-instances",

@@ -10,7 +10,9 @@ carry at tick ``t`` handed over here continues as the port's tick
 ``t + 1``. Node state and the slab come in three shapes: a bare array
 (the legacy models: a scalar per node for echo and unique-ids, two
 bitmask words for the gossip sets, an ``[N, 2]`` table for the
-counters), a row tuple (Raft), and a dict of lanes (Raft's slab).
+counters), a row tuple (Raft and the txn models' ``RaftRow``, whose kv
+is ``[N, n_keys, 1 + list_cap]`` for list-append; kafka's ``KafkaRow``,
+also its slab), and a dict of lanes (the Raft and txn slab).
 """
 
 from __future__ import annotations

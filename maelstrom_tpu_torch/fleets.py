@@ -14,6 +14,13 @@ sources, at full width.
   settings (``bench.py:895-918``: 3 nodes, 6 clients, ``inbox_k`` 1, 16
   slots, 200 ops/s, 5% loss, partitions every 0.4 s); g-set and the
   counters with the bench's 0.25 s RPC timeout, 1 simulated second.
+- ``TXN``: txn-list-append and txn-rw-register at the same family
+  settings (``bench.py:906``), their models at the defaults of
+  ``maelstrom_tpu/models/txn_raft.py`` (8 keys, 3 micro-ops, 16 list
+  slots, a 96-entry log).
+- ``KAFKA``: kafka at the family settings with the bench's own
+  overrides (``bench.py:914-915``): 1 node, no nemesis, 0.25 s RPC
+  timeout.
 """
 
 from __future__ import annotations
@@ -45,12 +52,23 @@ FAMILIES: Dict[str, Dict[str, Any]] = {
     "g-counter": dict(_FAMILY, rpc_timeout=0.25),
     "pn-counter": dict(_FAMILY, rpc_timeout=0.25),
 }
+TXN = dict(_FAMILY)
+KAFKA = dict(_FAMILY, node_count=1, nemesis=[], rpc_timeout=0.25)
 
 
-def fleet(workload: str):
+def fleet(workload: str, model_opts=None):
     """``(model, opts)`` of a workload's fleet: the flagship for lin-kv,
-    ``BROADCAST_25`` for broadcast, its family run otherwise."""
+    ``BROADCAST_25`` for broadcast, ``TXN`` for the txn workloads and
+    their mutants, ``KAFKA`` for kafka and its mutants, its family run
+    otherwise. ``model_opts`` are ``get_model``'s model-selection flags
+    (kafka's ``crash_clients``), which the run's options repeat."""
     from .models import get_model
+    model_opts = dict(model_opts or {})
+    if workload.startswith(("txn-", "kafka")):
+        opts = dict(TXN if workload.startswith("txn-") else KAFKA,
+                    **model_opts)
+        return (get_model(workload, opts["node_count"], opts=model_opts),
+                opts)
     if workload == "lin-kv":
         return (get_model("lin-kv", 3, raft_kw=FLAGSHIP_MODEL_KW),
                 dict(FLAGSHIP))

@@ -78,8 +78,11 @@ LIFECYCLE_OPTS = ("heartbeat", "device_profile", "aot_store",
 # JAX-harness options the port implements only at their neutral value
 NEUTRAL_OPTS = {"journal_instances": (0, None), "netid": (None, False),
                 "check_mode": ("farm", None)}
+# model-selection flags (models.get_model builds the model from them; the
+# harness holds the model to them) and the Elle checker's model names
+MODEL_OPTS = ("crash_clients", "txn_dirty_apply", "consistency_models")
 KNOWN_OPTS = (set(TORCH_DEFAULTS) | set(LIFECYCLE_OPTS) | set(NEUTRAL_OPTS)
-              | {"store_root", "device"})
+              | set(MODEL_OPTS) | {"store_root", "device"})
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -107,6 +110,7 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
             raise ValueError(f"option {k}={opts[k]!r} is not implemented "
                              f"by maelstrom_tpu_torch (only "
                              f"{' or '.join(map(repr, neutral))})")
+    _check_model_opts(model, opts)
     o = {**TORCH_DEFAULTS, **opts}
     if o.get("layout", "lead") not in ("lead", "auto"):
         raise ValueError("maelstrom_tpu_torch implements the batch-leading "
@@ -126,6 +130,7 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
         latency_mean=float(o["latency"]) / mpt,
         latency_dist=LATENCY_DISTS[o["latency_dist"]],
         p_loss=float(o["p_loss"]))
+    model.validate_config(net)
     # final window: partitions stop at stop_tick, clients keep the main
     # mix through half the window, then switch to final reads
     recovery_ticks = min(int(o["recovery_time"] * 1000 / mpt), n_ticks // 2)
@@ -166,6 +171,24 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
                      record_instances=min(o["record_instances"],
                                           o["n_instances"]),
                      telemetry=telemetry, faults=faults)
+
+
+def _check_model_opts(model: Model, opts: Dict[str, Any]) -> None:
+    """The model-selection flags must describe ``model``: a flag the
+    model was not built with raises instead of being dropped."""
+    if opts.get("crash_clients") and not getattr(model, "crash_clients",
+                                                 False):
+        raise ValueError(
+            f"crash_clients is a kafka option and {model.name} was not "
+            f"built with it (models.get_model(..., opts={{'crash_clients'"
+            f": True}}) builds a kafka model that crashes its clients)")
+    if opts.get("txn_dirty_apply") and not (
+            model.name.startswith("txn-")
+            and getattr(model, "apply_uncommitted", False)):
+        raise ValueError(
+            f"txn_dirty_apply selects the txn dirty-apply mutant and "
+            f"{model.name} is not it (models.get_model(..., opts="
+            f"{{'txn_dirty_apply': True}}) builds it)")
 
 
 def _fault_config(o: Dict[str, Any], n_ticks: int, interval: int,

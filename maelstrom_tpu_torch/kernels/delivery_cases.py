@@ -23,13 +23,20 @@ from ..netsim import NetConfig, jax_index
 INT32_MAX = 2**31 - 1
 
 # the Pallas kernel's test shape (checked only), the flagship lin-kv run
-# (the main path), the CLI defaults S=128, K=8, and the guide's 25-node
-# broadcast fleet (S=256, K=8, NT=50, L=10: the 4-byte path) (timed)
+# (the main path), the CLI defaults S=128, K=8, the guide's 25-node
+# broadcast fleet (S=256, K=8, NT=50, L=10: the 4-byte path), the
+# txn-list-append fleet (L=66: the 4-byte path at an odd row stride) and
+# the kafka fleet (NT=7, L=32: the 16-byte path) (timed), and the
+# txn-rw-register fleet (L=26, checked only)
 SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
           "flagship": (3, 6, 16, 1, 12, 4096),
           "defaults": (3, 6, 128, 8, 12, 4096),
-          "broadcast-25": (25, 25, 256, 8, 2, 4096)}
-TIMED = ("flagship", "defaults", "broadcast-25")
+          "broadcast-25": (25, 25, 256, 8, 2, 4096),
+          "txn-list-append": (3, 6, 16, 1, 58, 4096),
+          "kafka": (1, 6, 16, 1, 24, 4096),
+          "txn-rw-register": (3, 6, 16, 1, 18, 4096)}
+TIMED = ("flagship", "defaults", "broadcast-25", "txn-list-append",
+         "kafka")
 # edge-case pools go through the kernel at small I: the shapes above, an
 # S that is no power of two, where wrapped priorities can tie, and the
 # tutorial workloads' rows on the 4-byte path (L = 9, 10, 14)
@@ -40,7 +47,10 @@ EDGE_SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
                "broadcast-25": (25, 25, 256, 8, 2, 16),
                "unique-ids": (3, 6, 16, 1, 1, 64),
                "g-set": (3, 6, 16, 1, 2, 64),
-               "pn-counter": (3, 6, 16, 1, 6, 64)}
+               "pn-counter": (3, 6, 16, 1, 6, 64),
+               "txn-list-append": (3, 6, 16, 1, 58, 64),
+               "kafka": (1, 6, 16, 1, 24, 64),
+               "txn-rw-register": (3, 6, 16, 1, 18, 64)}
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12

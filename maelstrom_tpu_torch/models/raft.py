@@ -37,7 +37,8 @@ class RaftRow(NamedTuple):
     log_term: torch.Tensor        # [..., LOGN]
     log_body: torch.Tensor        # [..., LOGN, ENTRY_LANES]
     log_len: torch.Tensor
-    kv: torch.Tensor              # [..., KEYS]
+    kv: torch.Tensor              # [..., KEYS] (list-append: [..., KEYS,
+                                  # 1 + list_cap])
     next_idx: torch.Tensor        # [..., N]
     match_idx: torch.Tensor       # [..., N]
     election_deadline: torch.Tensor
@@ -93,13 +94,14 @@ class RaftModel(Model):
         jitter = rng.randint(keys, (), 0, self.elect_jitter)
         z = lambda *s: torch.zeros((I, N) + s, dtype=_I32, device=dev)
         full = lambda v: torch.full((I, N), v, dtype=_I32, device=dev)
+        kv = self._init_kv(dev)
         return RaftRow(
             term=z(), voted_for=full(-1), role=z(), votes=z(),
             commit_idx=z(), last_applied=z(),
             log_term=z(self.log_cap),
             log_body=z(self.log_cap, self.entry_lanes),
             log_len=z(),
-            kv=torch.full((I, N, self.n_keys), NIL, dtype=_I32, device=dev),
+            kv=kv.expand((I, N) + kv.shape).clone(),
             next_idx=z(n_nodes), match_idx=z(n_nodes),
             election_deadline=(self.elect_min + jitter).to(_I32),
             last_hb=z(), leader_hint=full(-1),
@@ -107,6 +109,12 @@ class RaftModel(Model):
             cfg_boot=full(full_member_mask(n_nodes)),
             caught_up=full(1),
         )
+
+    # --- replicated-state-machine hooks (overridden by the txn models) -----
+
+    def _init_kv(self, device=None) -> torch.Tensor:
+        """One node's applied state, the tensor in ``RaftRow.kv``."""
+        return torch.full((self.n_keys,), NIL, dtype=_I32, device=device)
 
     def _is_client_request(self, mtype):
         return (mtype >= T_READ) & (mtype <= T_CAS)

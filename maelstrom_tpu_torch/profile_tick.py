@@ -8,8 +8,10 @@
 Runs a fleet of ``fleets.py`` on ``cuda``: for lin-kv (the default) the
 flagship (3 nodes, 6 clients, inbox_k=1, 16 pool slots, exponential
 latency, 5% loss, the partition nemesis, telemetry on); for broadcast
-the guide's 25-node tree4 fleet (25 clients, S=256, K=8); for the other
-tutorial workloads their family run. ``--node-count`` (clients follow
+the guide's 25-node tree4 fleet (25 clients, S=256, K=8); for
+txn-list-append and txn-rw-register ``fleets.TXN``; for kafka
+``fleets.KAFKA`` (1 node, no nemesis); for the other tutorial workloads
+their family run. ``--node-count`` (clients follow
 at one per node for broadcast), ``--topology`` and ``--pool-slots``
 change it. ``--fuzz`` adds the benchmark's all-healthy fault
 distribution (``faults.fuzz.BENCH_FUZZ_DIST``) as a second
@@ -166,7 +168,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m maelstrom_tpu_torch."
                                       "profile_tick")
     ap.add_argument("--workload", default="lin-kv",
-                    help="a ported workload (models.WORKLOADS)")
+                    help="a ported workload or mutant (models.WORKLOADS, "
+                         "models.MUTANTS)")
     ap.add_argument("--node-count", type=int)
     ap.add_argument("--topology",
                     help="gossip topology (broadcast, g-set)")

@@ -99,6 +99,9 @@ class Model:
     def make_params(self, n_nodes: int, device=None):
         return None
 
+    def validate_config(self, cfg: NetConfig) -> None:
+        """Raise if the model cannot run on network config ``cfg``."""
+
     def init_state(self, n_nodes: int, keys: torch.Tensor):
         """Node state for keys ``[I, N, 2]``: leaves ``[I, N, ...]``."""
         raise NotImplementedError
@@ -165,6 +168,15 @@ class Model:
         raise NotImplementedError
 
     def decode_reply(self, op, msg, cfg, params=None):
+        """``(etype [I, C], value [I, C, 3])`` of a reply ``msg [I, C,
+        L]`` to ``op [I, C, op_lanes]``. Used when ``ev_vals == 4``; the
+        completion records ``(op[0], value[0], value[1], value[2])``."""
+        raise NotImplementedError
+
+    def decode_reply_wide(self, op, msg, cfg, params=None):
+        """Wide-payload models (``ev_vals != 4``): ``(etype [I, C],
+        vals [I, C, ev_vals])``, the full value row recorded for the
+        completion (the invocation records the op row, padded)."""
         raise NotImplementedError
 
 
@@ -183,6 +195,14 @@ def decode_error_reply(msg: torch.Tensor) -> torch.Tensor:
     for c in _DEFINITE_CODES:
         definite = definite | (code == c)
     return torch.where(definite, EV_FAIL, EV_INFO).to(_I32)
+
+
+def pad_op(op: torch.Tensor, V: int) -> torch.Tensor:
+    """Op rows ``[..., op_lanes]`` as event value rows ``[..., V]``:
+    truncated, or zero-padded on the right."""
+    if op.shape[-1] >= V:
+        return op[..., :V]
+    return torch.nn.functional.pad(op, (0, V - op.shape[-1]))
 
 
 # --- client machine -----------------------------------------------------------
@@ -209,7 +229,11 @@ def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
                 ccfg: ClientConfig, params=None):
     """One tick for all clients of all instances. ``inbox_clients [I, C,
     K, L]``, ``key [I, 2]``. Returns ``(cs', requests [I, C, L], events
-    [I, C, 2, 2 + ev_vals])``: slot 0 = completion, slot 1 = invocation."""
+    [I, C, 2, 2 + ev_vals])``: slot 0 = completion, slot 1 = invocation.
+    A model with ``ev_vals == 4`` decodes replies with ``decode_reply``
+    (the completion records ``(f, value)``), a wider one with
+    ``decode_reply_wide``; an error reply echoes the op row. Op rows
+    enter events through :func:`pad_op`."""
     I, C = cs.status.shape
     V = model.ev_vals
     dev = cs.status.device
@@ -226,10 +250,16 @@ def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
         I, C, 1, msgs.shape[-1]))[:, :, 0]                     # [I, C, L]
 
     is_err = reply[..., wire.TYPE] == TYPE_ERROR
-    et_ok, val_ok = model.decode_reply(cs.op, reply, cfg, params)
+    if V == 4:
+        et_ok, val_ok = model.decode_reply(cs.op, reply, cfg, params)
+        value = torch.where(is_err[..., None], torch.zeros_like(val_ok),
+                            val_ok)
+        value_r = torch.cat([cs.op[..., 0:1], value], dim=-1)  # [I, C, 4]
+    else:
+        et_ok, vals_ok = model.decode_reply_wide(cs.op, reply, cfg, params)
+        # errors echo the op row (the invocation's value)
+        value_r = torch.where(is_err[..., None], pad_op(cs.op, V), vals_ok)
     etype_r = torch.where(is_err, decode_error_reply(reply), et_ok)
-    value = torch.where(is_err[..., None], torch.zeros_like(val_ok), val_ok)
-    value_r = torch.cat([cs.op[..., 0:1], value], dim=-1)      # [I, C, 4]
 
     timed_out = ((cs.status == 1) & ~has_reply
                  & ((t - cs.invoked) >= ccfg.timeout_ticks))
@@ -240,7 +270,8 @@ def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
 
     completed = has_reply | timed_out
     comp_etype = torch.where(has_reply, etype_r, etype_t)
-    comp_vals = torch.where(has_reply[..., None], value_r, cs.op[..., :V])
+    comp_vals = torch.where(has_reply[..., None], value_r,
+                            pad_op(cs.op, V))
     events[:, :, 0, EV_TYPE] = torch.where(completed, comp_etype,
                                            torch.zeros_like(comp_etype))
     events[:, :, 0, 1:1 + V] = comp_vals
@@ -275,7 +306,7 @@ def client_step(model: Model, cs: ClientState, inbox_clients: torch.Tensor,
     reqs[..., wire.MSGID] = msg_id
 
     events[:, :, 1, EV_TYPE] = torch.where(fire, EV_INVOKE, EV_NONE).to(_I32)
-    events[:, :, 1, 1:1 + V] = op[..., :V]
+    events[:, :, 1, 1:1 + V] = pad_op(op, V)
     events[:, :, 1, 1 + V] = msg_id
     return (ClientState(status=status, op=op, msg_id=msg_id,
                         next_msg_id=next_msg_id, invoked=invoked),

@@ -2,9 +2,10 @@
 tensors and dicts of tensors (``None`` stays ``None``).
 
 Node state is a bare tensor for the legacy models (echo, unique-ids,
-the CRDTs), a row tuple for Raft, and a Raft slab is a dict of durable
-lanes, so the runtime, the fault engine and the carry conversion walk
-all three the same way.
+the CRDTs), a row tuple for Raft, the txn models and kafka, and a Raft
+or txn slab is a dict of durable lanes (leaves of any rank: the
+list-append kv is ``[I, N, n_keys, 1 + list_cap]``), so the runtime,
+the fault engine and the carry conversion walk all three the same way.
 """
 
 from __future__ import annotations

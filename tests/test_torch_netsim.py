@@ -16,11 +16,15 @@ from maelstrom_tpu_torch import netsim, wire
 from maelstrom_tpu_torch.kernels import delivery, delivery_cases
 
 # (n_nodes, n_clients, S, K, body_lanes, I): the Pallas test shape, the
-# flagship lin-kv shape, and the widest defaults (S=128, K=8)
+# flagship lin-kv shape, the widest defaults (S=128, K=8), and the txn
+# and kafka fleets' rows (L = 66, 26, and 32 with NT = 7)
 SHAPES = {
     "pallas-test": (3, 3, 32, 4, 6, 8),
     "flagship": (3, 6, 16, 1, 12, 64),
     "wide": (3, 6, 128, 8, 12, 8),
+    "txn-list-append": (3, 6, 16, 1, 58, 8),
+    "txn-rw-register": (3, 6, 16, 1, 18, 8),
+    "kafka": (1, 6, 16, 1, 24, 8),
 }
 # edge-case pools (kernels/delivery_cases.py) at the shapes chip_smoke.py
 # puts them through the kernel
@@ -83,7 +87,9 @@ def test_deliver_reference_matches_xla(shape, seed):
             np.testing.assert_array_equal(np.asarray(r), g)
 
 
-@pytest.mark.parametrize("shape", ["pallas-test", "flagship"])
+@pytest.mark.parametrize("shape", ["pallas-test", "flagship",
+                                   "txn-list-append", "txn-rw-register",
+                                   "kafka"])
 def test_deliver_reference_matches_pallas_interpret(shape):
     n, c, S, K, body, I = SHAPES[shape]
     I = min(I, 8)

@@ -102,8 +102,9 @@ def test_cli_main_runs_each_workload(workload, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["-w", "kafka"], "'kafka' is not ported"),
-    (["-w", "txn-list-append"], "ported: echo, unique-ids, broadcast"),
+    (["-w", "lin-kv-bug-double-vote"],
+     "'lin-kv-bug-double-vote' is not ported"),
+    (["-w", "kafka", "--txn"], "kafka transactions"),
     (["-w", "g-set", "--log-cap", "32"], "lin-kv only"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, err):

@@ -10,10 +10,11 @@ Phases (any failure exits non-zero and prints no result line):
 2. hold each kernel against its plain PyTorch version on the card
    (tolerance: exact — all outputs are int32) at the Pallas test shape,
    the flagship shape (S=16, K=1), the CLI-default shape (S=128, K=8),
-   the 25-node broadcast shape (S=256, K=8, NT=50, L=10) and the txn
-   and kafka shapes (below), 4096 instances each, and on edge-case pools
-   at small I (``kernels/delivery_cases.py``, rows of L = 9, 10, 14, 20,
-   26, 32 and 66); at ``delivery_cases.TIMED``'s five shapes time the
+   the 25-node broadcast shape (S=256, K=8, NT=50, L=10), the txn and
+   kafka shapes (below) and the bug-hunt shape (S=128, K=8, NT=6, L=20),
+   4096 instances each, and on edge-case pools at small I
+   (``kernels/delivery_cases.py``, rows of L = 9, 10, 14, 20, 26, 32 and
+   66); at ``delivery_cases.TIMED``'s six shapes time the
    kernel's device time per launch (CUPTI
    durations under ``torch.profiler``, L2 flushed before each launch,
    and warm), the wrapper's time per call (host issue included) and the
@@ -26,7 +27,8 @@ Phases (any failure exits non-zero and prints no result line):
    crash, links, skew and membership; then each tutorial workload for
    150 ticks (echo, unique-ids, broadcast at 25 nodes in a tree4,
    g-set, g-counter, pn-counter; g-set and pn-counter under a crash and
-   links plan);
+   links plan); then lin-kv-bug-no-term-guard at 5 nodes for 250 ticks
+   under the scripted rotating-majorities schedule (50-tick phases);
 4. drive the main path — ``run_torch_test`` on lin-kv Raft exactly as
    ``bench.py`` runs its flagship: 3 nodes, 6 clients, 4096 instances,
    4 simulated seconds, under the all-healthy fault distribution
@@ -43,21 +45,31 @@ Phases (any failure exits non-zero and prints no result line):
    in a tree4, 25 clients, 4096 instances, 1,000 ticks, S=256, K=8)
    the same way: valid, the delivery kernel once per tick, no overflow;
 7. drive the other tutorial workloads at their family settings
-   (``fleets.FAMILIES``, 4096 instances, 600 ticks each) the same
+   (``fleets.FAMILIES``, 4096 instances, 400 ticks each) the same
    way: each valid, the delivery kernel once per tick;
 8. drive the txn-list-append fleet (``fleets.TXN``: 3 nodes, 6
    clients, 4096 instances, 1,000 ticks, four recorded instances
-   checked by Elle), then txn-rw-register at the same settings for 800
+   checked by Elle), then txn-rw-register at the same settings for 500
    ticks, then kafka at the bench's settings (``fleets.KAFKA``: 1 node,
-   no nemesis) for 800 ticks the same way: each valid, the delivery
+   no nemesis) for 500 ticks the same way: each valid, the delivery
    kernel once per tick; it logs the recorded instances' txn counts and
-   any Elle anomaly types.
+   any Elle anomaly types;
+9. drive the bug hunt (``fleets.BUG_HUNT``: ``RaftDoubleVote``, 3
+   nodes, 3 clients, 4096 instances, 4 recorded, fail-fast, a funnel of
+   up to 32 instances, the store in a temporary directory) for a
+   planned 600 ticks: the verdict must be invalid, the run must stop
+   early, the funnel's replay on the card must trip every replayed
+   instance again, every funnel verdict must be there, the delivery
+   kernel must launch once per tick run plus once per replayed tick,
+   and every file of the store layout must exist, with
+   ``fleet-metrics.json`` parsing. It prints the stopped run's ticks/s,
+   the funnel's wall time and the store's write time.
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
 txn-list-append (bare, and under a crash and links plan, whose slab
 carries the 2-D list kv), txn-rw-register-bug-dirty-apply, kafka with
-crash_clients and kafka-bug-offset-reuse, 200 ticks each.
+crash_clients and kafka-bug-offset-reuse, 150 ticks each.
 
 Before the last line it prints the card's name and power limit and one
 JSON object with every kernel's launches, error, times and bound (``ms``
@@ -67,7 +79,7 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-8 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-9 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25).
 ``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
@@ -106,8 +118,8 @@ ACTIVE_PLAN = {"phases": [
                              {"dst": 0, "src": 2, "loss": 0.4}]},
     {"until": 170, "remove": [1]},
     {"until": 200, "add": [1], "crash": [2]}]}
-# crashes and degraded links (phase 3: healed at tick 100 in the gossip
-# workloads' 150-tick runs, at 150 in txn-list-append's 200)
+# crashes and degraded links (phase 3: healed at tick 100 in its
+# 150-tick runs)
 CRASH_LINKS_PLAN = {"phases": [
     {"until": 30},
     {"until": 80, "crash": [0]},
@@ -126,8 +138,19 @@ TXN_KAFKA_SMALL = (
      {}, None),
     ("kafka with crash_clients", "kafka", {"crash_clients": True}, None),
     ("kafka-bug-offset-reuse", "kafka-bug-offset-reuse", {}, None))
-# phase 8's fleets, the slice's path (txn-list-append) first
+# phase 8's fleets, txn-list-append first
 TXN_KAFKA = ("txn-list-append", "txn-rw-register", "kafka")
+# phase 9: the bug hunt's mutant and planned depth (cut from 2.5 s)
+BUG_HUNT_MUTANT = "lin-kv-bug-double-vote"
+BUG_HUNT_TIME_LIMIT = 0.6
+# phase 3's scripted run: the JAX tests' Figure-8 options
+# (tests/test_tpu_raft.py:70-75) at 24 instances for 250 ticks, the
+# rotating majorities in 50-tick phases until tick 200
+FIGURE8_SMALL = dict(node_count=5, concurrency=4, n_instances=24,
+                     record_instances=1, time_limit=0.25, rate=60.0,
+                     latency=5.0, rpc_timeout=0.8, nemesis=["partition"],
+                     nemesis_kind="scripted", recovery_time=0.05, seed=11,
+                     telemetry=True, layout="lead")
 
 
 def log(msg: str) -> None:
@@ -327,6 +350,91 @@ def run_path(dev, model, opts, label):
     return res, launches
 
 
+def store_files(res):
+    """The files of the store layout this run must have written."""
+    names = ["results.json", "fleet-metrics.json", "fleet-rate.svg",
+             "fleet-drops.svg", "fleet-latency.svg", "latency-raw.svg",
+             "latency-quantiles.svg", "rate.svg", "timeline.html"]
+    for i in range(res["checked-instances"]):
+        names += [f"history-{i}.jsonl", f"history-{i}.txt"]
+    return names + [f"funnel-history-{i}.jsonl"
+                    for i in res["funnel"]["ids"]]
+
+
+def run_bug_hunt(dev, model, opts, label):
+    """``run_torch_test`` on the bug hunt, the launch counter set to 0
+    just before and read just after: an invalid verdict, a fail-fast
+    stop, the funnel's replay tripping every replayed instance, every
+    funnel verdict, one delivery launch per tick run and per replayed
+    tick, and the whole store."""
+    import os
+    import shutil
+    import tempfile
+    from maelstrom_tpu_torch import harness
+    from maelstrom_tpu_torch.kernels import delivery
+    root = tempfile.mkdtemp(prefix="bug-hunt-store-")
+    try:
+        delivery.deliver.launches = 0
+        t0 = time.monotonic()
+        res = harness.run_torch_test(model, dict(opts, store_root=root),
+                                     device=str(dev))
+        wall = time.monotonic() - t0
+        launches = {"deliver": delivery.deliver.launches}
+        perf, ff, fun = res["perf"], res.get("fail-fast"), res.get("funnel")
+        phases = perf["phases"]
+        planned = res["telemetry"]["ticks"]
+        log(f"{label}: {model.name} x{res['instance-count']}: valid?="
+            f"{res['valid?']}, wall {wall:.1f} s, stopped run "
+            f"{perf['ticks']} of {planned} ticks at "
+            f"{perf['ticks-per-sec']:.2f} ticks/s, "
+            f"{perf['msgs-per-sec']:.0f} simulated msgs/s, funnel "
+            f"{phases.get('funnel-s')} s, store write "
+            f"{phases.get('store-s')} s, launches {launches}")
+        log(f"{label}: fail-fast {json.dumps(ff)}")
+        log(f"{label}: invariants {json.dumps(res['invariants'])[:400]}")
+        if res["valid?"] is not False:
+            raise AssertionError(f"{label}: the mutant was not caught "
+                                 f"(valid? {res['valid?']!r})")
+        if not ff or ff["stopped"] is not True \
+                or not ff["ticks-dispatched"] < planned:
+            raise AssertionError(f"{label}: no fail-fast stop: {ff}")
+        if not fun or not (fun["replayed-violating"] == len(fun["ids"])
+                           > 0):
+            raise AssertionError(f"{label}: the funnel's replay did not "
+                                 f"trip every replayed instance: "
+                                 f"{fun and fun['replayed-violating']} "
+                                 f"of {fun and fun['ids']}")
+        got = [v.get("instance") for v in fun["verdicts"]]
+        if got != fun["ids"] or any("valid?" not in v
+                                    for v in fun["verdicts"]):
+            raise AssertionError(f"{label}: funnel verdicts {got} for ids "
+                                 f"{fun['ids']}")
+        log(f"{label}: funnel replayed {len(fun['ids'])} of "
+            f"{fun['total-violating']} tripped instances over the full "
+            f"{planned} ticks: all {fun['replayed-violating']} tripped "
+            f"again; verdicts valid? "
+            f"{[v['valid?'] for v in fun['verdicts']]}")
+        expect = ff["ticks-dispatched"] + planned
+        if dev.type == "cuda" and launches["deliver"] != expect:
+            raise AssertionError(f"{label}: delivery kernel launched "
+                                 f"{launches['deliver']} times, expected "
+                                 f"{expect} (ticks run + replayed ticks)")
+        run_dir = res["store-dir"]
+        missing = [f for f in store_files(res)
+                   if not os.path.exists(os.path.join(run_dir, f))]
+        if missing:
+            raise AssertionError(f"{label}: store files missing: "
+                                 f"{missing}")
+        with open(os.path.join(run_dir, "fleet-metrics.json")) as f:
+            fleet = json.load(f)
+        log(f"{label}: store has all {len(store_files(res))} files; "
+            f"fleet-metrics.json parses ({fleet['instances']} instances, "
+            f"{fleet['invariants']['tripped-instances']} tripped)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res, launches
+
+
 def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
     """A fleet's options cut to a small input: partitions every
     ``interval`` s, healed 0.05 s before the end."""
@@ -353,17 +461,19 @@ def main(argv) -> int:
     paths = {w: fleets.fleet(w) for w in TUTORIAL if w != "broadcast"}
     bmodel, bopts = fleets.fleet("broadcast")
     txn_paths = {w: fleets.fleet(w) for w in TXN_KAFKA}
+    hunt_model, hunt_opts = fleets.fleet(BUG_HUNT_MUTANT)
+    hunt_opts["time_limit"] = BUG_HUNT_TIME_LIMIT
     # paths cut to keep the script well inside its 1,200 s limit on a
     # slow host (PERF.md §6): the broadcast fleet to 1 s (from 2;
-    # healed at tick 700), the families to 0.6 s (from 1: healed before
-    # the first partition phase at tick 400), this slice's
-    # txn-rw-register and kafka fleets to 0.8 s (txn-rw-register
-    # partitioned in [400, 500)); txn-list-append keeps 1 s
+    # healed at tick 700), the families to 0.4 s (from 1, then 0.6:
+    # healed before the first partition phase at tick 400), the
+    # txn-rw-register and kafka fleets to 0.5 s (from 1, then 0.8);
+    # txn-list-append keeps 1 s
     bopts["time_limit"] = 1.0
     for _, o in paths.values():
-        o["time_limit"] = 0.6
+        o["time_limit"] = 0.4
     for w in ("txn-rw-register", "kafka"):
-        txn_paths[w][1]["time_limit"] = 0.8
+        txn_paths[w][1]["time_limit"] = 0.5
     if rehearse:
         shapes = {name: shape[:5] + (min(shape[5], 64),)
                   for name, shape in shapes.items()}
@@ -379,6 +489,10 @@ def main(argv) -> int:
         # the txn fleets time to commit
         txn_paths = {w: (m, small(o, 8, 0.3) | dict(recovery_time=0.1))
                      for w, (m, o) in txn_paths.items()}
+        # double-vote trips at tick 86 at 32 instances: the stop comes
+        # after the third of four 50-tick chunks
+        hunt_opts |= dict(n_instances=32, record_instances=2,
+                          time_limit=0.2, chunk_ticks=50, funnel_max=4)
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -423,10 +537,18 @@ def main(argv) -> int:
             check_small_run_matches_cpu(dev, label, model, o)
         for label, w, mopts, plan in TXN_KAFKA_SMALL:
             model, o = fleets.fleet(w, mopts)
-            o = small(o, time_limit=0.2)
+            # 150 ticks (cut from 200), the plan healed at tick 100
+            o = small(o, time_limit=0.15)
             if plan is not None:
                 o["fault_plan"] = plan
             check_small_run_matches_cpu(dev, label, model, o)
+        from maelstrom_tpu_torch.models import get_model
+        check_small_run_matches_cpu(
+            dev, "the scripted rotating-majorities schedule "
+            "(lin-kv-bug-no-term-guard, 5 nodes)",
+            get_model("lin-kv-bug-no-term-guard", 5),
+            dict(FIGURE8_SMALL,
+                 nemesis_schedule=fleets.rotating_majorities(5, 50, 200)))
         mark("phase 3")
     res, launches = run_path(dev, flagship,
                              dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
@@ -493,6 +615,11 @@ def main(argv) -> int:
                                  f"recorded instances")
         by_path[f"phase 8 {w}"] = t_launches["deliver"]
     mark("phase 8")
+    _, h_launches = run_bug_hunt(dev, hunt_model, hunt_opts,
+                                 "phase 9 (bug hunt)")
+    by_path["phase 9 bug hunt, run and funnel replay"] = \
+        h_launches["deliver"]
+    mark("phase 9")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     for name, r in record["shapes"].items():

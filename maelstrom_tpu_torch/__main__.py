@@ -3,12 +3,13 @@
 Runs a ported workload's fleet (``models.WORKLOADS``: lin-kv Raft, the
 tutorial workloads echo, unique-ids, broadcast, g-set, g-counter and
 pn-counter, kafka, and txn-list-append and txn-rw-register over Raft;
-``models.MUTANTS``: the kafka and txn mutants) through
-:func:`harness.run_torch_test` and prints a JSON summary (verdict,
-network counters, throughput, device, and the fault block under a fault
-plan or distribution). Unset flags take the harness defaults
+``models.MUTANTS``: the nine lin-kv Raft mutants and the kafka and txn
+mutants) through :func:`harness.run_torch_test` and prints a JSON
+summary (verdict, invariants, network counters, throughput, device, and
+the fail-fast, availability, funnel and fault blocks where the run has
+them). Unset flags take the harness defaults
 (``harness.TORCH_DEFAULTS``). Exit code 0 when the run is valid, 1 when
-it is not.
+it is not, 2 for a bad or missing schedule file.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import sys
 from typing import List, Optional
 
 from .faults.spec import FAULT_KINDS
-from .runtime import NEMESIS_KINDS
+from .runtime import NEMESIS_KINDS, scripted_isolate_groups
 from .topology import TOPOLOGIES
 
 
@@ -28,6 +29,31 @@ def _positive_int(v: str) -> int:
     if n < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
     return n
+
+
+def _availability(v):
+    if v is None or v == "total":
+        return v
+    return float(v)
+
+
+def _parse_schedule_file(path: str, node_count: int):
+    """Load a scripted-nemesis JSON file (``[[until_tick, [groups...]],
+    ...]``) into ``NemesisConfig.schedule`` phases. Returns
+    ``(error_message, schedule)`` — exactly one is truthy."""
+    with open(path) as f:
+        phases = json.load(f)
+    for until, groups in phases:
+        for g in groups:
+            for m in g:
+                if not isinstance(m, int) or not 0 <= m < node_count:
+                    return (f"error: schedule group member {m!r} is "
+                            f"not a node index in [0, {node_count})",
+                            ())
+    return None, tuple(
+        scripted_isolate_groups(until, [set(g) for g in groups],
+                                node_count)
+        for until, groups in phases)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -52,9 +78,16 @@ def _parser() -> argparse.ArgumentParser:
                         "partition nemesis, and the fault-plan lanes "
                         "generated on the nemesis interval grid")
     p.add_argument("--nemesis-interval", type=float)
-    p.add_argument("--nemesis-kind",
-                   choices=[k for k in NEMESIS_KINDS if k != "scripted"],
-                   help="partition grudge shape (default random-halves)")
+    p.add_argument("--nemesis-kind", choices=NEMESIS_KINDS,
+                   help="partition grudge shape (default random-halves; "
+                        "scripted needs --nemesis-schedule-file)")
+    p.add_argument("--nemesis-schedule-file", metavar="FILE",
+                   help="JSON file of phases [[until_tick, [[node...], "
+                        "...]], ...]: traffic allowed only within each "
+                        "listed group until the phase's tick (0-based "
+                        "node ids; implies --nemesis partition "
+                        "--nemesis-kind scripted); healed from "
+                        "time_limit - recovery_time on")
     p.add_argument("--fault-plan", metavar="FILE",
                    help="JSON fault-plan file (phases of crash-restart, "
                         "link-degradation, clock-skew and membership "
@@ -77,10 +110,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--pool-slots", type=int)
     p.add_argument("--ms-per-tick", type=int)
     p.add_argument("--log-cap", type=int,
-                   help="Raft log capacity per node (lin-kv; default 96)")
+                   help="Raft log capacity per node (lin-kv and its "
+                        "mutants; default 96)")
     p.add_argument("--heartbeat-ticks", type=int,
-                   help="Raft leader heartbeat cadence in ticks (lin-kv; "
-                        "default 15)")
+                   help="Raft leader heartbeat cadence in ticks (lin-kv "
+                        "and its mutants; default 15)")
     p.add_argument("--key-count", type=int,
                    help="keys of the kv, txn and kafka models")
     p.add_argument("--crash-clients", action="store_true",
@@ -93,6 +127,22 @@ def _parser() -> argparse.ArgumentParser:
                         "(default strict-serializable)")
     p.add_argument("--txn", action="store_true",
                    help="kafka transactions: not ported (refused)")
+    p.add_argument("--availability",
+                   help="'total' or a fraction like 0.9 of client ops "
+                        "that must complete ok")
+    p.add_argument("--fail-fast", action="store_true",
+                   help="stop issuing chunks once the device's violation "
+                        "scan trips (at most one chunk in flight runs "
+                        "past it); needs a multi-chunk horizon or "
+                        "--pipeline on")
+    p.add_argument("--scan-top-k", type=_positive_int,
+                   help="violation-scan rows per chunk: the fail-fast "
+                        "block names the K earliest tripping instances "
+                        "(default 8)")
+    p.add_argument("--check-mode", choices=("farm", "device", "both"),
+                   help="verdict routing; the port checks every recorded "
+                        "instance on the host (farm) and refuses the "
+                        "device summary lanes, which are not ported")
     p.add_argument("--no-telemetry", action="store_true")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
     p.add_argument("--chunk-ticks", type=int)
@@ -117,7 +167,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "nemesis_interval", "nemesis_kind", "recovery_time",
                  "rpc_timeout", "p_loss", "n_instances", "record_instances",
                  "inbox_k", "pool_slots", "ms_per_tick", "pipeline",
-                 "chunk_ticks", "fault_snapshot_every", "seed"):
+                 "chunk_ticks", "fault_snapshot_every", "scan_top_k",
+                 "check_mode", "seed"):
         v = getattr(args, flag)
         if v is not None:
             opts[flag] = v
@@ -126,16 +177,35 @@ def main(argv: Optional[List[str]] = None) -> int:
         if path is not None:
             with open(path) as f:
                 opts[flag] = json.load(f)
+    if args.nemesis_schedule_file:
+        err, schedule = _parse_schedule_file(args.nemesis_schedule_file,
+                                             args.node_count)
+        if err:
+            print(err, file=sys.stderr)
+            return 2
+        # a schedule file implies the scripted partition nemesis
+        if "partition" not in args.nemesis:
+            args.nemesis = list(args.nemesis) + ["partition"]
+        opts["nemesis_kind"] = "scripted"
+        opts["nemesis_schedule"] = schedule
+    elif args.nemesis_kind == "scripted":
+        print("error: --nemesis-kind scripted needs "
+              "--nemesis-schedule-file", file=sys.stderr)
+        return 2
     if args.nemesis:
         opts["nemesis"] = args.nemesis
+    if args.availability is not None:
+        opts["availability"] = _availability(args.availability)
+    if args.fail_fast:
+        opts["fail_fast"] = True
     if args.no_telemetry:
         opts["telemetry"] = False
     raft_kw = {k: v for k, v in (("log_cap", args.log_cap),
                                  ("heartbeat", args.heartbeat_ticks))
                if v is not None}
-    if raft_kw and args.workload != "lin-kv":
+    if raft_kw and not args.workload.startswith("lin-kv"):
         raise ValueError("--log-cap and --heartbeat-ticks are options of "
-                         "lin-kv only")
+                         "lin-kv only (and its mutants)")
     if args.txn:
         raise ValueError("--txn (kafka transactions) is a process and "
                          "native-runtime feature of the JAX package; "
@@ -157,7 +227,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     summary["perf"] = {k: perf[k] for k in ("wall-s", "ticks",
                                             "ticks-per-sec",
                                             "msgs-per-sec")}
-    for k in ("faults", "fault-fuzz"):
+    for k in ("checker-errors", "fail-fast", "availability", "funnel",
+              "faults", "fault-fuzz"):
         if k in res:
             summary[k] = res[k]
     summary["store-dir"] = res.get("store-dir")

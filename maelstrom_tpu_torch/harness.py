@@ -1,11 +1,12 @@
 """Host-side harness of the port: configure, run, decode, check.
 
-Counterpart of ``maelstrom_tpu/tpu/harness.py`` for the lin-kv slice:
-:func:`run_torch_test` builds a :class:`SimConfig` from CLI-style opts,
-runs the fleet (chunked with event compaction, or in one loop), decodes
-the recorded instances' events into histories, checks every recorded
-instance, and writes ``results.json`` + ``history-<i>.jsonl`` into the
-store. The virtual clock is 1 tick = ``ms_per_tick`` simulated ms.
+Counterpart of ``maelstrom_tpu/tpu/harness.py``: :func:`run_torch_test`
+builds a :class:`SimConfig` from CLI-style opts, runs the fleet (chunked
+with event compaction, optionally stopping early on an invariant trip,
+or in one loop), decodes the recorded instances' events into histories,
+checks every recorded instance, replays the instances whose on-device
+invariants tripped (the funnel), and writes the JAX harness's store
+layout. The virtual clock is 1 tick = ``ms_per_tick`` simulated ms.
 
 Runs go to the card (``device="cuda"``) unless the caller asks for the
 CPU; with no card and no CPU request they raise — a measurement path
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .checkers import checker_failure, compose_valid
+from .checkers.availability import availability_checker
 from .decode import LazyHistories, decode_compact_rows, decode_dense
 from .faults import (FAULT_KINDS, compile_fault_fuzz, compile_fault_plan,
                      generate_fault_plan)
@@ -31,7 +34,10 @@ from .faults.engine import plan_summary
 from .netsim import LATENCY_DISTS, NetConfig
 from .runtime import (ClientConfig, Model, NEMESIS_KINDS, NemesisConfig,
                       SimConfig, run_sim)
+from .telemetry.fleet import (fleet_summary, write_fleet_metrics,
+                              write_fleet_svgs)
 from .telemetry.recorder import TelemetryConfig
+from .telemetry.stream import scan_to_violation, scan_to_violations
 
 MS_PER_TICK = 1
 
@@ -61,6 +67,9 @@ TORCH_DEFAULTS = dict(
                              # several chunks
     chunk_ticks=100,
     event_capacity=0,        # 0 = auto from the client rate
+    fail_fast=False,         # stop issuing chunks once a chunk's
+                             # violation scan trips (at most one chunk
+                             # in flight runs past it)
     scan_top_k=8,
     nemesis_kind="random-halves",
     nemesis_schedule=(),     # kind="scripted": ((until_tick, ((dst, src),
@@ -69,6 +78,10 @@ TORCH_DEFAULTS = dict(
     fault_fuzz=None,         # fault distribution dict (faults/fuzz.py)
     fault_snapshot_every=None,  # slab stride; None = the plan's own
     seed=0,
+    # read with .get() by the JAX harness, with these defaults
+    availability=None,       # None, "total" or a fraction of ok ops
+    funnel=True,             # replay the invariant-tripping instances
+    funnel_max=32,           # ... at most this many
 )
 
 # run-lifecycle options of the JAX harness that change neither the
@@ -273,30 +286,87 @@ def prepare_store_dir(name: str, store_root: str) -> str:
     return d
 
 
-def write_store(run_dir: str, results: Dict[str, Any], histories) -> None:
-    """``results.json`` + one ``history-<i>.jsonl`` per recorded
-    instance (the JAX harness's store layout)."""
+def write_store(run_dir: str, results: Dict[str, Any], histories,
+                funnel: Optional[Dict[str, Any]] = None,
+                fleet: Optional[Dict[str, Any]] = None) -> None:
+    """The JAX harness's store layout (``_write_store``), less the
+    journal's ``messages.svg``: ``fleet-metrics.json`` and the fleet
+    SVGs when telemetry ran; the perf plots and ``timeline.html`` from
+    the first recorded history; ``results.json``; ``history-<i>.jsonl``
+    and ``history-<i>.txt`` per recorded instance; and
+    ``funnel-history-<id>.jsonl`` per replayed instance, named by its
+    instance id in the fleet."""
+    from .checkers.perf import plot_perf
+    from .checkers.timeline import render_timeline
+    from .gen.history import write_txt
+    if fleet is not None:
+        write_fleet_metrics(fleet, run_dir)
+        write_fleet_svgs(fleet, run_dir)
+    if histories:
+        plot_perf(histories[0], run_dir)
+        render_timeline(histories[0], os.path.join(run_dir,
+                                                   "timeline.html"))
     with open(os.path.join(run_dir, "results.json"), "w") as f:
         json.dump(results, f, indent=2, default=repr)
     for i, h in enumerate(histories):
-        with open(os.path.join(run_dir, f"history-{i}.jsonl"), "w") as f:
-            for r in h:
-                f.write(json.dumps(r) + "\n")
+        _write_jsonl(os.path.join(run_dir, f"history-{i}.jsonl"), h)
+        write_txt(h, os.path.join(run_dir, f"history-{i}.txt"))
+    if funnel:
+        for iid, h in funnel["histories"].items():
+            _write_jsonl(os.path.join(run_dir,
+                                      f"funnel-history-{iid}.jsonl"), h)
 
 
-def _telemetry_summary(tel) -> Optional[Dict[str, Any]]:
-    if tel is None:
-        return None
-    t = {f: getattr(tel, f).cpu().numpy() for f in tel._fields}
+def _write_jsonl(path: str, records) -> None:
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+
+
+def check_histories(model: Model, histories, opts: Dict[str, Any]
+                    ) -> List[dict]:
+    """The workload checker over each history, serially; a checker that
+    raises gives a failing verdict with its traceback."""
+    checker = model.checker()
+    name = getattr(model, "checker_name", None) or f"{model.name}-checker"
+    out = []
+    for inst, history in enumerate(histories):
+        try:
+            out.append(checker(history, opts))
+        except Exception as e:   # a checker blow-up is a failing verdict
+            out.append(checker_failure(e, checker=name, instance=inst))
+    return out
+
+
+def replay_instances(model: Model, opts: Dict[str, Any],
+                     instance_ids: List[int], device=None
+                     ) -> Dict[str, Any]:
+    """Re-simulate exactly ``instance_ids`` over the full planned horizon
+    (same seed and options) with every one recorded, check each, and
+    return ``{ids, replayed-violating, verdicts, histories}``. Draws are
+    pure functions of (seed, purpose, tick, instance id), so each
+    instance replays the trajectory it had in the fleet; the count of
+    replayed instances whose invariants trip again is the self-check."""
+    opts = {**TORCH_DEFAULTS, **opts}
+    dev = resolve_device(device or opts.get("device"))
+    K = len(instance_ids)
+    sim = make_sim_config(model, {**opts, "n_instances": K,
+                                  "record_instances": K})
+    ids = torch.tensor(instance_ids, dtype=torch.int32, device=dev)
+    carry, events = run_sim(model, sim, int(opts["seed"]), dev, ids)
+    histories = LazyHistories(model, decode_dense(model,
+                                                  events.cpu().numpy()),
+                              K, sim.client.final_start,
+                              opts["ms_per_tick"])
+    verdicts = check_histories(model, histories, opts)
+    for iid, h, v in zip(instance_ids, histories, verdicts):
+        v["instance"] = int(iid)
+        v["ops"] = sum(1 for r in h if r["type"] == "invoke")
     return {
-        "sent": int(t["sent"].sum()), "delivered": int(t["delivered"].sum()),
-        "delivered-servers": int(t["delivered_servers"].sum()),
-        "invokes": int(t["invokes"].sum()), "acks": int(t["acks"].sum()),
-        "inbox-hwm": int(t["inbox_hwm"].max()),
-        "pool-hwm": int(t["pool_hwm"].max()),
-        "partition-ticks": int(t["partition_ticks"].sum()),
-        "nemesis-epochs": int(t["nemesis_epochs"].sum()),
-        "rpc-latency-hist": t["rpc_hist"].sum(axis=0).tolist(),
+        "ids": [int(i) for i in instance_ids],
+        "replayed-violating": int((carry.violations > 0).sum()),
+        "verdicts": verdicts,
+        "histories": {int(i): h for i, h in zip(instance_ids, histories)},
     }
 
 
@@ -304,7 +374,9 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                    device: Optional[str] = None) -> Dict[str, Any]:
     """Configure, run, decode, check — one run of the fleet.
 
-    ``device`` (or ``opts["device"]``) defaults to ``cuda``."""
+    ``device`` (or ``opts["device"]``) defaults to ``cuda``. The results
+    carry the JAX harness's keys in its order, and the port's
+    ``device``, ``perf.ticks-per-sec``, ``faults`` and ``fault-fuzz``."""
     opts = {**TORCH_DEFAULTS, **(opts or {})}
     dev = resolve_device(device or opts.get("device"))
     sim = make_sim_config(model, opts)
@@ -312,18 +384,24 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                if opts.get("store_root") else None)
     R, C = sim.record_instances, sim.client.n_clients
     phases: Dict[str, Any] = {}
-    scan = None
+    pipe_res = None
+    use_pipe = resolve_pipeline(sim, opts)
+    if opts.get("fail_fast") and not use_pipe:
+        print("note: fail_fast has no effect on the single-loop executor "
+              "(one dispatch for the whole horizon); use pipeline='on' or "
+              "a multi-chunk horizon", file=sys.stderr)
     t0 = time.monotonic()
-    if resolve_pipeline(sim, opts):
+    if use_pipe:
         from .pipeline import run_sim_pipelined
-        res = run_sim_pipelined(
+        pipe_res = run_sim_pipelined(
             model, sim, int(opts["seed"]), dev,
             chunk=int(opts.get("chunk_ticks") or 100),
             event_cap=int(opts.get("event_capacity") or 0) or None,
-            scan_k=int(opts.get("scan_top_k") or 1))
-        carry, scan = res.carry, res.scan
-        phases["pipeline"] = res.perf
-        rows = [r[:min(n, r.shape[0])] for r, n in res.compact]
+            scan_k=int(opts.get("scan_top_k") or 1),
+            fail_fast=bool(opts.get("fail_fast")))
+        carry = pipe_res.carry
+        phases["pipeline"] = pipe_res.perf
+        rows = [r[:min(n, r.shape[0])] for r, n in pipe_res.compact]
         allrows = (np.concatenate(rows, axis=0) if rows
                    else np.zeros((0, 3 + model.ev_vals), np.int32))
         decode = lambda: decode_compact_rows(model, C, R, allrows)
@@ -337,44 +415,48 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
         torch.cuda.synchronize(dev)
     t_dec = time.monotonic()
     wall = t_dec - t0
+    fleet = None
+    if carry.telemetry is not None:
+        tel = carry.telemetry
+        fleet = fleet_summary(type(tel)(*(x.cpu().numpy() for x in tel)),
+                              sim, opts["ms_per_tick"])
     slabs = decode()
     histories = LazyHistories(model, slabs, R, sim.client.final_start,
                               opts["ms_per_tick"])
     phases["decode-s"] = round(time.monotonic() - t_dec, 4)
 
     t_chk = time.monotonic()
-    checker = model.checker()
-    per_instance: List[dict] = []
-    for inst in range(R):
-        try:
-            per_instance.append(checker(histories[inst], opts))
-        except Exception as e:   # a checker blow-up is a failing verdict
-            per_instance.append(checker_failure(
-                e, checker=getattr(model, "checker_name", "workload"),
-                instance=inst))
+    per_instance = check_histories(model, histories, opts)
     phases["check-s"] = round(time.monotonic() - t_chk, 4)
+    availability = None
+    if opts.get("availability") is not None:
+        availability = availability_checker(
+            [r for h in histories for r in h], opts["availability"])
 
     violations = carry.violations.cpu().numpy()
     n_violating = int((violations > 0).sum())
+    violating_ids = np.nonzero(violations)[0]
     overall = compose_valid(r.get("valid?", True) for r in per_instance)
     if n_violating > 0:
         overall = False
+    checker_errors = sum(1 for r in per_instance if "traceback" in r)
     stats = {f: int(getattr(carry.stats, f)) for f in carry.stats._fields}
+    pipe_stats = phases.get("pipeline")
+    stopped = bool(pipe_stats and pipe_stats.get("stopped-early"))
+    # on a fail-fast stop only the issued prefix ran
+    ticks_run = pipe_stats["ticks-dispatched"] if stopped else sim.n_ticks
     results: Dict[str, Any] = {
         "valid?": overall,
         "invariants": {
             "violating-instances": n_violating,
-            "violating-instance-ids":
-                np.nonzero(violations)[0][:1024].tolist(),
+            "violating-instance-ids": violating_ids[:1024].tolist(),
             "total-violation-ticks": int(violations.sum()),
-            # the device scan's earliest trippers: [first tick, instance]
-            **({"earliest": [[int(tk), int(i)] for _, tk, i in scan
-                             if i >= 0]} if scan is not None else {}),
         },
         "instance-count": sim.n_instances,
         "checked-instances": len(per_instance),
         "valid-instances": sum(1 for r in per_instance
                                if r.get("valid?") in (True, "unknown")),
+        **({"checker-errors": checker_errors} if checker_errors else {}),
         "instances": [dict(r, instance=i)
                       if r.get("valid?") is not True or i < 32
                       else {"instance": i, "valid?": True}
@@ -389,17 +471,42 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
         "device": device_info(dev),
         "perf": {
             "wall-s": wall,
-            "ticks": sim.n_ticks,
-            "ticks-per-sec": sim.n_ticks / wall if wall > 0 else 0.0,
+            "ticks": ticks_run,
+            "ticks-per-sec": ticks_run / wall if wall > 0 else 0.0,
             "msgs-per-sec": stats["delivered"] / wall if wall > 0 else 0.0,
-            "instance-ticks-per-sec": (sim.n_instances * sim.n_ticks / wall
+            "instance-ticks-per-sec": (sim.n_instances * ticks_run / wall
                                        if wall > 0 else 0.0),
             "phases": phases,
         },
     }
-    tel = _telemetry_summary(carry.telemetry)
-    if tel is not None:
-        results["telemetry"] = tel
+    if pipe_stats and pipe_stats.get("overflowed-chunks"):
+        results["events-truncated"] = True
+    if stopped:
+        results["fail-fast"] = {
+            "stopped": True,
+            "ticks-dispatched": pipe_stats["ticks-dispatched"],
+            "ticks-planned": sim.n_ticks,
+            "first-violation": scan_to_violation(pipe_res.scan),
+            "violations": scan_to_violations(pipe_res.scan),
+        }
+    if fleet is not None:
+        # the condensed fleet view; the full dict is fleet-metrics.json
+        results["telemetry"] = {k: v for k, v in fleet.items()
+                                if k not in ("series", "latency-hist",
+                                             "per-instance")}
+    if availability is not None:
+        results["availability"] = availability
+        if availability["valid?"] is False:
+            results["valid?"] = False
+    funnel = None
+    if opts["funnel"] and len(violating_ids) > 0:
+        t_fun = time.monotonic()
+        target = [int(i) for i in violating_ids[:int(opts["funnel_max"])]]
+        funnel = replay_instances(model, opts, target, dev)
+        funnel["total-violating"] = n_violating
+        results["funnel"] = {k: v for k, v in funnel.items()
+                             if k != "histories"}
+        phases["funnel-s"] = round(time.monotonic() - t_fun, 4)
     if sim.faults.active:
         results["faults"] = plan_summary(sim.faults)
     if sim.faults.has_fuzz:
@@ -408,9 +515,11 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
             faults_fuzz.fleet_windows(sim.faults, sim.net.n_nodes,
                                       int(opts["seed"]),
                                       np.arange(sim.n_instances)))
-    if phases.get("pipeline", {}).get("overflowed-chunks"):
-        results["events-truncated"] = True
     if run_dir is not None:
-        write_store(run_dir, results, histories)
+        t_st = time.monotonic()
+        write_store(run_dir, results, histories, funnel=funnel,
+                    fleet=fleet)
+        # in the returned results only: results.json is written within
+        phases["store-s"] = round(time.monotonic() - t_st, 4)
         results["store-dir"] = run_dir
     return results

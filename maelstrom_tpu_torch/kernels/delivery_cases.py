@@ -34,9 +34,10 @@ SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
           "broadcast-25": (25, 25, 256, 8, 2, 4096),
           "txn-list-append": (3, 6, 16, 1, 58, 4096),
           "kafka": (1, 6, 16, 1, 24, 4096),
-          "txn-rw-register": (3, 6, 16, 1, 18, 4096)}
+          "txn-rw-register": (3, 6, 16, 1, 18, 4096),
+          "bug-hunt": (3, 3, 128, 8, 12, 4096)}
 TIMED = ("flagship", "defaults", "broadcast-25", "txn-list-append",
-         "kafka")
+         "kafka", "bug-hunt")
 # edge-case pools go through the kernel at small I: the shapes above, an
 # S that is no power of two, where wrapped priorities can tie, and the
 # tutorial workloads' rows on the 4-byte path (L = 9, 10, 14)
@@ -50,7 +51,8 @@ EDGE_SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
                "pn-counter": (3, 6, 16, 1, 6, 64),
                "txn-list-append": (3, 6, 16, 1, 58, 64),
                "kafka": (1, 6, 16, 1, 24, 64),
-               "txn-rw-register": (3, 6, 16, 1, 18, 64)}
+               "txn-rw-register": (3, 6, 16, 1, 18, 64),
+               "bug-hunt": (3, 3, 128, 8, 12, 64)}
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12

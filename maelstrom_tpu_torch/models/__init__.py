@@ -1,9 +1,9 @@
 """Vectorized protocol models of the port and their registry.
 
 Counterpart of ``maelstrom_tpu/models/__init__.py`` for the workloads
-ported so far: lin-kv Raft and the transactional workloads over it
-(the fused node protocol), and the tutorial workloads and kafka on the
-legacy handle/tick protocol.
+ported so far: lin-kv Raft, its nine planted-bug mutants and the
+transactional workloads over it (the fused node protocol), and the
+tutorial workloads and kafka on the legacy handle/tick protocol.
 
 ``opts`` carries the model-selection flags of the JAX registry:
 
@@ -20,9 +20,13 @@ from typing import Any, Dict, Optional
 WORKLOADS = ("echo", "unique-ids", "broadcast", "g-set", "g-counter",
              "pn-counter", "lin-kv", "kafka", "txn-list-append",
              "txn-rw-register")
-MUTANTS = ("kafka-bug-offset-reuse", "kafka-bug-commit-regression",
-           "txn-list-append-bug-dirty-apply",
-           "txn-rw-register-bug-dirty-apply")
+RAFT_MUTANTS = ("double-vote", "stale-read", "no-term-guard",
+                "short-log-wins", "eager-commit", "forget-snapshot",
+                "fixed-timeout", "single-quorum-reconfig",
+                "votes-before-catchup")
+MUTANTS = tuple(f"lin-kv-bug-{k}" for k in RAFT_MUTANTS) + (
+    "kafka-bug-offset-reuse", "kafka-bug-commit-regression",
+    "txn-list-append-bug-dirty-apply", "txn-rw-register-bug-dirty-apply")
 
 
 def get_model(workload: str, node_count: int, topology: str = "grid",
@@ -31,13 +35,15 @@ def get_model(workload: str, node_count: int, topology: str = "grid",
     """The model of a workload name, as the JAX registry builds it:
     broadcast and g-set gossip over ``topology``, the counters over the
     total topology, Raft and the txn workloads sized to ``node_count``
-    (``raft_kw`` adds lin-kv's log capacity and heartbeat). Any other
+    (``raft_kw`` adds lin-kv's and the lin-kv mutants' log capacity and
+    heartbeat). Any other
     name raises."""
     from .crdt import (BroadcastModel, GCounterModel, GossipSetModel,
                        PNCounterModel)
     from .echo import EchoModel
     from .kafka import KAFKA_BUGGY_MODELS, KafkaModel
     from .raft import RaftModel
+    from .raft_buggy import BUGGY_MODELS
     from .txn_raft import (TXN_BUGGY_MODELS, TxnListAppendModel,
                            TxnRwRegisterModel)
     from .unique_ids import UniqueIdsModel
@@ -61,6 +67,11 @@ def get_model(workload: str, node_count: int, topology: str = "grid",
         return GCounterModel(n_nodes_hint=node_count, topology="total")
     if workload == "lin-kv":
         return RaftModel(n_nodes_hint=node_count, **(raft_kw or {}))
+    if workload.startswith("lin-kv-bug-"):
+        kind = workload[len("lin-kv-bug-"):]
+        if kind in BUGGY_MODELS:
+            return BUGGY_MODELS[kind](n_nodes_hint=node_count,
+                                      **(raft_kw or {}))
     if workload == "txn-list-append":
         return TxnListAppendModel(n_nodes_hint=node_count)
     if workload == "txn-rw-register":

@@ -58,9 +58,8 @@ class RaftModel(Model):
     proxy_hops_lane = 3
     fused_node = True
 
-    # the correct protocol (the JAX package's planted-bug variants flip
-    # these and recovers_snapshot below; the port carries only the
-    # correct one)
+    # the correct protocol (the planted-bug variants of raft_buggy.py
+    # flip these and recovers_snapshot below)
     vote_check_voted_for = True
     vote_check_log = True
     vote_check_log_index = True

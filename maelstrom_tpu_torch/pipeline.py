@@ -92,28 +92,27 @@ def compact_tick(buf: CompactEvents, t: int, events: torch.Tensor,
                          count=buf.count + mask.sum().to(torch.int32))
 
 
-def start_fetch(buf: CompactEvents):
-    """Queue the host copy of a chunk's buffer behind the chunk's work
-    (pinned memory, asynchronous on the card)."""
-    if not buf.rows.is_cuda:
-        return buf.rows, buf.count, None
-    rows = torch.empty(buf.rows.shape, dtype=buf.rows.dtype, pin_memory=True)
-    count = torch.empty((), dtype=buf.count.dtype, pin_memory=True)
-    rows.copy_(buf.rows, non_blocking=True)
-    count.copy_(buf.count, non_blocking=True)
+def start_fetch(*tensors: torch.Tensor):
+    """Queue the host copies of a chunk's device tensors behind the
+    chunk's work (pinned memory, asynchronous on the card)."""
+    if not tensors[0].is_cuda:
+        return tensors, None
+    host = []
+    for x in tensors:
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x, non_blocking=True)
+        host.append(h)
     done = torch.cuda.Event()
     done.record()
-    return rows, count, done
+    return tuple(host), done
 
 
-def finish_fetch(fetch) -> Tuple[np.ndarray, int, bool]:
-    """Wait for a queued copy: ``(rows [cap], count, overflowed)``."""
-    rows, count, done = fetch
+def finish_fetch(fetch) -> Tuple[torch.Tensor, ...]:
+    """Wait for a queued copy; the host tensors."""
+    host, done = fetch
     if done is not None:
         done.synchronize()
-    rows = rows[:-1].numpy()
-    n = int(count)
-    return rows, n, n > rows.shape[0]
+    return host
 
 
 def expand_compact_events(model: Model, sim: SimConfig,
@@ -165,17 +164,27 @@ class PipelineResult(NamedTuple):
     carry: Carry
     compact: List[Tuple[np.ndarray, int]]   # per chunk (rows, count)
     perf: Dict[str, Any]
-    scan: Optional[np.ndarray] = None        # final violation scan [k, 3]
+    scan: Optional[np.ndarray] = None        # last consumed chunk's
+                                             # violation scan [k, 3]
 
 
 def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                       instance_ids: Optional[torch.Tensor] = None,
                       chunk: int = 100, event_cap: Optional[int] = None,
-                      scan_k: int = DEFAULT_SCAN_TOP_K
-                      ) -> PipelineResult:
+                      scan_k: int = DEFAULT_SCAN_TOP_K,
+                      fail_fast: bool = False) -> PipelineResult:
     """Run the horizon chunk by chunk; returns the final carry, each
-    chunk's compacted event rows, executor stats and the final
-    violation scan."""
+    chunk's compacted event rows, executor stats and the violation scan
+    of the last consumed chunk.
+
+    At each chunk's end the violation scan ``[scan_k, 3]`` is computed
+    on the device and copied with the chunk's events. Chunk *k*'s copy
+    is consumed after chunk *k + 1* was issued. ``fail_fast`` stops
+    issuing chunks once a consumed scan shows a tripped invariant: the
+    chunk already in flight still runs and is consumed, so at most one
+    chunk runs past the one that tripped (the JAX executor's
+    ``run_chunked`` contract); ``perf`` then has ``stopped-early`` and
+    ``ticks-dispatched`` counts the ticks actually run."""
     if instance_ids is None:
         instance_ids = default_instance_ids(sim, device)
     R, V = sim.record_instances, model.ev_vals
@@ -189,15 +198,26 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
 
     compact: List[Tuple[np.ndarray, int]] = []
     stats = {"overflowed-chunks": 0, "fetch-s": 0.0, "issue-s": 0.0}
+    last_scan: List[Optional[np.ndarray]] = [None]
 
-    def consume(fetch, t0, length):
+    def consume(fetch):
         t_f = time.monotonic()
-        rows, n, ovf = finish_fetch(fetch)
-        stats["overflowed-chunks"] += int(ovf)
-        compact.append((rows, n))
+        host = finish_fetch(fetch)
+        if R > 0:
+            rows, count, scan = host
+            rows = rows[:-1].numpy()
+            n = int(count)
+            stats["overflowed-chunks"] += int(n > rows.shape[0])
+            compact.append((rows, n))
+        else:
+            (scan,) = host
+        last_scan[0] = scan.numpy()
         stats["fetch-s"] += time.monotonic() - t_f
+        return int(last_scan[0][0, 0]) > 0
 
     pending = None
+    chunks = ticks_dispatched = 0
+    stopped = False
     with torch.no_grad():
         for t0, length in plans:
             t_i = time.monotonic()
@@ -206,20 +226,27 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                 carry, events = tick(carry, t)
                 if buf is not None:
                     buf = compact_tick(buf, t, events, V)
-            fetch = start_fetch(buf) if buf is not None else None
+            scan = violation_scan(carry.violations, carry.telemetry,
+                                  instance_ids, k=scan_k)
+            fetch = start_fetch(*((buf.rows, buf.count, scan)
+                                  if buf is not None else (scan,)))
+            chunks += 1
+            ticks_dispatched = t0 + length
             stats["issue-s"] += time.monotonic() - t_i
             # chunk k's copy is read once chunk k+1 is queued behind it
-            if pending is not None:
-                consume(*pending)
-            pending = (fetch, t0, length) if fetch is not None else None
-        if pending is not None:
-            consume(*pending)
-        scan = violation_scan(carry.violations, carry.telemetry,
-                              instance_ids, k=scan_k).cpu().numpy()
-    perf = {"chunks": len(plans), "chunk-ticks": plans[0][1],
+            tripped = consume(pending) if pending is not None else False
+            pending = fetch
+            if fail_fast and tripped:
+                stopped = True
+                break
+        consume(pending)
+    perf = {"chunks": chunks, "chunk-ticks": plans[0][1],
             "event-capacity": cap, "init-s": round(init_s, 4),
             "issue-s": round(stats["issue-s"], 4),
             "fetch-s": round(stats["fetch-s"], 4),
             "overflowed-chunks": stats["overflowed-chunks"],
-            "ticks-dispatched": sim.n_ticks}
-    return PipelineResult(carry=carry, compact=compact, perf=perf, scan=scan)
+            "ticks-dispatched": ticks_dispatched}
+    if stopped:
+        perf["stopped-early"] = True
+    return PipelineResult(carry=carry, compact=compact, perf=perf,
+                          scan=last_scan[0])

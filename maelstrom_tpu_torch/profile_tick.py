@@ -10,8 +10,9 @@ flagship (3 nodes, 6 clients, inbox_k=1, 16 pool slots, exponential
 latency, 5% loss, the partition nemesis, telemetry on); for broadcast
 the guide's 25-node tree4 fleet (25 clients, S=256, K=8); for
 txn-list-append and txn-rw-register ``fleets.TXN``; for kafka
-``fleets.KAFKA`` (1 node, no nemesis); for the other tutorial workloads
-their family run. ``--node-count`` (clients follow
+``fleets.KAFKA`` (1 node, no nemesis); for a lin-kv mutant the bug hunt
+``fleets.BUG_HUNT`` (3 nodes, 3 clients, S=128, K=8); for the other
+tutorial workloads their family run. ``--node-count`` (clients follow
 at one per node for broadcast), ``--topology`` and ``--pool-slots``
 change it. ``--fuzz`` adds the benchmark's all-healthy fault
 distribution (``faults.fuzz.BENCH_FUZZ_DIST``) as a second

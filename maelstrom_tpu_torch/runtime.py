@@ -328,6 +328,27 @@ NEMESIS_KINDS = ("random-halves", "isolated-node", "majorities-ring",
                  "scripted")
 
 
+def scripted_isolate_groups(until_tick: int, groups, n_nodes: int
+                            ) -> tuple:
+    """One scripted-schedule phase where traffic is allowed only WITHIN
+    each group in ``groups``; every cross-group server pair (and every
+    pair with a node in no group) is blocked. Returns ``(until_tick,
+    pairs)`` for :attr:`NemesisConfig.schedule`."""
+    member = {}
+    for gi, g in enumerate(groups):
+        for node in g:
+            member[node] = gi
+    pairs = []
+    for dst in range(n_nodes):
+        for src in range(n_nodes):
+            if dst == src:
+                continue
+            if member.get(dst) is None or member.get(src) is None \
+                    or member[dst] != member[src]:
+                pairs.append((dst, src))
+    return (until_tick, tuple(pairs))
+
+
 def partition_matrix(nem: NemesisConfig, cfg: NetConfig, t: int,
                      instance_keys: torch.Tensor) -> torch.Tensor:
     """Partition matrices ``[I, NT, NT]`` at tick ``t``: alternating

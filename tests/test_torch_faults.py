@@ -316,8 +316,8 @@ def test_harness_under_plan_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,msg", [
     (dict(topology="tree"), "topology"),
-    (dict(availability="total"), "availability"),
-    (dict(fail_fast=True), "fail_fast"),
+    (dict(layout="minor"), "layout"),
+    (dict(checkpoint_every=2), "checkpoint_every"),
     (dict(check_mode="device"), "check_mode"),
     (dict(journal_instances=2), "journal_instances"),
     (dict(netid=True), "netid"),

@@ -16,8 +16,9 @@ from maelstrom_tpu_torch import netsim, wire
 from maelstrom_tpu_torch.kernels import delivery, delivery_cases
 
 # (n_nodes, n_clients, S, K, body_lanes, I): the Pallas test shape, the
-# flagship lin-kv shape, the widest defaults (S=128, K=8), and the txn
-# and kafka fleets' rows (L = 66, 26, and 32 with NT = 7)
+# flagship lin-kv shape, the widest defaults (S=128, K=8), the txn
+# and kafka fleets' rows (L = 66, 26, and 32 with NT = 7), and the lin-kv
+# mutants' bug hunt (S=128, K=8, NT=6)
 SHAPES = {
     "pallas-test": (3, 3, 32, 4, 6, 8),
     "flagship": (3, 6, 16, 1, 12, 64),
@@ -25,6 +26,7 @@ SHAPES = {
     "txn-list-append": (3, 6, 16, 1, 58, 8),
     "txn-rw-register": (3, 6, 16, 1, 18, 8),
     "kafka": (1, 6, 16, 1, 24, 8),
+    "bug-hunt": (3, 3, 128, 8, 12, 8),
 }
 # edge-case pools (kernels/delivery_cases.py) at the shapes chip_smoke.py
 # puts them through the kernel

@@ -102,8 +102,8 @@ def test_cli_main_runs_each_workload(workload, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["-w", "lin-kv-bug-double-vote"],
-     "'lin-kv-bug-double-vote' is not ported"),
+    (["-w", "lin-kv", "--check-mode", "device"],
+     "check_mode='device' is not implemented"),
     (["-w", "kafka", "--txn"], "kafka transactions"),
     (["-w", "g-set", "--log-cap", "32"], "lin-kv only"),
 ])

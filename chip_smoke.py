@@ -28,7 +28,8 @@ Phases (any failure exits non-zero and prints no result line):
    150 ticks (echo, unique-ids, broadcast at 25 nodes in a tree4,
    g-set, g-counter, pn-counter; g-set and pn-counter under a crash and
    links plan); then lin-kv-bug-no-term-guard at 5 nodes for 250 ticks
-   under the scripted rotating-majorities schedule (50-tick phases);
+   under the scripted rotating-majorities schedule (50-tick phases),
+   and lin-kv-bug-double-vote at the bug hunt's settings for 200 ticks;
 4. drive the main path — ``run_torch_test`` on lin-kv Raft exactly as
    ``bench.py`` runs its flagship: 3 nodes, 6 clients, 4096 instances,
    4 simulated seconds, under the all-healthy fault distribution
@@ -62,8 +63,9 @@ Phases (any failure exits non-zero and prints no result line):
    instance again, every funnel verdict must be there, the delivery
    kernel must launch once per tick run plus once per replayed tick,
    and every file of the store layout must exist, with
-   ``fleet-metrics.json`` parsing. It prints the stopped run's ticks/s,
-   the funnel's wall time and the store's write time.
+   ``fleet-metrics.json`` parsing. It prints the stopped run's ticks/s
+   and each chunk's issue time, the funnel's wall time and the store's
+   write time.
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
@@ -390,6 +392,10 @@ def run_bug_hunt(dev, model, opts, label):
             f"{perf['msgs-per-sec']:.0f} simulated msgs/s, funnel "
             f"{phases.get('funnel-s')} s, store write "
             f"{phases.get('store-s')} s, launches {launches}")
+        pipe = phases.get("pipeline", {})
+        log(f"{label}: chunks of {pipe.get('chunk-ticks')} ticks, issue s "
+            f"per chunk {pipe.get('chunk-issue-s')}, fetch s "
+            f"{pipe.get('fetch-s')}, init s {pipe.get('init-s')}")
         log(f"{label}: fail-fast {json.dumps(ff)}")
         log(f"{label}: invariants {json.dumps(res['invariants'])[:400]}")
         if res["valid?"] is not False:
@@ -549,6 +555,11 @@ def main(argv) -> int:
             get_model("lin-kv-bug-no-term-guard", 5),
             dict(FIGURE8_SMALL,
                  nemesis_schedule=fleets.rotating_majorities(5, 50, 200)))
+        # the bug hunt's own mutant, whose vote branches phase 9 runs only
+        # card against card: 24 instances, 200 ticks (3 trip on the CPU)
+        check_small_run_matches_cpu(
+            dev, "the bug hunt's settings (lin-kv-bug-double-vote)",
+            hunt_model, dict(hunt_opts, n_instances=24, time_limit=0.2))
         mark("phase 3")
     res, launches = run_path(dev, flagship,
                              dict(opts, fault_fuzz=BENCH_FUZZ_DIST),

@@ -139,10 +139,6 @@ def _parser() -> argparse.ArgumentParser:
                    help="violation-scan rows per chunk: the fail-fast "
                         "block names the K earliest tripping instances "
                         "(default 8)")
-    p.add_argument("--check-mode", choices=("farm", "device", "both"),
-                   help="verdict routing; the port checks every recorded "
-                        "instance on the host (farm) and refuses the "
-                        "device summary lanes, which are not ported")
     p.add_argument("--no-telemetry", action="store_true")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
     p.add_argument("--chunk-ticks", type=int)
@@ -168,7 +164,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "rpc_timeout", "p_loss", "n_instances", "record_instances",
                  "inbox_k", "pool_slots", "ms_per_tick", "pipeline",
                  "chunk_ticks", "fault_snapshot_every", "scan_top_k",
-                 "check_mode", "seed"):
+                 "seed"):
         v = getattr(args, flag)
         if v is not None:
             opts[flag] = v

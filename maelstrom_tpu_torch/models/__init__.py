@@ -17,13 +17,12 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+from .raft_buggy import BUGGY_MODELS
+
 WORKLOADS = ("echo", "unique-ids", "broadcast", "g-set", "g-counter",
              "pn-counter", "lin-kv", "kafka", "txn-list-append",
              "txn-rw-register")
-RAFT_MUTANTS = ("double-vote", "stale-read", "no-term-guard",
-                "short-log-wins", "eager-commit", "forget-snapshot",
-                "fixed-timeout", "single-quorum-reconfig",
-                "votes-before-catchup")
+RAFT_MUTANTS = tuple(BUGGY_MODELS)
 MUTANTS = tuple(f"lin-kv-bug-{k}" for k in RAFT_MUTANTS) + (
     "kafka-bug-offset-reuse", "kafka-bug-commit-regression",
     "txn-list-append-bug-dirty-apply", "txn-rw-register-bug-dirty-apply")
@@ -43,7 +42,6 @@ def get_model(workload: str, node_count: int, topology: str = "grid",
     from .echo import EchoModel
     from .kafka import KAFKA_BUGGY_MODELS, KafkaModel
     from .raft import RaftModel
-    from .raft_buggy import BUGGY_MODELS
     from .txn_raft import (TXN_BUGGY_MODELS, TxnListAppendModel,
                            TxnRwRegisterModel)
     from .unique_ids import UniqueIdsModel

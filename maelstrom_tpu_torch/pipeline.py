@@ -197,7 +197,8 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     init_s = time.monotonic() - t_init
 
     compact: List[Tuple[np.ndarray, int]] = []
-    stats = {"overflowed-chunks": 0, "fetch-s": 0.0, "issue-s": 0.0}
+    stats = {"overflowed-chunks": 0, "fetch-s": 0.0, "issue-s": 0.0,
+             "chunk-issue-s": []}
     last_scan: List[Optional[np.ndarray]] = [None]
 
     def consume(fetch):
@@ -232,7 +233,9 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                                   if buf is not None else (scan,)))
             chunks += 1
             ticks_dispatched = t0 + length
-            stats["issue-s"] += time.monotonic() - t_i
+            dt = time.monotonic() - t_i
+            stats["chunk-issue-s"].append(round(dt, 4))
+            stats["issue-s"] += dt
             # chunk k's copy is read once chunk k+1 is queued behind it
             tripped = consume(pending) if pending is not None else False
             pending = fetch
@@ -243,6 +246,7 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     perf = {"chunks": chunks, "chunk-ticks": plans[0][1],
             "event-capacity": cap, "init-s": round(init_s, 4),
             "issue-s": round(stats["issue-s"], 4),
+            "chunk-issue-s": stats["chunk-issue-s"],
             "fetch-s": round(stats["fetch-s"], 4),
             "overflowed-chunks": stats["overflowed-chunks"],
             "ticks-dispatched": ticks_dispatched}

@@ -102,8 +102,7 @@ def test_cli_main_runs_each_workload(workload, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["-w", "lin-kv", "--check-mode", "device"],
-     "check_mode='device' is not implemented"),
+    (["-w", "lin-kv-lint-fixture-traced-hazards"], "not ported"),
     (["-w", "kafka", "--txn"], "kafka transactions"),
     (["-w", "g-set", "--log-cap", "32"], "lin-kv only"),
 ])

@@ -11,10 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
    (tolerance: exact — all outputs are int32) at the Pallas test shape,
    the flagship shape (S=16, K=1), the CLI-default shape (S=128, K=8),
    the 25-node broadcast shape (S=256, K=8, NT=50, L=10), the txn and
-   kafka shapes (below) and the bug-hunt shape (S=128, K=8, NT=6, L=20),
-   4096 instances each, and on edge-case pools at small I
-   (``kernels/delivery_cases.py``, rows of L = 9, 10, 14, 20, 26, 32 and
-   66); at ``delivery_cases.TIMED``'s six shapes time the
+   kafka shapes (below), the bug-hunt shape (S=128, K=8, NT=6, L=20) and
+   the journaled bug hunt's (the same with the NETID lane, L=21), 4096
+   instances each, and on edge-case pools at small I
+   (``kernels/delivery_cases.py``, rows of L = 9, 10, 14, 20, 21, 26,
+   32, 33 and 66, and the shape phase 10 shrinks at: S=24, K=2, NT=7);
+   at ``delivery_cases.TIMED``'s seven shapes time the
    kernel's device time per launch (CUPTI
    durations under ``torch.profiler``, L2 flushed before each launch,
    and warm), the wrapper's time per call (host issue included) and the
@@ -27,9 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
    crash, links, skew and membership; then each tutorial workload for
    150 ticks (echo, unique-ids, broadcast at 25 nodes in a tree4,
    g-set, g-counter, pn-counter; g-set and pn-counter under a crash and
-   links plan); then lin-kv-bug-no-term-guard at 5 nodes for 250 ticks
-   under the scripted rotating-majorities schedule (50-tick phases),
-   and lin-kv-bug-double-vote at the bug hunt's settings for 200 ticks;
+   links plan; echo, unique-ids, broadcast and g-counter 100 ticks); then
+   lin-kv-bug-no-term-guard at 5 nodes for 200 ticks under the scripted
+   rotating-majorities schedule (50-tick phases); it logs each run's
+   time;
 4. drive the main path — ``run_torch_test`` on lin-kv Raft exactly as
    ``bench.py`` runs its flagship: 3 nodes, 6 clients, 4096 instances,
    4 simulated seconds, under the all-healthy fault distribution
@@ -56,16 +59,33 @@ Phases (any failure exits non-zero and prints no result line):
    kernel once per tick; it logs the recorded instances' txn counts and
    any Elle anomaly types;
 9. drive the bug hunt (``fleets.BUG_HUNT``: ``RaftDoubleVote``, 3
-   nodes, 3 clients, 4096 instances, 4 recorded, fail-fast, a funnel of
-   up to 32 instances, the store in a temporary directory) for a
-   planned 600 ticks: the verdict must be invalid, the run must stop
-   early, the funnel's replay on the card must trip every replayed
-   instance again, every funnel verdict must be there, the delivery
-   kernel must launch once per tick run plus once per replayed tick,
-   and every file of the store layout must exist, with
-   ``fleet-metrics.json`` parsing. It prints the stopped run's ticks/s
-   and each chunk's issue time, the funnel's wall time and the store's
-   write time.
+   nodes, 3 clients, 4096 instances, 4 recorded, instance 0 journaled
+   (so every row carries the NETID lane: L=21), fail-fast, a funnel of
+   up to 32 instances, the store and its heartbeat in a temporary
+   directory) for a planned 600 ticks: the verdict must be invalid, the
+   run must stop early, the funnel's replay on the card must trip every
+   replayed instance again, every funnel verdict must be there, the
+   delivery kernel must launch once per tick run plus once per replayed
+   tick, every file of the store layout must exist (``messages.svg`` and
+   ``heartbeat.jsonl`` included), ``fleet-metrics.json`` must parse, and
+   ``results.net.journal`` must count instance 0's messages. It prints
+   the stopped run's ticks/s and each chunk's issue time, the funnel's
+   wall time and the store's write time;
+10. take the bug hunt's store apart with the CLI's forensics commands
+    (``python -m maelstrom_tpu_torch watch|triage|shrink``, called in
+    this process): ``watch`` renders its heartbeat (exit 0, status
+    stopped); ``triage`` replays its first 8 flagged instances on the
+    card with journals (each must trip again, each bundle must hold
+    ``messages.svg``, ``journal.edn``, ``history.jsonl`` and
+    ``repro.json``, the delivery kernel once per replayed tick), and
+    again on the CPU, and every bundle file must be equal; then a small
+    fuzz run of lin-kv-bug-forget-snapshot (``FUZZ_SHRINK``: one
+    instance, 300 ticks, which trips) is stored from the card and
+    ``shrink`` (``SHRINK_ATTEMPTS`` candidate replays besides the
+    verifying one, of which one must be kept, and the confirming replay
+    of the shrunk plan) shrinks it on the card and, on a copy, on the
+    CPU: the card's ``shrunk-plan.json`` must be verified and equal to
+    the CPU's, and so must every field of its record.
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
@@ -81,9 +101,10 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-9 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-10 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
-exits 2 and prints no result line (its broadcast runs 5 nodes, not 25).
+exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
+its phase 10 compares the CPU with itself).
 ``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
 simulated seconds instead (a quicker check; the broadcast fleet for at
 least 1 s, which it needs to converge after the heal).
@@ -145,11 +166,35 @@ TXN_KAFKA = ("txn-list-append", "txn-rw-register", "kafka")
 # phase 9: the bug hunt's mutant and planned depth (cut from 2.5 s)
 BUG_HUNT_MUTANT = "lin-kv-bug-double-vote"
 BUG_HUNT_TIME_LIMIT = 0.6
+# phase 10: the fuzz run that shrink takes apart — the JAX fuzz tests'
+# HIT_OPTS and HIT_DIST (tests/test_fault_fuzz.py:74-85) cut from 0.8 s
+# to 0.3 s at seed 17, where the one-instance fleet trips
+# (tests/test_torch_forensics.py, FUZZ; no funnel: the shrink replays
+# the tripped instance), and the shrink's replay budget: its first three
+# candidates (drop the phase, drop either crash victim) no longer trip,
+# the fourth (halve the phase) does, so 4 attempts keep one reduction
+# and run its confirming replay
+FUZZ_SHRINK_MUTANT = "lin-kv-bug-forget-snapshot"
+FUZZ_SHRINK = dict(
+    node_count=3, concurrency=4, n_instances=1, record_instances=1,
+    time_limit=0.3, rate=300.0, latency=5.0, rpc_timeout=0.08,
+    recovery_time=0.1, seed=17, inbox_k=2, pool_slots=24, pipeline="on",
+    funnel=False,
+    fault_fuzz={"windows": [2, 2], "gap": [150, 260],
+                "duration": [50, 90],
+                "crash": {"rate": 1.0, "victims": [2, 2]},
+                "links": {"rate": 0.6, "edges": [1, 3], "block": 0.5,
+                          "delay": [0, 20], "loss": [0.0, 0.2]},
+                "skew": {"rate": 0.4, "victims": [1, 1],
+                         "range": [0.75, 1.5]}})
+SHRINK_ATTEMPTS = 4
+TRIAGE_MAX = 8
 # phase 3's scripted run: the JAX tests' Figure-8 options
-# (tests/test_tpu_raft.py:70-75) at 24 instances for 250 ticks, the
-# rotating majorities in 50-tick phases until tick 200
+# (tests/test_tpu_raft.py:70-75) at 24 instances for 200 ticks, the
+# rotating majorities in 50-tick phases until tick 150 (cut from 250 and
+# 200)
 FIGURE8_SMALL = dict(node_count=5, concurrency=4, n_instances=24,
-                     record_instances=1, time_limit=0.25, rate=60.0,
+                     record_instances=1, time_limit=0.2, rate=60.0,
                      latency=5.0, rpc_timeout=0.8, nemesis=["partition"],
                      nemesis_kind="scripted", recovery_time=0.05, seed=11,
                      telemetry=True, layout="lead")
@@ -286,6 +331,7 @@ def check_small_run_matches_cpu(dev, label, model, opts):
     """The card's tick loop equals the CPU plain-version loop on a small
     input: every carry leaf at every 25th tick."""
     from maelstrom_tpu_torch import convert, harness, runtime
+    t0 = time.monotonic()
     sim = harness.make_sim_config(model, opts)
     carries = []
     for d in (torch.device("cpu"), dev):
@@ -318,7 +364,8 @@ def check_small_run_matches_cpu(dev, label, model, opts):
     log(f"phase 3: {sim.n_instances}-instance {sim.n_ticks}-tick run on "
         f"{dev} under {label} equals the CPU plain-version run at every "
         f"25th tick (all {len(names)} carry leaves, exact; fault leaves "
-        f"{', '.join(fault_leaves) or 'none'})")
+        f"{', '.join(fault_leaves) or 'none'}); both runs "
+        f"{time.monotonic() - t0:.1f} s")
 
 
 def run_path(dev, model, opts, label):
@@ -356,89 +403,237 @@ def store_files(res):
     """The files of the store layout this run must have written."""
     names = ["results.json", "fleet-metrics.json", "fleet-rate.svg",
              "fleet-drops.svg", "fleet-latency.svg", "latency-raw.svg",
-             "latency-quantiles.svg", "rate.svg", "timeline.html"]
+             "latency-quantiles.svg", "rate.svg", "timeline.html",
+             "messages.svg", "heartbeat.jsonl"]
     for i in range(res["checked-instances"]):
         names += [f"history-{i}.jsonl", f"history-{i}.txt"]
     return names + [f"funnel-history-{i}.jsonl"
                     for i in res["funnel"]["ids"]]
 
 
-def run_bug_hunt(dev, model, opts, label):
-    """``run_torch_test`` on the bug hunt, the launch counter set to 0
-    just before and read just after: an invalid verdict, a fail-fast
-    stop, the funnel's replay tripping every replayed instance, every
-    funnel verdict, one delivery launch per tick run and per replayed
-    tick, and the whole store."""
+def run_bug_hunt(dev, model, opts, label, root):
+    """``run_torch_test`` on the bug hunt, stored under ``root``, the
+    launch counter set to 0 just before and read just after: an invalid
+    verdict, a fail-fast stop, the funnel's replay tripping every
+    replayed instance, every funnel verdict, one delivery launch per
+    tick run and per replayed tick, the journal block, and the whole
+    store, ``messages.svg`` and ``heartbeat.jsonl`` included."""
     import os
-    import shutil
-    import tempfile
     from maelstrom_tpu_torch import harness
     from maelstrom_tpu_torch.kernels import delivery
-    root = tempfile.mkdtemp(prefix="bug-hunt-store-")
-    try:
-        delivery.deliver.launches = 0
-        t0 = time.monotonic()
-        res = harness.run_torch_test(model, dict(opts, store_root=root),
-                                     device=str(dev))
-        wall = time.monotonic() - t0
-        launches = {"deliver": delivery.deliver.launches}
-        perf, ff, fun = res["perf"], res.get("fail-fast"), res.get("funnel")
-        phases = perf["phases"]
-        planned = res["telemetry"]["ticks"]
-        log(f"{label}: {model.name} x{res['instance-count']}: valid?="
-            f"{res['valid?']}, wall {wall:.1f} s, stopped run "
-            f"{perf['ticks']} of {planned} ticks at "
-            f"{perf['ticks-per-sec']:.2f} ticks/s, "
-            f"{perf['msgs-per-sec']:.0f} simulated msgs/s, funnel "
-            f"{phases.get('funnel-s')} s, store write "
-            f"{phases.get('store-s')} s, launches {launches}")
-        pipe = phases.get("pipeline", {})
-        log(f"{label}: chunks of {pipe.get('chunk-ticks')} ticks, issue s "
-            f"per chunk {pipe.get('chunk-issue-s')}, fetch s "
-            f"{pipe.get('fetch-s')}, init s {pipe.get('init-s')}")
-        log(f"{label}: fail-fast {json.dumps(ff)}")
-        log(f"{label}: invariants {json.dumps(res['invariants'])[:400]}")
-        if res["valid?"] is not False:
-            raise AssertionError(f"{label}: the mutant was not caught "
-                                 f"(valid? {res['valid?']!r})")
-        if not ff or ff["stopped"] is not True \
-                or not ff["ticks-dispatched"] < planned:
-            raise AssertionError(f"{label}: no fail-fast stop: {ff}")
-        if not fun or not (fun["replayed-violating"] == len(fun["ids"])
-                           > 0):
-            raise AssertionError(f"{label}: the funnel's replay did not "
-                                 f"trip every replayed instance: "
-                                 f"{fun and fun['replayed-violating']} "
-                                 f"of {fun and fun['ids']}")
-        got = [v.get("instance") for v in fun["verdicts"]]
-        if got != fun["ids"] or any("valid?" not in v
-                                    for v in fun["verdicts"]):
-            raise AssertionError(f"{label}: funnel verdicts {got} for ids "
-                                 f"{fun['ids']}")
-        log(f"{label}: funnel replayed {len(fun['ids'])} of "
-            f"{fun['total-violating']} tripped instances over the full "
-            f"{planned} ticks: all {fun['replayed-violating']} tripped "
-            f"again; verdicts valid? "
-            f"{[v['valid?'] for v in fun['verdicts']]}")
-        expect = ff["ticks-dispatched"] + planned
-        if dev.type == "cuda" and launches["deliver"] != expect:
-            raise AssertionError(f"{label}: delivery kernel launched "
-                                 f"{launches['deliver']} times, expected "
-                                 f"{expect} (ticks run + replayed ticks)")
-        run_dir = res["store-dir"]
-        missing = [f for f in store_files(res)
-                   if not os.path.exists(os.path.join(run_dir, f))]
-        if missing:
-            raise AssertionError(f"{label}: store files missing: "
-                                 f"{missing}")
-        with open(os.path.join(run_dir, "fleet-metrics.json")) as f:
-            fleet = json.load(f)
-        log(f"{label}: store has all {len(store_files(res))} files; "
-            f"fleet-metrics.json parses ({fleet['instances']} instances, "
-            f"{fleet['invariants']['tripped-instances']} tripped)")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    delivery.deliver.launches = 0
+    t0 = time.monotonic()
+    res = harness.run_torch_test(model, dict(opts, store_root=root),
+                                 device=str(dev))
+    wall = time.monotonic() - t0
+    launches = {"deliver": delivery.deliver.launches}
+    perf, ff, fun = res["perf"], res.get("fail-fast"), res.get("funnel")
+    phases = perf["phases"]
+    planned = res["telemetry"]["ticks"]
+    log(f"{label}: {model.name} x{res['instance-count']}: valid?="
+        f"{res['valid?']}, wall {wall:.1f} s, stopped run "
+        f"{perf['ticks']} of {planned} ticks at "
+        f"{perf['ticks-per-sec']:.2f} ticks/s, "
+        f"{perf['msgs-per-sec']:.0f} simulated msgs/s, funnel "
+        f"{phases.get('funnel-s')} s, store write "
+        f"{phases.get('store-s')} s, launches {launches}")
+    pipe = phases.get("pipeline", {})
+    log(f"{label}: chunks of {pipe.get('chunk-ticks')} ticks, issue s "
+        f"per chunk {pipe.get('chunk-issue-s')}, fetch s "
+        f"{pipe.get('fetch-s')}, init s {pipe.get('init-s')}")
+    log(f"{label}: fail-fast {json.dumps(ff)}")
+    log(f"{label}: invariants {json.dumps(res['invariants'])[:400]}")
+    if res["valid?"] is not False:
+        raise AssertionError(f"{label}: the mutant was not caught "
+                             f"(valid? {res['valid?']!r})")
+    if not ff or ff["stopped"] is not True \
+            or not ff["ticks-dispatched"] < planned:
+        raise AssertionError(f"{label}: no fail-fast stop: {ff}")
+    if not fun or not (fun["replayed-violating"] == len(fun["ids"])
+                       > 0):
+        raise AssertionError(f"{label}: the funnel's replay did not "
+                             f"trip every replayed instance: "
+                             f"{fun and fun['replayed-violating']} "
+                             f"of {fun and fun['ids']}")
+    got = [v.get("instance") for v in fun["verdicts"]]
+    if got != fun["ids"] or any("valid?" not in v
+                                for v in fun["verdicts"]):
+        raise AssertionError(f"{label}: funnel verdicts {got} for ids "
+                             f"{fun['ids']}")
+    log(f"{label}: funnel replayed {len(fun['ids'])} of "
+        f"{fun['total-violating']} tripped instances over the full "
+        f"{planned} ticks: all {fun['replayed-violating']} tripped "
+        f"again; verdicts valid? "
+        f"{[v['valid?'] for v in fun['verdicts']]}")
+    expect = ff["ticks-dispatched"] + planned
+    if dev.type == "cuda" and launches["deliver"] != expect:
+        raise AssertionError(f"{label}: delivery kernel launched "
+                             f"{launches['deliver']} times, expected "
+                             f"{expect} (ticks run + replayed ticks)")
+    run_dir = res["store-dir"]
+    missing = [f for f in store_files(res)
+               if not os.path.exists(os.path.join(run_dir, f))]
+    if missing:
+        raise AssertionError(f"{label}: store files missing: "
+                             f"{missing}")
+    with open(os.path.join(run_dir, "fleet-metrics.json")) as f:
+        fleet = json.load(f)
+    log(f"{label}: store has all {len(store_files(res))} files; "
+        f"fleet-metrics.json parses ({fleet['instances']} instances, "
+        f"{fleet['invariants']['tripped-instances']} tripped)")
+    journal = res["net"].get("journal")
+    if not journal or journal["stats"]["all"]["msg-count"] <= 0:
+        raise AssertionError(f"{label}: no results.net.journal block "
+                             f"or an empty journal: {journal}")
+    log(f"{label}: journal of instance 0 (rows of L="
+        f"{harness.make_sim_config(model, opts).net.lanes}): "
+        f"{json.dumps(journal['stats']['all'])}, msgs-per-op "
+        f"{journal['msgs-per-op']:.3f}; messages.svg "
+        f"{os.path.getsize(os.path.join(run_dir, 'messages.svg'))} B")
     return res, launches
+
+
+def _same_files(a, b, names, label):
+    """Byte equality of ``names`` under the directories ``a`` and ``b``."""
+    import os
+    for name in names:
+        with open(os.path.join(a, name), "rb") as f, \
+                open(os.path.join(b, name), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{label}: {name} differs between "
+                                     f"{a} and {b}")
+
+
+def _cli(label, *argv):
+    """``python -m maelstrom_tpu_torch ARGV`` in this process: exit code
+    0, or the phase fails; its standard output's lines."""
+    import contextlib
+    import io
+    from maelstrom_tpu_torch.__main__ import main as cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(list(argv))
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"{label}: {argv[0]} exited {rc}: "
+                             f"{lines[-5:]}")
+    return lines
+
+
+def _read_json(*path):
+    import os
+    with open(os.path.join(*path)) as f:
+        return json.load(f)
+
+
+def run_forensics(dev, hunt, root, label):
+    """Phase 10: the CLI's ``watch``, ``triage`` and ``shrink`` on the
+    card, triage and shrink held against the CPU. Returns the delivery
+    launches of each path."""
+    import os
+    import shutil
+    from maelstrom_tpu_torch import harness
+    from maelstrom_tpu_torch.kernels import delivery
+    from maelstrom_tpu_torch.models import get_model
+    on_card = dev.type == "cuda"
+    run_dir = hunt["store-dir"]
+    launches = {}
+
+    t0 = time.monotonic()
+    report = _cli(label, "watch", run_dir)
+    if not report[-1].startswith("status: stopped"):
+        raise AssertionError(f"{label}: watch report ends {report[-3:]}")
+    log(f"{label}: watch exit 0 in {time.monotonic() - t0:.2f} s, "
+        f"{len(report)} lines; {report[0]} ... {report[-1]}")
+
+    t0 = time.monotonic()
+    triage = ("triage", run_dir, "--max-instances", str(TRIAGE_MAX))
+    delivery.deliver.launches = 0
+    _cli(label, *triage, "--device", str(dev))
+    launches["triage"] = delivery.deliver.launches
+    t_card = time.monotonic() - t0
+    cpu_out = os.path.join(root, "triage-cpu")
+    _cli(label, *triage, "-o", cpu_out, "--device", "cpu")
+    t_cpu = time.monotonic() - t0 - t_card
+    card = _read_json(run_dir, "triage", "summary.json")
+    cpu = _read_json(cpu_out, "summary.json")
+    ids = [e["instance"] for e in card["triaged"]]
+    want = min(TRIAGE_MAX, len(card["flagged"]))
+    if not (len(ids) == want > 0 and card["replayed-violating"] == want):
+        raise AssertionError(f"{label}: triage replayed {ids}, "
+                             f"{card['replayed-violating']} tripped again")
+    if on_card and launches["triage"] != card["ticks"]:
+        raise AssertionError(f"{label}: delivery kernel launched "
+                             f"{launches['triage']} times for "
+                             f"{card['ticks']} replayed ticks")
+    strip = lambda sm, d: json.dumps(sm, sort_keys=True).replace(d, "OUT")
+    if strip(card, card["out-dir"]) != strip(cpu, cpu_out):
+        raise AssertionError(f"{label}: card and CPU triage summaries "
+                             f"differ")
+    bundle = ("messages.svg", "journal.edn", "history.jsonl", "repro.json")
+    for i in ids:
+        _same_files(os.path.join(card["out-dir"], f"instance-{i}"),
+                    os.path.join(cpu_out, f"instance-{i}"), bundle,
+                    f"{label}: triage of instance {i}")
+    log(f"{label}: triage replayed flagged instances {ids} over "
+        f"{card['ticks']} ticks on {dev} in {t_card:.1f} s (CPU "
+        f"{t_cpu:.1f} s): all {card['replayed-violating']} tripped "
+        f"again, first-violation ticks "
+        f"{[e['first-violation-tick'] for e in card['triaged']]}, journal "
+        f"events {[e['journal-events'] for e in card['triaged']]}; "
+        f"every bundle file ({', '.join(bundle)}) equal to the CPU's; "
+        f"launches {launches['triage']}")
+
+    t0 = time.monotonic()
+    model = get_model(FUZZ_SHRINK_MUTANT, FUZZ_SHRINK["node_count"])
+    delivery.deliver.launches = 0
+    fres = harness.run_torch_test(
+        model, dict(FUZZ_SHRINK, store_root=os.path.join(root, "fuzz")),
+        device=str(dev))
+    launches["fuzz run"] = delivery.deliver.launches
+    if fres["invariants"]["violating-instance-ids"] != [0]:
+        raise AssertionError(f"{label}: the fuzz run did not trip "
+                             f"instance 0: {fres['invariants']}")
+    fuzz_dir = fres["store-dir"]
+    cpu_dir = os.path.join(root, "fuzz-cpu-copy")
+    shutil.copytree(fuzz_dir, cpu_dir)
+    t_run = time.monotonic() - t0
+    shrink = ("shrink", "--max-attempts", str(SHRINK_ATTEMPTS))
+    delivery.deliver.launches = 0
+    _cli(label, *shrink, fuzz_dir, "--device", str(dev))
+    launches["shrink"] = delivery.deliver.launches
+    t_card = time.monotonic() - t0 - t_run
+    _cli(label, *shrink, cpu_dir, "--device", "cpu")
+    t_cpu = time.monotonic() - t0 - t_run - t_card
+    card = _read_json(fuzz_dir, "triage", "shrink-summary.json")
+    cpu = _read_json(cpu_dir, "triage", "shrink-summary.json")
+    if len(card["shrunk"]) != 1:
+        raise AssertionError(f"{label}: shrink summary {card}")
+    rec, ref = dict(card["shrunk"][0]), dict(cpu["shrunk"][0])
+    rec.pop("shrunk-plan-file"), ref.pop("shrunk-plan-file")
+    if rec != ref or rec["verified"] is not True or not rec["kept"]:
+        raise AssertionError(f"{label}: card shrink {rec} != CPU shrink "
+                             f"{ref}, or unverified, or nothing kept")
+    sub = os.path.join("triage", "instance-0")
+    _same_files(os.path.join(fuzz_dir, sub), os.path.join(cpu_dir, sub),
+                ("shrunk-plan.json",), f"{label}: shrink")
+    replays = 1 + rec["attempts"] + (1 if rec["kept"] else 0)
+    ticks = fres["perf"]["ticks"]
+    if on_card and (launches["shrink"] != replays * ticks
+                    or launches["fuzz run"] != ticks):
+        raise AssertionError(f"{label}: delivery kernel launched "
+                             f"{launches} times for {replays} replays "
+                             f"of {ticks} ticks")
+    log(f"{label}: fuzz run of {model.name} stored on {dev} in "
+        f"{t_run:.1f} s, instance 0 tripped; shrink on {dev} "
+        f"{t_card:.1f} s, on the CPU {t_cpu:.1f} s: "
+        f"{rec['original-phases']} phase(s)/{rec['original-victims']} "
+        f"victim(s) -> {rec['shrunk-phases']}/{rec['shrunk-victims']} in "
+        f"{rec['attempts']} attempt(s), kept {rec['kept']}, verified "
+        f"{rec['verified']}; the record and shrunk-plan.json equal to the "
+        f"CPU's; launches {launches['fuzz run']} (run) + "
+        f"{launches['shrink']} ({replays} replays)")
+    return launches
 
 
 def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
@@ -468,11 +663,13 @@ def main(argv) -> int:
     bmodel, bopts = fleets.fleet("broadcast")
     txn_paths = {w: fleets.fleet(w) for w in TXN_KAFKA}
     hunt_model, hunt_opts = fleets.fleet(BUG_HUNT_MUTANT)
-    hunt_opts["time_limit"] = BUG_HUNT_TIME_LIMIT
+    # instance 0 journaled: every row of the fleet carries the NETID lane
+    hunt_opts |= dict(time_limit=BUG_HUNT_TIME_LIMIT, journal_instances=1)
     # paths cut to keep the script well inside its 1,200 s limit on a
     # slow host (PERF.md §6): the broadcast fleet to 1 s (from 2;
     # healed at tick 700), the families to 0.4 s (from 1, then 0.6:
-    # healed before the first partition phase at tick 400), the
+    # healed before the first partition phase at tick 400; at 0.3 s
+    # g-counter's final reads come before it converges), the
     # txn-rw-register and kafka fleets to 0.5 s (from 1, then 0.8);
     # txn-list-append keeps 1 s
     bopts["time_limit"] = 1.0
@@ -481,6 +678,8 @@ def main(argv) -> int:
     for w in ("txn-rw-register", "kafka"):
         txn_paths[w][1]["time_limit"] = 0.5
     if rehearse:
+        # small ops: one thread is as fast, and spares a loaded host
+        torch.set_num_threads(1)
         shapes = {name: shape[:5] + (min(shape[5], 64),)
                   for name, shape in shapes.items()}
         opts = small(opts, 16)
@@ -534,12 +733,15 @@ def main(argv) -> int:
                                     | dict(fault_plan=ACTIVE_PLAN))
         for w in TUTORIAL:
             model, o = (bmodel, bopts) if w == "broadcast" else paths[w]
-            # 150 ticks, partitioned in [50, 100) (cut from 200)
-            o = small(o, time_limit=0.15, interval=0.05)
             label = w
             if w in ("g-set", "pn-counter"):
+                # 150 ticks, partitioned in [50, 100) (cut from 200)
+                o = small(o, time_limit=0.15, interval=0.05)
                 o["fault_plan"] = CRASH_LINKS_PLAN
                 label += " under a crash and links plan"
+            else:
+                # 100 ticks, partitioned in [25, 50) (cut from 150)
+                o = small(o, time_limit=0.1, interval=0.025)
             check_small_run_matches_cpu(dev, label, model, o)
         for label, w, mopts, plan in TXN_KAFKA_SMALL:
             model, o = fleets.fleet(w, mopts)
@@ -549,17 +751,14 @@ def main(argv) -> int:
                 o["fault_plan"] = plan
             check_small_run_matches_cpu(dev, label, model, o)
         from maelstrom_tpu_torch.models import get_model
+        # the bug hunt's own mutant is held card against CPU by phase
+        # 10's triage of the bug hunt's trippers
         check_small_run_matches_cpu(
             dev, "the scripted rotating-majorities schedule "
             "(lin-kv-bug-no-term-guard, 5 nodes)",
             get_model("lin-kv-bug-no-term-guard", 5),
             dict(FIGURE8_SMALL,
-                 nemesis_schedule=fleets.rotating_majorities(5, 50, 200)))
-        # the bug hunt's own mutant, whose vote branches phase 9 runs only
-        # card against card: 24 instances, 200 ticks (3 trip on the CPU)
-        check_small_run_matches_cpu(
-            dev, "the bug hunt's settings (lin-kv-bug-double-vote)",
-            hunt_model, dict(hunt_opts, n_instances=24, time_limit=0.2))
+                 nemesis_schedule=fleets.rotating_majorities(5, 50, 150)))
         mark("phase 3")
     res, launches = run_path(dev, flagship,
                              dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
@@ -626,13 +825,27 @@ def main(argv) -> int:
                                  f"recorded instances")
         by_path[f"phase 8 {w}"] = t_launches["deliver"]
     mark("phase 8")
-    _, h_launches = run_bug_hunt(dev, hunt_model, hunt_opts,
-                                 "phase 9 (bug hunt)")
-    by_path["phase 9 bug hunt, run and funnel replay"] = \
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="bug-hunt-store-")
+    try:
+        hunt, h_launches = run_bug_hunt(dev, hunt_model, hunt_opts,
+                                        "phase 9 (bug hunt)", root)
+        mark("phase 9")
+        f_launches = run_forensics(dev, hunt, root, "phase 10 (forensics)")
+        mark("phase 10")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    by_path["phase 9 bug hunt (L=21), run and funnel replay"] = \
         h_launches["deliver"]
-    mark("phase 9")
+    by_path["phase 10 triage replay (L=21)"] = f_launches["triage"]
+    by_path["phase 10 fuzz run (L=20)"] = f_launches["fuzz run"]
+    by_path["phase 10 shrink replays (L=20)"] = f_launches["shrink"]
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
+    # the journaled bug hunt's rows: its shape's launches on the path
+    record["shapes"]["bug-hunt-netid"]["launches"] = (
+        h_launches["deliver"] + f_launches["triage"])
     for name, r in record["shapes"].items():
         dev_txt = ("not measured" if r["device_ms"] is None
                    else f"{r['device_ms']:.6f} ms device time per launch "

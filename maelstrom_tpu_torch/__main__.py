@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m maelstrom_tpu_torch test -w lin-kv``.
 
-Runs a ported workload's fleet (``models.WORKLOADS``: lin-kv Raft, the
+``test`` runs a ported workload's fleet (``models.WORKLOADS``: lin-kv Raft, the
 tutorial workloads echo, unique-ids, broadcast, g-set, g-counter and
 pn-counter, kafka, and txn-list-append and txn-rw-register over Raft;
 ``models.MUTANTS``: the nine lin-kv Raft mutants and the kafka and txn
@@ -10,13 +10,30 @@ the fail-fast, availability, funnel and fault blocks where the run has
 them). Unset flags take the harness defaults
 (``harness.TORCH_DEFAULTS``). Exit code 0 when the run is valid, 1 when
 it is not, 2 for a bad or missing schedule file.
+
+The forensics commands work on a stored run's directory, with the JAX
+CLI's flags, messages and exit codes:
+
+- ``watch RUN_DIR`` renders its ``heartbeat.jsonl`` (``-f`` follows it
+  until the run-end record): 0 for a finished run, 3 for one with no
+  run-end record, 2 when there is no heartbeat;
+- ``triage RUN_DIR`` replays the flagged instances with journals and
+  writes their bundles under ``RUN_DIR/triage/`` (2 when the run dir
+  cannot be triaged);
+- ``shrink RUN_DIR`` delta-debugs each flagged instance's fault
+  schedule to a minimal plan that still trips (1 when an instance could
+  not be shrunk, 2 when the run is no fault run).
+
+``triage`` and ``shrink`` replay on ``--device`` (``cuda`` by default).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import time
 from typing import List, Optional
 
 from .faults.spec import FAULT_KINDS
@@ -106,6 +123,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--p-loss", type=float)
     p.add_argument("--n-instances", type=int)
     p.add_argument("--record-instances", type=int)
+    p.add_argument("--journal-instances", type=int, default=0,
+                   help="per-message journals for the first N instances "
+                        "(messages.svg and results.net.journal; adds the "
+                        "NETID lane to every row)")
     p.add_argument("--inbox-k", type=int)
     p.add_argument("--pool-slots", type=int)
     p.add_argument("--ms-per-tick", type=int)
@@ -140,17 +161,176 @@ def _parser() -> argparse.ArgumentParser:
                         "block names the K earliest tripping instances "
                         "(default 8)")
     p.add_argument("--no-telemetry", action="store_true")
+    p.add_argument("--no-heartbeat", action="store_true",
+                   help="do not stream heartbeat.jsonl into the run dir")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
     p.add_argument("--chunk-ticks", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--store", default="store")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
+
+    p_watch = sub.add_parser(
+        "watch", help="render a run's streaming heartbeat.jsonl")
+    p_watch.add_argument("path", help="a store run dir (e.g. store/"
+                                      "lin-kv-torch/latest) or a "
+                                      "heartbeat.jsonl file")
+    p_watch.add_argument("-f", "--follow", action="store_true",
+                         help="keep tailing until the run-end record "
+                              "(or Ctrl-C); default is one shot")
+    p_watch.add_argument("--interval", type=float, default=1.0,
+                         help="--follow poll interval in seconds")
+    p_watch.add_argument("--campaign", action="store_true",
+                         help="campaign dirs: not ported (refused)")
+
+    p_triage = sub.add_parser(
+        "triage", help="replay a run's flagged instances and write "
+                       "per-instance forensics bundles (spacetime SVG "
+                       "+ EDN journal + repro.json)")
+    p_triage.add_argument("path", help="a store run dir (complete, fail-"
+                                       "fast-stopped, or killed mid-run)")
+    p_triage.add_argument("--instance", type=int, action="append",
+                          default=[],
+                          help="triage this instance id (repeatable; "
+                               "default: the run's flagged instances)")
+    p_triage.add_argument("--max-instances", type=_positive_int,
+                          default=8,
+                          help="cap on instances to replay (default 8)")
+    p_triage.add_argument("-o", "--out", default=None,
+                          help="output directory (default: "
+                               "<run-dir>/triage)")
+    p_triage.add_argument("--max-svg-events", type=_positive_int,
+                          default=1500,
+                          help="Lamport SVG event cap; beyond it the "
+                               "diagram is annotated '+N elided'")
+    p_triage.add_argument("--device", default="cuda",
+                          help="torch device of the replay")
+
+    p_shrink = sub.add_parser(
+        "shrink", help="minimize a fault run's failing scenario to a "
+                       "still-failing plan (triage/instance-<id>/"
+                       "shrunk-plan.json)")
+    p_shrink.add_argument("path", help="a store run dir of a --fault-"
+                                       "fuzz or --fault-plan run with "
+                                       "flagged instances")
+    p_shrink.add_argument("--instance", type=int, action="append",
+                          default=[],
+                          help="shrink this instance id (repeatable; "
+                               "default: the run's flagged instances)")
+    p_shrink.add_argument("--max-instances", type=_positive_int,
+                          default=4,
+                          help="cap on instances to shrink (default 4)")
+    p_shrink.add_argument("--max-attempts", type=_positive_int,
+                          default=24,
+                          help="replay budget per instance (default 24)")
+    p_shrink.add_argument("--device", default="cuda",
+                          help="torch device of the replays")
     return ap
+
+
+def cmd_watch(args) -> int:
+    """Render a run's heartbeat: one shot, or ``--follow`` until the
+    run-end record arrives or Ctrl-C."""
+    from .telemetry.stream import (heartbeat_path, read_heartbeat,
+                                   render_chunk_line, render_watch_report)
+
+    if args.campaign:
+        print("error: watch --campaign tails a campaign dir; campaigns "
+              "are not ported to maelstrom_tpu_torch", file=sys.stderr)
+        return 2
+    path = heartbeat_path(os.path.realpath(args.path))
+    if not os.path.exists(path):
+        print(f"error: no heartbeat at {args.path} (heartbeat.jsonl is "
+              f"streamed by runs with a --store dir unless "
+              f"--no-heartbeat was passed)", file=sys.stderr)
+        return 2
+    hb = read_heartbeat(path)
+
+    def age():
+        try:
+            return time.time() - os.path.getmtime(path)
+        except OSError:
+            return None
+
+    if not args.follow:
+        print(render_watch_report(hb, path=args.path, mtime_age_s=age()))
+        return 0 if hb["end"] is not None else 3
+
+    h = hb.get("header") or {}
+    print(f"run: {h.get('workload', '?')} — {h.get('instances', '?')} "
+          f"instances x {h.get('ticks', '?')} ticks, chunk "
+          f"{h.get('chunk-ticks', '?')}  [{args.path}]")
+    printed = 0
+    try:
+        while True:
+            hb = read_heartbeat(path)
+            for rec in hb["chunks"][printed:]:
+                print(render_chunk_line(rec), flush=True)
+            printed = len(hb["chunks"])
+            if hb["end"] is not None:
+                end = hb["end"]
+                print(f"status: {end.get('status', 'complete')} — "
+                      f"{end.get('ticks', '?')} ticks in "
+                      f"{end.get('wall-s', '?')}s"
+                      + (f", valid? {end['valid?']}"
+                         if "valid?" in end else ""))
+                v = end.get("first-violation")
+                if v:
+                    print(f"first violation: instance "
+                          f"{v.get('instance')} at tick "
+                          f"{v.get('tick')}")
+                return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        print()
+        return 130
+
+
+def cmd_triage(args) -> int:
+    """Replay a stored run's flagged instances and write their
+    bundles (``checkers/triage.py``)."""
+    from .checkers.triage import (TriageError, render_triage_report,
+                                  triage_run)
+
+    try:
+        summary = triage_run(
+            os.path.realpath(args.path), ids=args.instance or None,
+            max_instances=args.max_instances, out_root=args.out,
+            max_svg_events=args.max_svg_events, device=args.device)
+    except TriageError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(render_triage_report(summary))
+    return 0
+
+
+def cmd_shrink(args) -> int:
+    """Shrink a fault run's flagged instances' schedules
+    (``faults/shrink.py``)."""
+    from .faults.shrink import (ShrinkError, render_shrink_report,
+                                shrink_run)
+
+    try:
+        summary = shrink_run(
+            os.path.realpath(args.path), ids=args.instance or None,
+            max_instances=args.max_instances,
+            max_attempts=args.max_attempts, device=args.device)
+    except ShrinkError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(render_shrink_report(summary))
+    if summary.get("errors"):
+        return 1
+    if not summary.get("shrunk") and not summary.get("note"):
+        return 1
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
+    if args.cmd != "test":
+        return {"watch": cmd_watch, "triage": cmd_triage,
+                "shrink": cmd_shrink}[args.cmd](args)
     from .harness import run_torch_test
     from .models import get_model
 
@@ -164,7 +344,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "rpc_timeout", "p_loss", "n_instances", "record_instances",
                  "inbox_k", "pool_slots", "ms_per_tick", "pipeline",
                  "chunk_ticks", "fault_snapshot_every", "scan_top_k",
-                 "seed"):
+                 "journal_instances", "seed"):
         v = getattr(args, flag)
         if v is not None:
             opts[flag] = v
@@ -196,6 +376,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         opts["fail_fast"] = True
     if args.no_telemetry:
         opts["telemetry"] = False
+    if args.no_heartbeat:
+        opts["heartbeat"] = False
     raft_kw = {k: v for k, v in (("log_cap", args.log_cap),
                                  ("heartbeat", args.heartbeat_ticks))
                if v is not None}

@@ -33,9 +33,11 @@ the schedule machinery.
 
 Every draw is integer-only (``randint``, ``permutation``), so a
 schedule is a pure function of ``(seed, instance id)``:
-:func:`reconstruct_schedule` re-draws one, and :func:`schedule_to_plan`
+:func:`reconstruct_schedule` re-draws one, :func:`schedule_to_plan`
 lowers it to a deterministic ``--fault-plan`` dict whose planes are
-value-identical at every tick.
+value-identical at every tick (:func:`reconstruct_plan` does both, for
+triage and the shrinker), and :func:`span_counters` counts the fleet's
+windows over a chunk for the heartbeat.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import torch
 from .. import rng
 from .engine import NEUTRAL_RATE, FaultConfig, FaultPlanes
 from .spec import (MAX_DELAY_TICKS, MAX_MEMBER_NODES, MAX_RATE, MIN_RATE,
-                   SpecError, _get)
+                   SpecError, _get, membership_heal_phases)
 
 # the schedule-RNG purpose tag (runtime._RNG_FAULTS): keys fold (master,
 # RNG_PURPOSE, instance id), tick-independent
@@ -541,6 +543,39 @@ def schedule_to_plan(sched: FaultSchedule, fx: FaultConfig
     return {"snapshot_every": int(fx.snapshot_every), "phases": phases}
 
 
+def reconstruct_plan(fx: FaultConfig, n_nodes: int, seed: int,
+                     instance_id: int) -> Dict[str, Any]:
+    """seed + instance id -> the instance's concrete schedule as a
+    deterministic plan dict (``{}`` when the draw was all-healthy)."""
+    return schedule_to_plan(
+        reconstruct_schedule(fx, n_nodes, seed, instance_id), fx)
+
+
+def plan_weight(plan: Dict[str, Any],
+                n_nodes: Optional[int] = None) -> Tuple[int, int]:
+    """(fault phases, total victims) of a plan dict: the shrinker's
+    minimality metric. Membership removals count as victims (an
+    absolute ``members`` set once, and only where it removes a node:
+    a restore is a heal, ``spec.membership_heal_phases``); rejoin
+    ``add`` events weigh nothing."""
+    if not plan:
+        return 0, 0
+    heals = membership_heal_phases(plan, n_nodes)
+    n_phases = 0
+    victims = 0
+    for i, ph in enumerate(plan.get("phases", ())):
+        c = len(ph.get("crash") or [])
+        e = len(ph.get("links") or [])
+        s = len(ph.get("skew") or {})
+        m = len(ph.get("remove") or []) \
+            + (1 if ph.get("members") is not None
+               and i not in heals else 0)
+        if c or e or s or m:
+            n_phases += 1
+            victims += c + e + s + m
+    return n_phases, victims
+
+
 # --- fleet summaries ----------------------------------------------------------
 
 
@@ -566,6 +601,21 @@ def fleet_windows(fx: FaultConfig, n_nodes: int, seed: int,
             "links": links & live,
             "skew": (sched.skew != NEUTRAL_RATE).any(axis=-1) & live,
             "membership": sched.mem_out.any(axis=-1) & live}
+
+
+def span_counters(win: Dict[str, np.ndarray], t0: int,
+                  ticks: int) -> Dict[str, int]:
+    """The heartbeat's per-chunk fault-fuzz record: how many instances
+    have a fault window overlapping ``[t0, t0 + ticks)``, per lane."""
+    t1 = int(t0) + max(1, int(ticks))
+    ov = (win["starts"] < t1) & (win["ends"] > int(t0))
+    out = {"schedules-active": int(
+        (ov & (win["crash"] | win["links"] | win["skew"]
+               | win["membership"]))
+        .any(axis=1).sum())}
+    for lane in ("crash", "links", "skew", "membership"):
+        out[lane] = int((ov & win[lane]).any(axis=1).sum())
+    return out
 
 
 def fleet_coverage(win: Dict[str, np.ndarray]) -> Dict[str, int]:

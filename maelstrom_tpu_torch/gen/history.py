@@ -1,7 +1,7 @@
 """Operation-history helpers: the condensed text form and invoke /
 completion pairing.
 
-Copy of ``write_txt`` and ``pairs`` from ``maelstrom_tpu/gen/history.py``.
+Copy of ``write_txt``, ``client_invokes`` and ``pairs`` from ``maelstrom_tpu/gen/history.py``.
 A history is an ordered list of Jepsen-shaped records (``index``,
 ``time`` in ns, ``process``, ``type`` invoke / ok / fail / info, ``f``,
 ``value``).
@@ -32,6 +32,11 @@ def write_txt(records: Iterable[dict], path: str) -> None:
             if row[4]:
                 line += "  " + row[4]
             f.write(line.rstrip() + "\n")
+
+
+def client_invokes(history) -> List[dict]:
+    return [r for r in history
+            if r["type"] == "invoke" and r.get("process") != "nemesis"]
 
 
 def pairs(history) -> List[Dict[str, Optional[dict]]]:

@@ -56,6 +56,9 @@ TORCH_DEFAULTS = dict(
     recovery_time=0.5,       # final heal + quiesce window (simulated s)
     n_instances=64,
     record_instances=8,
+    journal_instances=0,     # instances whose message traffic is
+                             # journaled (messages.svg, results.net.journal)
+    netid=None,              # the NETID lane; None = on when journaling
     pool_slots=128,
     inbox_k=8,
     ms_per_tick=MS_PER_TICK,
@@ -67,6 +70,7 @@ TORCH_DEFAULTS = dict(
                              # several chunks
     chunk_ticks=100,
     event_capacity=0,        # 0 = auto from the client rate
+    heartbeat=True,          # write heartbeat.jsonl into the store dir
     fail_fast=False,         # stop issuing chunks once a chunk's
                              # violation scan trips (at most one chunk
                              # in flight runs past it)
@@ -84,13 +88,15 @@ TORCH_DEFAULTS = dict(
     funnel_max=32,           # ... at most this many
 )
 
-# run-lifecycle options of the JAX harness that change neither the
-# trajectory nor the verdict: accepted and not used
-LIFECYCLE_OPTS = ("heartbeat", "device_profile", "aot_store",
-                  "check_workers", "compile_cache")
+# options of the JAX harness that change neither the trajectory nor the
+# verdict and have no counterpart here, accepted and not used: the
+# device profiler (not ported; ROADMAP A.6), the executable store and
+# the compilation cache (the port compiles nothing per run), and the
+# checker farm's worker count (the port checks serially)
+LIFECYCLE_OPTS = ("device_profile", "aot_store", "check_workers",
+                  "compile_cache")
 # JAX-harness options the port implements only at their neutral value
-NEUTRAL_OPTS = {"journal_instances": (0, None), "netid": (None, False),
-                "check_mode": ("farm", None)}
+NEUTRAL_OPTS = {"check_mode": ("farm", None)}
 # model-selection flags (models.get_model builds the model from them; the
 # harness holds the model to them) and the Elle checker's model names
 MODEL_OPTS = ("crash_clients", "txn_dirty_apply", "consistency_models")
@@ -136,13 +142,22 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
             f"time_limit {o['time_limit']}s at {mpt} ms/tick needs "
             f"{n_ticks} ticks, past the 2^20-tick delivery horizon; "
             f"raise ms_per_tick")
+    journal_instances = min(o["journal_instances"], o["n_instances"])
+    # the NETID pairing lane rides only when the run journals (or the
+    # caller forces the wide format); the journal decoder needs it
+    netid = o.get("netid")
+    netid = journal_instances > 0 if netid is None else bool(netid)
+    if journal_instances > 0 and not netid:
+        raise ValueError(
+            "journal_instances > 0 needs the wire format's NETID "
+            "pairing lane; drop netid=False or disable journaling")
     net = NetConfig(
         n_nodes=o["node_count"], n_clients=o["concurrency"],
         pool_slots=o["pool_slots"], inbox_k=o["inbox_k"],
         body_lanes=model.body_lanes,
         latency_mean=float(o["latency"]) / mpt,
         latency_dist=LATENCY_DISTS[o["latency_dist"]],
-        p_loss=float(o["p_loss"]))
+        p_loss=float(o["p_loss"]), netid=netid)
     model.validate_config(net)
     # final window: partitions stop at stop_tick, clients keep the main
     # mix through half the window, then switch to final reads
@@ -183,6 +198,7 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
                      n_instances=o["n_instances"], n_ticks=n_ticks,
                      record_instances=min(o["record_instances"],
                                           o["n_instances"]),
+                     journal_instances=journal_instances,
                      telemetry=telemetry, faults=faults)
 
 
@@ -287,21 +303,25 @@ def prepare_store_dir(name: str, store_root: str) -> str:
 
 
 def write_store(run_dir: str, results: Dict[str, Any], histories,
-                funnel: Optional[Dict[str, Any]] = None,
+                journal=None, funnel: Optional[Dict[str, Any]] = None,
                 fleet: Optional[Dict[str, Any]] = None) -> None:
-    """The JAX harness's store layout (``_write_store``), less the
-    journal's ``messages.svg``: ``fleet-metrics.json`` and the fleet
-    SVGs when telemetry ran; the perf plots and ``timeline.html`` from
-    the first recorded history; ``results.json``; ``history-<i>.jsonl``
-    and ``history-<i>.txt`` per recorded instance; and
-    ``funnel-history-<id>.jsonl`` per replayed instance, named by its
-    instance id in the fleet."""
+    """The JAX harness's store layout (``_write_store``):
+    ``fleet-metrics.json`` and the fleet SVGs when telemetry ran; the
+    Lamport diagram ``messages.svg`` when a journal was recorded; the
+    perf plots and ``timeline.html`` from the first recorded history;
+    ``results.json``; ``history-<i>.jsonl`` and ``history-<i>.txt`` per
+    recorded instance; and ``funnel-history-<id>.jsonl`` per replayed
+    instance, named by its instance id in the fleet. (The heartbeat,
+    ``heartbeat.jsonl``, is written during the run.)"""
     from .checkers.perf import plot_perf
     from .checkers.timeline import render_timeline
     from .gen.history import write_txt
     if fleet is not None:
         write_fleet_metrics(fleet, run_dir)
         write_fleet_svgs(fleet, run_dir)
+    if journal is not None:
+        from .net.viz import plot_lamport
+        plot_lamport(journal, os.path.join(run_dir, "messages.svg"))
     if histories:
         plot_perf(histories[0], run_dir)
         render_timeline(histories[0], os.path.join(run_dir,
@@ -351,11 +371,12 @@ def replay_instances(model: Model, opts: Dict[str, Any],
     dev = resolve_device(device or opts.get("device"))
     K = len(instance_ids)
     sim = make_sim_config(model, {**opts, "n_instances": K,
-                                  "record_instances": K})
+                                  "record_instances": K,
+                                  "journal_instances": 0})
     ids = torch.tensor(instance_ids, dtype=torch.int32, device=dev)
-    carry, events = run_sim(model, sim, int(opts["seed"]), dev, ids)
+    carry, ys = run_sim(model, sim, int(opts["seed"]), dev, ids)
     histories = LazyHistories(model, decode_dense(model,
-                                                  events.cpu().numpy()),
+                                                  ys.events.cpu().numpy()),
                               K, sim.client.final_start,
                               opts["ms_per_tick"])
     verdicts = check_histories(model, histories, opts)
@@ -370,13 +391,69 @@ def replay_instances(model: Model, opts: Dict[str, Any],
     }
 
 
+# options that, with the model, fix a run's trajectory: the heartbeat's
+# run-start record carries them, so triage and shrink can rebuild the
+# run's SimConfig and replay its instances (the JAX harness's list, less
+# the checkpoint stride, which the port has no option for)
+_REPRO_OPT_KEYS = (
+    "node_count", "concurrency", "rate", "time_limit", "latency",
+    "latency_dist", "p_loss", "nemesis", "nemesis_interval",
+    "nemesis_kind", "nemesis_schedule", "rpc_timeout", "recovery_time",
+    "n_instances", "record_instances", "journal_instances", "netid",
+    "pool_slots", "inbox_k", "ms_per_tick", "layout", "telemetry",
+    "telemetry_stride", "telemetry_hist_buckets", "chunk_ticks",
+    "event_capacity", "seed", "topology", "availability",
+    "consistency_models", "key_count", "pipeline", "fail_fast",
+    "scan_top_k", "funnel", "funnel_max", "check_workers", "check_mode",
+    "aot_store", "fault_plan", "fault_fuzz", "fault_snapshot_every",
+    "crash_clients", "txn_dirty_apply")
+
+
+def heartbeat_meta(model: Model, sim: SimConfig, opts: Dict[str, Any],
+                   fuzz_windows=None) -> Dict[str, Any]:
+    """The run-start record's payload: enough to label a ``watch``
+    report and to replay the run (``triage``, ``shrink``).
+    ``fuzz_windows`` is the fleet's ``fuzz.fleet_windows`` on a fuzz
+    run."""
+    repro = {}
+    for k in _REPRO_OPT_KEYS:
+        if k in opts:
+            try:
+                json.dumps(opts[k])
+            except (TypeError, ValueError):
+                continue
+            repro[k] = opts[k]
+    meta = {
+        "workload": model.name,
+        "instances": sim.n_instances,
+        "ticks": sim.n_ticks,
+        "record-instances": sim.record_instances,
+        "journal-instances": sim.journal_instances,
+        "wire-format": sim.net.wire_format,
+        "chunk-ticks": int(opts.get("chunk_ticks") or 100),
+        "layout": "lead",
+        "seed": int(opts.get("seed") or 0),
+        "opts": repro,
+        # scalar model knobs: the replay rebuilds the same automaton
+        "model-config": {k: v for k, v in vars(model).items()
+                         if isinstance(v, (bool, int, float, str))},
+    }
+    if sim.faults.active:
+        meta["faults"] = plan_summary(sim.faults)
+    if fuzz_windows is not None:
+        meta["fault-fuzz"] = faults_fuzz.fleet_coverage(fuzz_windows)
+    return meta
+
+
 def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                    device: Optional[str] = None) -> Dict[str, Any]:
     """Configure, run, decode, check — one run of the fleet.
 
     ``device`` (or ``opts["device"]``) defaults to ``cuda``. The results
     carry the JAX harness's keys in its order, and the port's
-    ``device``, ``perf.ticks-per-sec``, ``faults`` and ``fault-fuzz``."""
+    ``device``, ``perf.ticks-per-sec``, ``faults`` and ``fault-fuzz``.
+    A run with a store streams ``heartbeat.jsonl`` into its directory
+    from the first chunk on (``heartbeat=False`` turns it off)."""
     opts = {**TORCH_DEFAULTS, **(opts or {})}
     dev = resolve_device(device or opts.get("device"))
     sim = make_sim_config(model, opts)
@@ -390,27 +467,51 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
         print("note: fail_fast has no effect on the single-loop executor "
               "(one dispatch for the whole horizon); use pipeline='on' or "
               "a multi-chunk horizon", file=sys.stderr)
+    # the fleet's drawn fault windows, re-drawn once on the host for the
+    # heartbeat and the results' schedule-space coverage
+    fuzz_windows = (faults_fuzz.fleet_windows(
+        sim.faults, sim.net.n_nodes, int(opts["seed"]),
+        np.arange(sim.n_instances, dtype=np.int32))
+        if sim.faults.has_fuzz else None)
+    hb = None
+    if run_dir and opts.get("heartbeat", True):
+        from .telemetry.stream import HeartbeatWriter
+        hb = HeartbeatWriter(run_dir, dict(
+            heartbeat_meta(model, sim, opts, fuzz_windows),
+            pipeline=bool(use_pipe)))
     t0 = time.monotonic()
-    if use_pipe:
-        from .pipeline import run_sim_pipelined
-        pipe_res = run_sim_pipelined(
-            model, sim, int(opts["seed"]), dev,
-            chunk=int(opts.get("chunk_ticks") or 100),
-            event_cap=int(opts.get("event_capacity") or 0) or None,
-            scan_k=int(opts.get("scan_top_k") or 1),
-            fail_fast=bool(opts.get("fail_fast")))
-        carry = pipe_res.carry
-        phases["pipeline"] = pipe_res.perf
-        rows = [r[:min(n, r.shape[0])] for r, n in pipe_res.compact]
-        allrows = (np.concatenate(rows, axis=0) if rows
-                   else np.zeros((0, 3 + model.ev_vals), np.int32))
-        decode = lambda: decode_compact_rows(model, C, R, allrows)
-    else:
-        carry, events = run_sim(model, sim, int(opts["seed"]), dev)
-        events = (events.cpu().numpy() if events is not None
-                  else np.zeros((sim.n_ticks, 0, C, 2, 2 + model.ev_vals),
-                                np.int32))
-        decode = lambda: decode_dense(model, events)
+    try:
+        if use_pipe:
+            from .pipeline import run_sim_pipelined
+            pipe_res = run_sim_pipelined(
+                model, sim, int(opts["seed"]), dev,
+                chunk=int(opts.get("chunk_ticks") or 100),
+                event_cap=int(opts.get("event_capacity") or 0) or None,
+                scan_k=int(opts.get("scan_top_k") or 1),
+                fail_fast=bool(opts.get("fail_fast")), heartbeat=hb,
+                fuzz_windows=fuzz_windows)
+            carry = pipe_res.carry
+            journal_sends = pipe_res.journal_sends
+            journal_recvs = pipe_res.journal_recvs
+            phases["pipeline"] = pipe_res.perf
+            rows = [r[:min(n, r.shape[0])] for r, n in pipe_res.compact]
+            allrows = (np.concatenate(rows, axis=0) if rows
+                       else np.zeros((0, 3 + model.ev_vals), np.int32))
+            decode = lambda: decode_compact_rows(model, C, R, allrows)
+        else:
+            carry, ys = run_sim(model, sim, int(opts["seed"]), dev)
+            events = (ys.events.cpu().numpy() if ys.events is not None
+                      else np.zeros((sim.n_ticks, 0, C, 2,
+                                     2 + model.ev_vals), np.int32))
+            journal_sends, journal_recvs = (
+                None if x is None else x.cpu().numpy()
+                for x in (ys.journal_sends, ys.journal_recvs))
+            decode = lambda: decode_dense(model, events)
+    except BaseException:
+        if hb is not None:
+            # no run-end record: the heartbeat's prefix marks a dead run
+            hb.close()
+        raise
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_dec = time.monotonic()
@@ -427,7 +528,8 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
 
     t_chk = time.monotonic()
     per_instance = check_histories(model, histories, opts)
-    phases["check-s"] = round(time.monotonic() - t_chk, 4)
+    check_s = time.monotonic() - t_chk
+    phases["check-s"] = round(check_s, 4)
     availability = None
     if opts.get("availability") is not None:
         availability = availability_checker(
@@ -509,17 +611,48 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
         phases["funnel-s"] = round(time.monotonic() - t_fun, 4)
     if sim.faults.active:
         results["faults"] = plan_summary(sim.faults)
-    if sim.faults.has_fuzz:
-        # schedule-space coverage: a CPU re-draw of the fleet's windows
-        results["fault-fuzz"] = faults_fuzz.fleet_coverage(
-            faults_fuzz.fleet_windows(sim.faults, sim.net.n_nodes,
-                                      int(opts["seed"]),
-                                      np.arange(sim.n_instances)))
+    if fuzz_windows is not None:
+        results["fault-fuzz"] = faults_fuzz.fleet_coverage(fuzz_windows)
+    journal = None
+    if sim.journal_instances > 0:
+        from .checkers.net_stats import net_stats_checker
+        from .journal import TpuJournal
+        journal = TpuJournal(model, sim.net, journal_sends, journal_recvs,
+                             instance=0, ms_per_tick=opts["ms_per_tick"])
+        # instance 0's own drop counters, as fleet-metrics.json has them
+        drops = None
+        if carry.telemetry is not None:
+            tel = carry.telemetry
+            drops = {"dropped-partition": int(tel.dropped_partition[0]),
+                     "dropped-loss": int(tel.dropped_loss[0]),
+                     "dropped-overflow": int(tel.dropped_overflow[0])}
+        ns = net_stats_checker(journal, histories[0] if histories else [],
+                               drops=drops)
+        results["net"]["journal"] = {
+            "stats": ns["stats"],
+            "msgs-per-op": ns["msgs-per-op"],
+            **({"drops": ns["drops"]} if drops is not None else {}),
+            "instance": 0,
+        }
     if run_dir is not None:
         t_st = time.monotonic()
-        write_store(run_dir, results, histories, funnel=funnel,
-                    fleet=fleet)
+        write_store(run_dir, results, histories, journal=journal,
+                    funnel=funnel, fleet=fleet)
         # in the returned results only: results.json is written within
         phases["store-s"] = round(time.monotonic() - t_st, 4)
         results["store-dir"] = run_dir
+    if hb is not None:
+        hb.finish(
+            status="stopped" if results.get("fail-fast") else "complete",
+            **{"valid?": results["valid?"],
+               "violating-instances": n_violating,
+               # the JAX verdict stage's record; the port checks serially
+               "check": {"mode": "serial", "workers": 0, "instances": R,
+                         "farm-instances": len(per_instance),
+                         "decode-s": phases["decode-s"],
+                         "check-s": phases["check-s"],
+                         "verdicts-per-s": (round(len(per_instance)
+                                                  / check_s, 1)
+                                            if check_s > 0 else None)},
+               **({"store-dir": run_dir} if run_dir else {})})
     return results

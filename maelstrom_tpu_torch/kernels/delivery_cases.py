@@ -27,7 +27,11 @@ INT32_MAX = 2**31 - 1
 # broadcast fleet (S=256, K=8, NT=50, L=10: the 4-byte path), the
 # txn-list-append fleet (L=66: the 4-byte path at an odd row stride) and
 # the kafka fleet (NT=7, L=32: the 16-byte path) (timed), and the
-# txn-rw-register fleet (L=26, checked only)
+# txn-rw-register fleet (L=26, checked only). A journaling run's rows
+# carry the trailing NETID lane, one lane past the body (``wire.lanes(
+# body, netid=True)``); the kernel knows no lanes but L, so its NETID
+# shapes are written with one more body lane: the journaled bug hunt
+# (L = 21, the 4-byte path; timed)
 SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
           "flagship": (3, 6, 16, 1, 12, 4096),
           "defaults": (3, 6, 128, 8, 12, 4096),
@@ -35,12 +39,16 @@ SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
           "txn-list-append": (3, 6, 16, 1, 58, 4096),
           "kafka": (1, 6, 16, 1, 24, 4096),
           "txn-rw-register": (3, 6, 16, 1, 18, 4096),
-          "bug-hunt": (3, 3, 128, 8, 12, 4096)}
+          "bug-hunt": (3, 3, 128, 8, 12, 4096),
+          "bug-hunt-netid": (3, 3, 128, 8, 13, 4096)}
 TIMED = ("flagship", "defaults", "broadcast-25", "txn-list-append",
-         "kafka", "bug-hunt")
+         "kafka", "bug-hunt", "bug-hunt-netid")
 # edge-case pools go through the kernel at small I: the shapes above, an
 # S that is no power of two, where wrapped priorities can tie, and the
-# tutorial workloads' rows on the 4-byte path (L = 9, 10, 14)
+# tutorial workloads' rows on the 4-byte path (L = 9, 10, 14), and the
+# NETID rows of the flagship (L = 21) and of kafka (L = 33: off the
+# 16-byte path), and the shape of the forget-snapshot fuzz run that
+# chip_smoke.py's phase 10 shrinks (S = 24, K = 2, NT = 7)
 EDGE_SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
                "flagship": (3, 6, 16, 1, 12, 64),
                "defaults": (3, 6, 128, 8, 12, 64),
@@ -52,7 +60,11 @@ EDGE_SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
                "txn-list-append": (3, 6, 16, 1, 58, 64),
                "kafka": (1, 6, 16, 1, 24, 64),
                "txn-rw-register": (3, 6, 16, 1, 18, 64),
-               "bug-hunt": (3, 3, 128, 8, 12, 64)}
+               "bug-hunt": (3, 3, 128, 8, 12, 64),
+               "flagship-netid": (3, 6, 16, 1, 13, 64),
+               "kafka-netid": (1, 6, 16, 1, 25, 64),
+               "bug-hunt-netid": (3, 3, 128, 8, 13, 64),
+               "fuzz-shrink": (3, 4, 24, 2, 12, 64)}
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12

@@ -96,8 +96,8 @@ class _GossipModel(Model):
         return wire.make_msg(
             src=0, dest=dest, type_=_sel(is_add, T_ADD, T_READ),
             msg_id=msg_id, body=(_sel(is_add, op[..., 1], 0),),
-            body_lanes=self.body_lanes, batch_shape=op.shape[:-1],
-            device=op.device)
+            body_lanes=self.body_lanes, netid=cfg.netid,
+            batch_shape=op.shape[:-1], device=op.device)
 
 
 class GossipSetModel(_GossipModel):

@@ -242,7 +242,7 @@ class KafkaModel(Model):
                         sel(f == F_COMMIT, T_COMMIT, tail)))
         return wire.make_msg(src=0, dest=0, type_=mtype, msg_id=msg_id,
                              body=(op[..., 1], op[..., 2]),
-                             body_lanes=self.body_lanes,
+                             body_lanes=self.body_lanes, netid=cfg.netid,
                              batch_shape=op.shape[:-1], device=op.device)
 
     def decode_reply_wide(self, op, msg, cfg, params=None):

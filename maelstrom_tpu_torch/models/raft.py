@@ -82,6 +82,9 @@ class RaftModel(Model):
         self.elect_jitter = elect_jitter
         self.heartbeat = heartbeat
         self.apply_max = apply_max
+        # rows the fused tick emits: N-1 peer sends + apply_max replies
+        # (a knob of the JAX model, recorded in the heartbeat's header)
+        self.tick_out = (n_nodes_hint - 1) + apply_max
 
     def init_state(self, n_nodes: int, keys: torch.Tensor) -> RaftRow:
         """Rows for node keys ``[I, N, 2]``; leaves ``[I, N, ...]``."""
@@ -267,7 +270,7 @@ class RaftModel(Model):
                     sel(op[..., 0] == F_WRITE, T_WRITE, T_CAS))
         return wire.make_msg(src=0, dest=dest, type_=mtype, msg_id=msg_id,
                              body=(op[..., 1], op[..., 2], op[..., 3]),
-                             body_lanes=self.body_lanes,
+                             body_lanes=self.body_lanes, netid=cfg.netid,
                              batch_shape=op.shape[:-1], device=op.device)
 
     def decode_reply(self, op, msg, cfg, params=None):

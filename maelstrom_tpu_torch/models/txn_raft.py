@@ -124,7 +124,7 @@ class _TxnRaftBase(RaftModel):
                        params=None):
         dest = rng.randint(keys, (), 0, cfg.n_nodes)
         m = wire.make_msg(src=0, dest=dest, type_=T_TXN, msg_id=msg_id,
-                          body_lanes=self.body_lanes,
+                          body_lanes=self.body_lanes, netid=cfg.netid,
                           batch_shape=op.shape[:-1], device=op.device)
         m[..., wire.BODY:wire.BODY + op.shape[-1]] = op
         return m

@@ -52,6 +52,7 @@ class UniqueIdsModel(Model):
         dest = rng.randint(keys, (), 0, cfg.n_nodes)
         return wire.make_msg(src=0, dest=dest, type_=TYPE_GEN,
                              msg_id=msg_id, body_lanes=self.body_lanes,
+                             netid=cfg.netid,
                              batch_shape=op.shape[:-1], device=op.device)
 
     def decode_reply(self, op, msg, cfg, params=None):

@@ -46,6 +46,8 @@ class NetConfig(NamedTuple):
     latency_mean: float     # mean latency in ticks
     latency_dist: int       # LATENCY_* enum
     p_loss: float
+    netid: bool = False     # rows carry the trailing NETID lane (runs
+                            # that record per-message journals)
 
     @property
     def n_total(self) -> int:
@@ -53,7 +55,16 @@ class NetConfig(NamedTuple):
 
     @property
     def lanes(self) -> int:
-        return wire.lanes(self.body_lanes)
+        return wire.lanes(self.body_lanes, self.netid)
+
+    @property
+    def netid_lane(self) -> int:
+        """Index of the trailing NETID lane (netid formats only)."""
+        return wire.netid_lane(self.lanes)
+
+    @property
+    def wire_format(self) -> dict:
+        return wire.format_desc(self.body_lanes, self.netid)
 
 
 class NetStats(NamedTuple):

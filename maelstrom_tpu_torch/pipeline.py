@@ -4,9 +4,12 @@ Counterpart of ``maelstrom_tpu/tpu/pipeline.py``: the horizon runs in
 ``chunk``-tick pieces; per tick the recorded instances' dense events
 ``[R, C, 2, 2 + V]`` are folded into a fixed-capacity compacted buffer
 of ``(tick, loc, etype, vals...)`` rows on the device, and only that
-buffer crosses to the host once per chunk. Chunk *k*'s buffer is
-fetched after chunk *k + 1*'s ticks were issued, so the copy overlaps
-device work. Overflow (more events than the capacity) is counted, never
+buffer crosses to the host once per chunk, with the journaled
+instances' rows, the violation scan and, for the heartbeat, the
+fleet's NetStats. Chunk
+*k*'s copy is read after chunk *k + 1*'s ticks were issued, so the copy
+overlaps device work; the heartbeat's record of chunk *k* is written
+then. Overflow (more events than the capacity) is counted, never
 silent. Trajectories equal the unchunked loop's: compaction only reads
 the tick's events.
 
@@ -22,8 +25,12 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .faults import fuzz as faults_fuzz
+from .faults.engine import span_summary
 from .runtime import (Carry, EV_NONE, Model, SimConfig, default_instance_ids,
                       init_carry, make_tick_fn)
+from .telemetry.stream import (scan_to_violation, scan_to_violations,
+                               stats_vec_to_net)
 
 DEFAULT_SCAN_TOP_K = 8
 
@@ -117,11 +124,22 @@ def finish_fetch(fetch) -> Tuple[torch.Tensor, ...]:
 
 def expand_compact_events(model: Model, sim: SimConfig,
                           chunks: List[Tuple[np.ndarray, int]],
-                          n_ticks: Optional[int] = None) -> np.ndarray:
+                          n_ticks: Optional[int] = None,
+                          instances: Optional[List[int]] = None
+                          ) -> np.ndarray:
     """Rebuild the dense ``[T, R, C, 2, 2 + ev_vals]`` events from compact
-    chunks (the msg-id lane comes back zero: the decoder never reads it)."""
+    chunks (the msg-id lane comes back zero: the decoder never reads it).
+    ``instances`` selects recorded instances by record index, in the
+    order given: only their rows are expanded, into ``[T,
+    len(instances), C, 2, 2 + ev_vals]``."""
     T = sim.n_ticks if n_ticks is None else n_ticks
     R, C, V = sim.record_instances, sim.client.n_clients, model.ev_vals
+    remap = None
+    if instances is not None:
+        remap = np.full((R,), -1, dtype=np.int64)
+        for pos, r_idx in enumerate(instances):
+            remap[int(r_idx)] = pos
+        R = len(instances)
     dense = np.zeros((T, R, C, 2, 2 + V), dtype=np.int32)
     for rows, count in chunks:
         n = min(int(count), rows.shape[0])
@@ -129,6 +147,9 @@ def expand_compact_events(model: Model, sim: SimConfig,
             continue
         used = rows[:n]
         r, rem = np.divmod(used[:, 1], C * 2)
+        if remap is not None:
+            r = remap[r]
+            used, rem, r = used[r >= 0], rem[r >= 0], r[r >= 0]
         c, slot = np.divmod(rem, 2)
         dense[used[:, 0], r, c, slot, 0] = used[:, 2]
         dense[used[:, 0], r, c, slot, 1:1 + V] = used[:, 3:3 + V]
@@ -166,28 +187,38 @@ class PipelineResult(NamedTuple):
     perf: Dict[str, Any]
     scan: Optional[np.ndarray] = None        # last consumed chunk's
                                              # violation scan [k, 3]
+    journal_sends: Optional[np.ndarray] = None   # [T, J, M, L]
+    journal_recvs: Optional[np.ndarray] = None   # [T, J, NT, K, L]
 
 
 def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                       instance_ids: Optional[torch.Tensor] = None,
                       chunk: int = 100, event_cap: Optional[int] = None,
                       scan_k: int = DEFAULT_SCAN_TOP_K,
-                      fail_fast: bool = False) -> PipelineResult:
+                      fail_fast: bool = False,
+                      heartbeat=None, fuzz_windows=None) -> PipelineResult:
     """Run the horizon chunk by chunk; returns the final carry, each
-    chunk's compacted event rows, executor stats and the violation scan
-    of the last consumed chunk.
+    chunk's compacted event rows, executor stats, the violation scan
+    of the last consumed chunk and the journaled instances' sent rows
+    and inboxes over the ticks run (None unless
+    ``sim.journal_instances``).
 
     At each chunk's end the violation scan ``[scan_k, 3]`` is computed
-    on the device and copied with the chunk's events. Chunk *k*'s copy
-    is consumed after chunk *k + 1* was issued. ``fail_fast`` stops
-    issuing chunks once a consumed scan shows a tripped invariant: the
-    chunk already in flight still runs and is consumed, so at most one
-    chunk runs past the one that tripped (the JAX executor's
-    ``run_chunked`` contract); ``perf`` then has ``stopped-early`` and
-    ``ticks-dispatched`` counts the ticks actually run."""
+    on the device and copied with the chunk's events and journal, and
+    with the fleet's NetStats when a heartbeat reads them. Chunk *k*'s copy is consumed after
+    chunk *k + 1* was issued. ``fail_fast`` stops issuing chunks once
+    a consumed scan shows a tripped invariant: the chunk already in
+    flight still runs and is consumed, so at most one chunk runs past
+    the one that tripped (the JAX executor's ``run_chunked`` contract);
+    ``perf`` then has ``stopped-early`` and ``ticks-dispatched`` counts
+    the ticks actually run. ``heartbeat`` (a
+    :class:`.telemetry.stream.HeartbeatWriter`) gets one record per
+    consumed chunk; it only reads what the chunk copied, and on a fuzz
+    run the fleet's drawn windows ``fuzz_windows``
+    (``fuzz.fleet_windows``) for its span counters."""
     if instance_ids is None:
         instance_ids = default_instance_ids(sim, device)
-    R, V = sim.record_instances, model.ev_vals
+    R, J, V = sim.record_instances, sim.journal_instances, model.ev_vals
     plans = plan_chunks(sim.n_ticks, chunk)
     cap = int(event_cap) if event_cap else event_capacity(
         sim, model, plans[0][1])
@@ -197,22 +228,36 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     init_s = time.monotonic() - t_init
 
     compact: List[Tuple[np.ndarray, int]] = []
+    journal: List[Tuple[np.ndarray, np.ndarray]] = []
     stats = {"overflowed-chunks": 0, "fetch-s": 0.0, "issue-s": 0.0,
              "chunk-issue-s": []}
     last_scan: List[Optional[np.ndarray]] = [None]
 
-    def consume(fetch):
+    def consume(fetch, k: int, t0: int, length: int):
         t_f = time.monotonic()
-        host = finish_fetch(fetch)
+        host = list(finish_fetch(fetch))
+        ovf = False
         if R > 0:
-            rows, count, scan = host
-            rows = rows[:-1].numpy()
-            n = int(count)
-            stats["overflowed-chunks"] += int(n > rows.shape[0])
-            compact.append((rows, n))
-        else:
-            (scan,) = host
-        last_scan[0] = scan.numpy()
+            rows, count = host.pop(0)[:-1].numpy(), int(host.pop(0))
+            ovf = count > rows.shape[0]
+            stats["overflowed-chunks"] += int(ovf)
+            compact.append((rows, count))
+        if J > 0:
+            journal.append((host.pop(0).numpy(), host.pop(0).numpy()))
+        last_scan[0] = host.pop().numpy()
+        if heartbeat is not None:
+            extra = None
+            if fuzz_windows is not None:
+                extra = {"fault-fuzz": faults_fuzz.span_counters(
+                    fuzz_windows, t0, length)}
+            elif sim.faults.active:
+                extra = {"fault": span_summary(sim.faults, t0, length)}
+            heartbeat.record_chunk(
+                chunk=k, t0=t0, ticks=length,
+                net=stats_vec_to_net(host.pop().numpy()),
+                violation=scan_to_violation(last_scan[0]),
+                violations=scan_to_violations(last_scan[0]),
+                overflowed=ovf, extra=extra)
         stats["fetch-s"] += time.monotonic() - t_f
         return int(last_scan[0][0, 0]) > 0
 
@@ -223,26 +268,34 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
         for t0, length in plans:
             t_i = time.monotonic()
             buf = new_buffer(cap, V, device) if R > 0 else None
+            sends, recvs = [], []
             for t in range(t0, t0 + length):
-                carry, events = tick(carry, t)
+                carry, ys = tick(carry, t)
                 if buf is not None:
-                    buf = compact_tick(buf, t, events, V)
+                    buf = compact_tick(buf, t, ys.events, V)
+                if J > 0:
+                    sends.append(ys.journal_sends)
+                    recvs.append(ys.journal_recvs)
             scan = violation_scan(carry.violations, carry.telemetry,
                                   instance_ids, k=scan_k)
-            fetch = start_fetch(*((buf.rows, buf.count, scan)
-                                  if buf is not None else (scan,)))
-            chunks += 1
+            out = ((buf.rows, buf.count) if buf is not None else ()) + (
+                (torch.stack(sends), torch.stack(recvs)) if J > 0 else ())
+            if heartbeat is not None:
+                out += (torch.stack(list(carry.stats)),)
+            fetch = start_fetch(*out, scan)
             ticks_dispatched = t0 + length
             dt = time.monotonic() - t_i
             stats["chunk-issue-s"].append(round(dt, 4))
             stats["issue-s"] += dt
             # chunk k's copy is read once chunk k+1 is queued behind it
-            tripped = consume(pending) if pending is not None else False
-            pending = fetch
+            tripped = (consume(*pending) if pending is not None
+                       else False)
+            pending = (fetch, chunks, t0, length)
+            chunks += 1
             if fail_fast and tripped:
                 stopped = True
                 break
-        consume(pending)
+        consume(*pending)
     perf = {"chunks": chunks, "chunk-ticks": plans[0][1],
             "event-capacity": cap, "init-s": round(init_s, 4),
             "issue-s": round(stats["issue-s"], 4),
@@ -252,5 +305,10 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
             "ticks-dispatched": ticks_dispatched}
     if stopped:
         perf["stopped-early"] = True
+    j_sends = j_recvs = None
+    if J > 0:
+        j_sends = np.concatenate([a for a, _ in journal], axis=0)
+        j_recvs = np.concatenate([b for _, b in journal], axis=0)
     return PipelineResult(carry=carry, compact=compact, perf=perf,
-                          scan=last_scan[0])
+                          scan=last_scan[0], journal_sends=j_sends,
+                          journal_recvs=j_recvs)

@@ -479,9 +479,20 @@ class SimConfig(NamedTuple):
     n_instances: int
     n_ticks: int
     record_instances: int
+    journal_instances: int = 0   # instances whose sent rows and inboxes
+                                 # the tick returns (the per-message
+                                 # journal); needs the NETID lane
     telemetry: TelemetryConfig = TelemetryConfig()
     faults: FaultConfig = FaultConfig()   # the fault plan or fuzz
                                           # distribution (faults/)
+
+
+class TickOutputs(NamedTuple):
+    """What a tick returns besides the carry; a field is None when its
+    instance count is zero."""
+    events: Optional[torch.Tensor]         # [R, C, 2, 2 + ev_vals]
+    journal_sends: Optional[torch.Tensor]  # [J, M, L] rows sent
+    journal_recvs: Optional[torch.Tensor]  # [J, NT, K, L] delivered
 
 
 class Carry(NamedTuple):
@@ -602,10 +613,11 @@ def _update_telemetry(tel, sim: SimConfig, t: int, events, invoked_prev,
 def make_tick_fn(model: Model, sim: SimConfig,
                  instance_ids: Optional[torch.Tensor] = None,
                  device=None) -> Callable:
-    """The lead-layout tick: ``tick_fn(carry, t) -> (carry', events)``
-    with the recorded instances' events ``[R, C, 2, 2 + ev_vals]`` (None
-    when nothing is recorded). The model's static params are built
-    here, once for the run."""
+    """The lead-layout tick: ``tick_fn(carry, t) -> (carry', outputs)``
+    with :class:`TickOutputs`: the recorded instances' events ``[R, C,
+    2, 2 + ev_vals]`` and the journaled instances' sent rows and
+    inboxes. The model's static params are built here, once for the
+    run."""
     params = model.make_params(sim.net.n_nodes, device)
     cfg = sim.net
     ccfg = sim.client
@@ -689,6 +701,11 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 per_node = node_outs.view(I, N, -1, L)
                 per_node[..., wire.VALID] *= sends.to(_I32)[:, :, None]
             outs = torch.cat([node_outs, reqs], dim=1)
+            if cfg.netid:
+                # network-unique message ids, allocated at send time
+                M = outs.shape[1]
+                outs[:, :, cfg.netid_lane] = (
+                    t * M + torch.arange(M, dtype=_I32, device=outs.device))
             pool, n_sent, n_lost, n_ovf = netsim.enqueue(
                 pool, outs, t, enq_keys, cfg, edge_delay=planes.delay,
                 edge_loss_pm=planes.loss_pm)
@@ -724,22 +741,28 @@ def make_tick_fn(model: Model, sim: SimConfig,
                           violations=carry.violations + violated.to(_I32),
                           key=key, telemetry=tel, snapshots=snapshots,
                           fault_sched=carry.fault_sched)
-        R = sim.record_instances
-        return new_carry, (events[:R] if R > 0 else None)
+        R, J = sim.record_instances, sim.journal_instances
+        # copies: a view would hold the whole fleet's rows until the
+        # chunk's journal is stacked
+        return new_carry, TickOutputs(
+            events=events[:R] if R > 0 else None,
+            journal_sends=outs[:J].clone() if J > 0 else None,
+            journal_recvs=inbox[:J].clone() if J > 0 else None)
 
     return tick_fn
 
 
 def run_sim(model: Model, sim: SimConfig, seed: int, device=None,
             instance_ids: Optional[torch.Tensor] = None
-            ) -> Tuple[Carry, Optional[torch.Tensor]]:
-    """Run the whole horizon in one loop; returns (final carry, events
-    stacked on a leading tick axis, or None)."""
+            ) -> Tuple[Carry, TickOutputs]:
+    """Run the whole horizon in one loop; returns the final carry and
+    :class:`TickOutputs` stacked on a leading tick axis."""
     carry = init_carry(model, sim, seed, device, instance_ids)
     tick_fn = make_tick_fn(model, sim, instance_ids, device)
-    events = []
+    ys = []
     with torch.no_grad():
         for t in range(sim.n_ticks):
-            carry, ev = tick_fn(carry, t)
-            events.append(ev)
-    return carry, (None if events[0] is None else torch.stack(events))
+            carry, y = tick_fn(carry, t)
+            ys.append(y)
+    return carry, TickOutputs(*(
+        None if xs[0] is None else torch.stack(xs) for xs in zip(*ys)))

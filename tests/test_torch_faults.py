@@ -32,6 +32,9 @@ from maelstrom_tpu_torch import convert, faults, harness, runtime
 from maelstrom_tpu_torch.faults import engine
 from maelstrom_tpu_torch.models.raft import RaftModel
 
+from torch_tutorial_cases import one_thread_env
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
+
 # 16 instances x 200 ticks; partitions in [50, 100), [150, 200)
 OPTS = dict(node_count=3, concurrency=6, n_instances=16, record_instances=2,
             time_limit=0.2, rate=200.0, latency=5.0, rpc_timeout=1.0,
@@ -110,9 +113,9 @@ def assert_port_matches(opts, jax_run):
     with torch.no_grad():
         for t in range(-1, sim.n_ticks):
             if t >= 0:
-                carry, events = tick(carry, t)
+                carry, out = tick(carry, t)
                 np.testing.assert_array_equal(
-                    jevents[t], events.numpy(), err_msg=f"events at {t}")
+                    jevents[t], out.events.numpy(), err_msg=f"events at {t}")
             ref = jcarries[t + 1]
             got = _leaves(convert.carry_to_numpy(carry))
             assert set(got) <= set(ref), set(got) - set(ref)
@@ -271,7 +274,8 @@ def test_all_healthy_plan_equals_bare_run():
             (bare, ev0), (neutral, ev1) = (
                 tick(c, t) for tick, c in zip(ticks, carries))
             carries = [bare, neutral]
-            np.testing.assert_array_equal(ev0.numpy(), ev1.numpy())
+            np.testing.assert_array_equal(ev0.events.numpy(),
+                                          ev1.events.numpy())
             b = _leaves(convert.carry_to_numpy(bare))
             n = _leaves(convert.carry_to_numpy(neutral))
             assert set(n) - set(b) == {f"carry.snapshots.{k}"
@@ -319,8 +323,8 @@ def test_harness_under_plan_matches_jax(tmp_path):
     (dict(layout="minor"), "layout"),
     (dict(checkpoint_every=2), "checkpoint_every"),
     (dict(check_mode="device"), "check_mode"),
-    (dict(journal_instances=2), "journal_instances"),
-    (dict(netid=True), "netid"),
+    (dict(profile_dir="profile"), "profile_dir"),
+    (dict(run_tag="item0"), "run_tag"),
     (dict(nemesis=["partition", "bridge"]), "bridge"),
     (dict(nemesis_kind="ring"), "ring"),
 ])
@@ -376,7 +380,7 @@ def test_cli_fault_flags_on_cpu(tmp_path):
            "--inbox-k", "1", "--pool-slots", "16",
            "--store", str(tmp_path), "--device", "cpu"]
     out = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=one_thread_env())
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout)
     assert res["valid?"] is True

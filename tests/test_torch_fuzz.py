@@ -30,6 +30,8 @@ from maelstrom_tpu_torch import convert, harness, pipeline, rng, runtime
 from maelstrom_tpu_torch.faults import SpecError, fuzz
 from maelstrom_tpu_torch.models.raft import RaftModel
 
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
+
 # the JAX fuzz tests' distributions (tests/test_fault_fuzz.py and
 # tests/test_membership.py) and the benchmark's
 ACTIVE_DIST = {"windows": [2, 2], "gap": [40, 120], "duration": [30, 80],
@@ -302,13 +304,13 @@ def test_pipelined_run_equals_unpipelined_under_faults():
                                               fault_fuzz=FOUR_LANE_DIST))
     res = pipeline.run_sim_pipelined(model, sim, 7, "cpu", chunk=50,
                                      event_cap=512)
-    carry, events = runtime.run_sim(model, sim, 7, "cpu")
+    carry, ys = runtime.run_sim(model, sim, 7, "cpu")
     assert res.perf["chunks"] == 4 and res.perf["overflowed-chunks"] == 0
     a, b = _port_leaves(res.carry), _port_leaves(carry)
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    dense = events.numpy()
+    dense = ys.events.numpy()
     dense[..., -1] = 0                # the msg-id lane is not carried
     dense[dense[..., 0] == 0] = 0     # nor the lanes of empty events
     np.testing.assert_array_equal(

@@ -28,6 +28,7 @@ from maelstrom_tpu_torch import harness
 from torch_txn_cases import (JAX_RUN, KAFKA_CASES,
                              carry_matches_jax_every_tick, client_step_pair,
                              models)
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", list(KAFKA_CASES))

@@ -15,6 +15,8 @@ from maelstrom_tpu.tpu.netsim import NetConfig as JNetConfig
 from maelstrom_tpu_torch import netsim, wire
 from maelstrom_tpu_torch.kernels import delivery, delivery_cases
 
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
+
 # (n_nodes, n_clients, S, K, body_lanes, I): the Pallas test shape, the
 # flagship lin-kv shape, the widest defaults (S=128, K=8), the txn
 # and kafka fleets' rows (L = 66, 26, and 32 with NT = 7), and the lin-kv

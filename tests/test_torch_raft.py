@@ -20,6 +20,8 @@ from maelstrom_tpu_torch import convert, runtime
 from maelstrom_tpu_torch import harness as tharness
 from maelstrom_tpu_torch.models.raft import RaftModel, RaftRow
 
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
+
 # partitions at ticks [100, 200), final heal at 250, final reads at 275
 OPTS = dict(node_count=3, concurrency=6, n_instances=64, record_instances=4,
             time_limit=0.3, rate=200.0, latency=5.0, rpc_timeout=1.0,
@@ -97,9 +99,9 @@ def test_carry_matches_jax_every_tick(jax_run):
     saw_partition = saw_commit = False
     with torch.no_grad():
         for t in range(sim.n_ticks):
-            carry, events = tick(carry, t)
+            carry, out = tick(carry, t)
             assert_carry_equal(jcarries[t + 1], carry, f"after tick {t}")
-            np.testing.assert_array_equal(jevents[t], events.numpy(),
+            np.testing.assert_array_equal(jevents[t], out.events.numpy(),
                                           err_msg=f"events at tick {t}")
             saw_partition |= bool(carry.stats.dropped_partition > 0)
             saw_commit |= bool((carry.node_state.commit_idx > 0).any())

@@ -14,6 +14,8 @@ import torch
 from maelstrom_tpu.tpu import runtime as jruntime
 from maelstrom_tpu_torch import rng, runtime
 
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
+
 SEEDS = [0, 7, 12345, 2**31 - 1, -1]
 
 

@@ -17,6 +17,9 @@ from maelstrom_tpu.tpu.harness import run_tpu_test
 from maelstrom_tpu_torch import harness, pipeline, runtime
 from maelstrom_tpu_torch.models.raft import RaftModel
 
+from torch_tutorial_cases import one_thread_env
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
+
 OPTS = dict(node_count=3, concurrency=6, n_instances=32, record_instances=3,
             time_limit=0.3, rate=200.0, latency=5.0, rpc_timeout=1.0,
             nemesis=["partition"], nemesis_interval=0.1, p_loss=0.05,
@@ -86,8 +89,8 @@ def test_compacted_events_expand_to_dense():
                                               time_limit=0.2))
     res = pipeline.run_sim_pipelined(model, sim, 3, "cpu", chunk=50,
                                      event_cap=64)
-    carry, events = runtime.run_sim(model, sim, 3, "cpu")
-    dense = events.numpy()
+    carry, ys = runtime.run_sim(model, sim, 3, "cpu")
+    dense = ys.events.numpy()
     dense[..., -1] = 0                # the msg-id lane is not carried
     dense[dense[..., 0] == 0] = 0     # nor the lanes of empty events
     assert res.perf["chunks"] == 4 and res.perf["overflowed-chunks"] == 0
@@ -111,12 +114,13 @@ def test_chip_smoke_without_card(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = os.path.join(repo, "chip_smoke.py")
     out = subprocess.run([sys.executable, script], cwd=tmp_path,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=one_thread_env())
     assert out.returncode != 0 and '"ok"' not in out.stdout
     out = subprocess.run([sys.executable, script, "--rehearse-on-cpu",
                           "--time-limit", "0.2"],
                          cwd=repo, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=one_thread_env())
     assert out.returncode == 2, out.stderr[-2000:]
     assert "bit-equal to deliver_reference" in out.stdout
     assert "for 200 ticks: valid?=True" in out.stdout
@@ -133,7 +137,7 @@ def test_cli_runs_on_cpu(tmp_path):
            "--inbox-k", "1", "--pool-slots", "16",
            "--store", str(tmp_path), "--device", "cpu"]
     out = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=one_thread_env())
     assert out.returncode == 0, out.stderr[-2000:]
     assert '"valid?": true' in out.stdout
     assert os.path.exists(tmp_path / "lin-kv-torch" / "latest"

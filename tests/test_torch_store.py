@@ -2,11 +2,13 @@
 copied host modules and CLI flags of the bug-hunt path.
 
 A double-vote fleet (``test_tpu_raft.BUG_OPTS`` at 32 instances, cut to
-0.4 s) stored by both harnesses: every file of the JAX store layout
-except ``messages.svg`` (the journal is not ported) is byte-equal —
-``fleet-metrics.json``, the fleet SVGs, the perf SVGs, ``timeline.html``,
-``history-<i>.jsonl``, ``history-<i>.txt`` and
-``funnel-history-<id>.jsonl`` — and ``results["telemetry"]`` is JAX's
+0.4 s) stored by both harnesses: both hold the same files, and every
+file of the JAX store layout is byte-equal — ``fleet-metrics.json``, the
+fleet SVGs, the perf SVGs, ``timeline.html``, ``history-<i>.jsonl``,
+``history-<i>.txt`` and ``funnel-history-<id>.jsonl`` (the run journals
+nothing, so it has no ``messages.svg``; ``heartbeat.jsonl``, whose
+records carry wall-clock times, is held record by record in
+``test_torch_forensics.py``) — and ``results["telemetry"]`` is JAX's
 condensed fleet summary. Tolerance: exact."""
 
 import json

@@ -26,6 +26,7 @@ from maelstrom_tpu_torch import convert, harness, runtime
 from maelstrom_tpu_torch.models import get_model
 
 from torch_tutorial_cases import CASES
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _leaves(carry):
@@ -54,9 +55,9 @@ def test_carry_matches_jax_every_tick(case):
         for t in range(-1, sim.n_ticks):
             if t >= 0:
                 jcarry, ys = jtick(jcarry, jnp.int32(t))
-                carry, events = tick(carry, t)
+                carry, out = tick(carry, t)
                 np.testing.assert_array_equal(
-                    np.asarray(ys.events), events.numpy(),
+                    np.asarray(ys.events), out.events.numpy(),
                     err_msg=f"{name}: events at {t}")
             ref = _leaves(jax.tree.map(
                 np.asarray, jruntime.canonical_carry(jcarry, jsim)))

@@ -26,6 +26,8 @@ from maelstrom_tpu_torch import harness
 from maelstrom_tpu_torch.models import get_model
 
 from torch_tutorial_cases import CASES, JAX_RUN
+from torch_tutorial_cases import one_thread_env
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,7 +81,7 @@ def test_cli_runs_tutorial_workloads(tmp_path):
            "partition", "--nemesis-interval", "0.03", "--store",
            str(tmp_path), "--device", "cpu"]
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=one_thread_env())
     assert out.returncode == 0, out.stderr[-2000:]
     assert '"valid?": true' in out.stdout
     assert os.path.exists(tmp_path / "broadcast-torch" / "latest"

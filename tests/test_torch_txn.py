@@ -18,6 +18,7 @@ import pytest
 
 from torch_txn_cases import (TXN_CASES, carry_matches_jax_every_tick,
                              client_step_pair, models)
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", list(TXN_CASES))

@@ -21,6 +21,7 @@ from maelstrom_tpu.tpu.harness import run_tpu_test
 from maelstrom_tpu_torch import harness
 
 from torch_txn_cases import JAX_RUN, TXN, TXN_CASES, models
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 HARNESS_CASES = dict(TXN_CASES, **{
     "txn-list-append-read-uncommitted": (

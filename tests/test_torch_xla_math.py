@@ -19,6 +19,8 @@ import torch
 
 from maelstrom_tpu_torch import rng, xla_math
 
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
+
 LO = np.float32(1e-6)
 SPAN = np.float32(1.0) - LO
 

@@ -9,9 +9,6 @@ the stored histories and funnel histories byte-equal."""
 
 import os
 
-import pytest
-import torch
-
 from maelstrom_tpu.models import get_model as jget_model
 from maelstrom_tpu.tpu.harness import run_tpu_test
 from maelstrom_tpu_torch import harness
@@ -22,6 +19,7 @@ from test_faults import CRASH_OPTS, LINK_OPTS, SKEW_OPTS
 from test_membership import SQ_OPTS, VBC_OPTS
 from test_tpu_raft import BUG_OPTS
 from torch_tutorial_cases import JAX_RUN
+from torch_tutorial_cases import one_torch_thread  # noqa: F401 (re-exported)
 
 
 # test_tpu_raft.FIGURE8_OPTS (64 instances, its schedule in 200-tick
@@ -71,23 +69,14 @@ COMPARED = ("valid?", "invariants", "instance-count", "checked-instances",
             "fail-fast", "telemetry", "availability", "funnel")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU ticks are many small ops: one intra-op thread is as
-    fast alone and does not oversubscribe the cores that parallel test
-    workers share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def run_both(workload, node_count, opts, tmp_path):
     """``run_tpu_test`` and ``run_torch_test(device="cpu")`` on one
-    configuration, each storing under ``tmp_path``."""
+    configuration, each storing under ``tmp_path``; the heartbeat as
+    the options say (on by default in both harnesses)."""
     jres = run_tpu_test(jget_model(workload, node_count),
-                        dict(opts, **JAX_RUN,
-                             store_root=str(tmp_path / "jax")))
+                        {**opts, **JAX_RUN,
+                         "heartbeat": opts.get("heartbeat", True),
+                         "store_root": str(tmp_path / "jax")})
     tres = harness.run_torch_test(
         get_model(workload, node_count),
         dict(opts, store_root=str(tmp_path / "torch")), device="cpu")

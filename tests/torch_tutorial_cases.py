@@ -1,7 +1,14 @@
 """The configurations shared by ``test_torch_tutorial.py`` (tick-by-tick
 carries) and ``test_torch_tutorial_checkers.py`` (both harnesses): one
 case per tutorial workload, the guide's 25-node tree4 broadcast at test
-size, and cold restarts under a crash and links plan."""
+size, and cold restarts under a crash and links plan; and the fixture
+that pins the port's CPU ops to one thread, which every port test file
+imports."""
+
+import os
+
+import pytest
+import torch
 
 # 150 ticks; partitions in [50, 100), final heal at 120
 BASE = dict(node_count=3, concurrency=6, n_instances=8, record_instances=2,
@@ -36,8 +43,24 @@ CASES = {
     "pn-counter-crash-links": ("pn-counter", "grid",
                                dict(BASE, fault_plan=CRASH_LINKS_PLAN)),
 }
-# run_tpu_test's lifecycle options, off (the port accepts and ignores them)
+# run_tpu_test's lifecycle options, off (the port accepts and ignores
+# all but the heartbeat, which it writes as JAX does)
 JAX_RUN = dict(check_workers=0, heartbeat=False, device_profile="off",
                aot_store="off")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ticks are many small ops: one intra-op thread is as
+    fast alone and does not oversubscribe the cores that parallel test
+    workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def one_thread_env():
+    """The environment of a port subprocess: one torch thread, as the
+    fixture above sets in the test processes."""
+    return dict(os.environ, OMP_NUM_THREADS="1")

@@ -131,9 +131,9 @@ def carry_matches_jax_every_tick(name, case):
                     jc, type(carry.node_state), "cpu"), t)
             if t >= 0:
                 jcarry, ys = jtick(jcarry, jnp.int32(t))
-                carry, events = tick(carry, t)
+                carry, out = tick(carry, t)
                 np.testing.assert_array_equal(
-                    np.asarray(ys.events), events.numpy(),
+                    np.asarray(ys.events), out.events.numpy(),
                     err_msg=f"{name}: events at {t}")
             jc = jax.tree.map(np.asarray,
                               jruntime.canonical_carry(jcarry, jsim))

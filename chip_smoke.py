@@ -32,11 +32,17 @@ Phases (any failure exits non-zero and prints no result line):
    links plan; echo, unique-ids, broadcast and g-counter 100 ticks); then
    lin-kv-bug-no-term-guard at 5 nodes for 200 ticks under the scripted
    rotating-majorities schedule (50-tick phases); it logs each run's
-   time;
+   card and CPU time. The card runs go to a side card worker process
+   and the CPU runs to two reference worker processes (spawned after
+   phase 2, one thread each; the reference workers see no card), which
+   compute them while this process drives phases 4-9 (the card idles
+   most of each tick: this process's kernel issue bounds it); they are
+   compared after phase 9;
 4. drive the main path — ``run_torch_test`` on lin-kv Raft exactly as
    ``bench.py`` runs its flagship: 3 nodes, 6 clients, 4096 instances,
-   4 simulated seconds, under the all-healthy fault distribution
-   ``BENCH_FUZZ_DIST`` — with every launch counter set to 0 just before
+   under the all-healthy fault distribution
+   ``BENCH_FUZZ_DIST``, for 1 simulated second (``FLAGSHIP_TIME_LIMIT``;
+   the bench runs 4) — with every launch counter set to 0 just before
    and read just after; every kernel of the path must have launched,
    the delivery kernel once per tick, the verdict must be valid, and
    the network counters must equal the bare run's (the distribution
@@ -52,10 +58,10 @@ Phases (any failure exits non-zero and prints no result line):
    (``fleets.FAMILIES``, 4096 instances, 400 ticks each) the same
    way: each valid, the delivery kernel once per tick;
 8. drive the txn-list-append fleet (``fleets.TXN``: 3 nodes, 6
-   clients, 4096 instances, 1,000 ticks, four recorded instances
-   checked by Elle), then txn-rw-register at the same settings for 500
-   ticks, then kafka at the bench's settings (``fleets.KAFKA``: 1 node,
-   no nemesis) for 500 ticks the same way: each valid, the delivery
+   clients, 4096 instances, 500 ticks, four recorded instances
+   checked by Elle), then txn-rw-register at the same settings, then
+   kafka at the bench's settings (``fleets.KAFKA``: 1 node,
+   no nemesis), each for 500 ticks, the same way: each valid, the delivery
    kernel once per tick; it logs the recorded instances' txn counts and
    any Elle anomaly types;
 9. drive the bug hunt (``fleets.BUG_HUNT``: ``RaftDoubleVote``, 3
@@ -78,14 +84,36 @@ Phases (any failure exits non-zero and prints no result line):
     card with journals (each must trip again, each bundle must hold
     ``messages.svg``, ``journal.edn``, ``history.jsonl`` and
     ``repro.json``, the delivery kernel once per replayed tick), and
-    again on the CPU, and every bundle file must be equal; then a small
+    again on the CPU (a reference worker, alongside), and every bundle
+    file must be equal; then a small
     fuzz run of lin-kv-bug-forget-snapshot (``FUZZ_SHRINK``: one
-    instance, 300 ticks, which trips) is stored from the card and
+    instance, 300 ticks, which trips) is stored from the card (in the
+    side card worker, during phases 4-9, as is the card's shrink) and
     ``shrink`` (``SHRINK_ATTEMPTS`` candidate replays besides the
     verifying one, of which one must be kept, and the confirming replay
     of the shrunk plan) shrinks it on the card and, on a copy, on the
-    CPU: the card's ``shrunk-plan.json`` must be verified and equal to
+    CPU (a reference worker): the card's ``shrunk-plan.json``
+    must be verified and equal to
     the CPU's, and so must every field of its record.
+
+11. the verdict stage on the card: (a) the device verdict lanes on the
+    double-vote mutant in ``both`` mode (``LANES_MUTANT``, the JAX
+    routing test's options: 32 instances, all recorded, 300 ticks),
+    card against CPU — every carry leaf, ``check_summary`` included, at
+    every 25th tick, then ``run_torch_test`` on each (the card's with
+    the checker farm at ``check_workers`` auto, the CPU's with the
+    serial farm, which gives the same verdicts): the ``check`` block, invariants,
+    network counters and every verdict equal, the flagged set not empty,
+    the ``both`` audit complete, the farm pooled, the delivery kernel
+    once per tick; (b) the correct lin-kv at the bug hunt's settings
+    (``fleets.BUG_HUNT`` without fail-fast), 4096 instances, 1,024
+    recorded, 200 ticks, once in ``both`` and once in ``device`` mode:
+    each valid with the farm pooled and the kernel once per tick, the
+    audit complete, and device mode's per-instance ``valid?`` equal to
+    both mode's; it prints each mode's ticks/s, ``check-s``,
+    ``decode-s``, the pool, the flagged and farm instances and the farm's
+    load fraction, and, if the lanes flagged any instance of the correct
+    model, which flag bits.
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
@@ -101,7 +129,7 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-10 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-11 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
 its phase 10 compares the CPU with itself).
@@ -119,10 +147,14 @@ import time
 import numpy as np
 import torch
 
-# the bare flagship's network counters at full width and depth (NVIDIA
-# H100 80GB HBM3; PERF.md): the all-healthy distribution keeps them
-FLAGSHIP_NET = {"sent": 9708913, "delivered": 7537375,
-                "dropped-partition": 1675883, "dropped-loss": 484098,
+# phase 4's depth: the flagship's 4 simulated seconds cut to 1 (1,000
+# ticks) to keep the script inside its limit on a slow host
+FLAGSHIP_TIME_LIMIT = 1.0
+# the bare flagship's network counters at full width and that depth
+# (NVIDIA H100 80GB HBM3; PERF.md): the all-healthy distribution keeps
+# them
+FLAGSHIP_NET = {"sent": 2345869, "delivered": 1930833,
+                "dropped-partition": 287100, "dropped-loss": 117132,
                 "dropped-overflow": 0}
 # an active distribution over all four lanes
 ACTIVE_FUZZ = {"windows": [2, 3], "gap": [40, 200], "duration": [30, 100],
@@ -189,6 +221,23 @@ FUZZ_SHRINK = dict(
                          "range": [0.75, 1.5]}})
 SHRINK_ATTEMPTS = 4
 TRIAGE_MAX = 8
+# phase 11 (a): the JAX routing test's double-vote fleet
+# (tests/test_device_check.py:131-176, MUTANT_OPTS: 32 instances, all
+# recorded, the flagship's inbox_k 1 and 16 slots, 300 ticks) in both
+# mode, the farm at check_workers auto
+LANES_MUTANT = dict(node_count=3, concurrency=6, n_instances=32,
+                    record_instances=32, inbox_k=1, pool_slots=16,
+                    time_limit=0.3, rate=200.0, latency=5.0,
+                    rpc_timeout=1.0, nemesis=["partition"],
+                    nemesis_interval=0.04, p_loss=0.05, recovery_time=0.0,
+                    seed=7, telemetry=False, funnel=False, layout="lead",
+                    check_mode="both")
+LANES_MUTANT_KW = dict(log_cap=64, heartbeat=8)
+# phase 11 (b): the bug hunt's fleet (fleets.BUG_HUNT) with the correct
+# lin-kv model, no fail-fast, 1,024 of the 4,096 instances recorded, 200
+# ticks (cut from 2.5 s)
+SWEEP_RECORDED = 1024
+SWEEP_TIME_LIMIT = 0.2
 # phase 3's scripted run: the JAX tests' Figure-8 options
 # (tests/test_tpu_raft.py:70-75) at 24 instances for 200 ticks, the
 # rotating majorities in 50-tick phases until tick 150 (cut from 250 and
@@ -327,25 +376,96 @@ def check_delivery(dev, shapes, iters):
             "shapes": per_shape}
 
 
-def check_small_run_matches_cpu(dev, label, model, opts):
-    """The card's tick loop equals the CPU plain-version loop on a small
-    input: every carry leaf at every 25th tick."""
+def _make_model(spec):
+    """A model from a picklable spec: ``("fleet", workload, model_opts)``
+    (the model of ``fleets.fleet``) or ``("model", name, node_count,
+    kwargs)`` (``get_model``)."""
+    from maelstrom_tpu_torch import fleets
+    from maelstrom_tpu_torch.models import get_model
+    if spec[0] == "fleet":
+        return fleets.fleet(spec[1], spec[2])[0]
+    return get_model(spec[1], spec[2], **spec[3])
+
+
+def _carry_seq(model, opts, dev):
+    """The tick loop on ``dev``: the carry (numpy leaves) at every 25th
+    tick, and the run's ``SimConfig``."""
     from maelstrom_tpu_torch import convert, harness, runtime
-    t0 = time.monotonic()
     sim = harness.make_sim_config(model, opts)
-    carries = []
-    for d in (torch.device("cpu"), dev):
-        carry = runtime.init_carry(model, sim, opts["seed"], d)
-        tick = runtime.make_tick_fn(model, sim, device=d)
-        seq = []
-        with torch.no_grad():
-            for t in range(sim.n_ticks):
-                carry, _ = tick(carry, t)
-                if t % 25 == 24:
-                    seq.append(convert.carry_to_numpy(carry))
-        carries.append(seq)
+    carry = runtime.init_carry(model, sim, opts["seed"], dev)
+    tick = runtime.make_tick_fn(model, sim, device=dev)
+    seq = []
+    with torch.no_grad():
+        for t in range(sim.n_ticks):
+            carry, _ = tick(carry, t)
+            if t % 25 == 24:
+                seq.append(convert.carry_to_numpy(carry))
+    return sim, seq
+
+
+def _carries(spec, opts, dev):
+    """``(n_instances, n_ticks)`` and the carries at every 25th tick of
+    the tick loop on device ``dev`` (a name)."""
+    sim, seq = _carry_seq(_make_model(spec), opts, torch.device(dev))
+    return (sim.n_instances, sim.n_ticks), seq
+
+
+# --- work run in other processes while this one drives the card ------------
+#
+# Driving the card is bound by this process's kernel issue (the card idles
+# ~90% of each tick, PERF.md §5), so the script hands work to two pools:
+# reference workers (the CPU halves of the card-against-CPU checks; no
+# CUDA) and one side card worker (phase 3's small card loops, phase 10's
+# fuzz run and shrink), each its own process with its own launch counters.
+
+
+def _worker_init(cuda: bool) -> None:
+    """One thread (the ops are small); a reference worker never creates
+    a CUDA context."""
+    import os
+    if not cuda:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
+def _timed(fn, *args):
+    t0 = time.monotonic()
+    out = fn(*args)
+    return out, time.monotonic() - t0
+
+
+def _cpu_test(spec, opts):
+    """``run_torch_test`` on the CPU."""
+    from maelstrom_tpu_torch import harness
+    return harness.run_torch_test(_make_model(spec), opts, device="cpu")
+
+
+def worker_pool(workers: int, cuda: bool):
+    """``workers`` spawned processes (they share no CUDA context with
+    this one); ``cuda`` False hides the card from them."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_worker_init, initargs=(cuda,))
+
+
+def submit(pool, fn, *args):
+    """``fn(*args)`` in ``pool``: a future of ``(result, seconds)``."""
+    return pool.submit(_timed, fn, *args)
+
+
+def check_small_run_matches_cpu(dev, label, card_run, cpu_run,
+                                phase="phase 3"):
+    """The card's tick loop equals the CPU plain-version loop on a small
+    input: every carry leaf at every 25th tick. ``card_run`` and
+    ``cpu_run`` are :func:`_carries` on the same spec and options, on
+    the card and on the CPU, with their seconds."""
+    from maelstrom_tpu_torch import convert
+    ((n_inst, n_ticks), card), t_card = card_run
+    (_, cpu), t_cpu = cpu_run
     names = None
-    for k, (a, b) in enumerate(zip(*carries)):
+    for k, (a, b) in enumerate(zip(cpu, card)):
         leaves = dict(convert.carry_leaves(b))
         names = names or sorted(leaves)
         for name, x in convert.carry_leaves(a):
@@ -356,16 +476,19 @@ def check_small_run_matches_cpu(dev, label, model, opts):
         if leaves:
             raise AssertionError(f"{label}: leaves only on {dev}: "
                                  f"{sorted(leaves)}")
-    if int(carries[1][-1].stats.delivered) <= 0:
+    if len(cpu) != len(card) or not card:
+        raise AssertionError(f"{label}: {len(card)} card snapshots, "
+                             f"{len(cpu)} CPU snapshots")
+    if int(card[-1].stats.delivered) <= 0:
         raise AssertionError(f"{label}: nothing delivered")
     fault_leaves = sorted({n.split(".")[1] for n in names} - {
         "pool", "node_state", "client_state", "stats", "violations", "key",
-        "telemetry"})
-    log(f"phase 3: {sim.n_instances}-instance {sim.n_ticks}-tick run on "
-        f"{dev} under {label} equals the CPU plain-version run at every "
-        f"25th tick (all {len(names)} carry leaves, exact; fault leaves "
-        f"{', '.join(fault_leaves) or 'none'}); both runs "
-        f"{time.monotonic() - t0:.1f} s")
+        "telemetry", "check_summary"})
+    log(f"{phase}: {n_inst}-instance {n_ticks}-tick run on {dev} under "
+        f"{label} equals the CPU plain-version run at every 25th tick (all "
+        f"{len(names)} carry leaves, exact; fault leaves "
+        f"{', '.join(fault_leaves) or 'none'}); card run {t_card:.1f} s, "
+        f"CPU run {t_cpu:.1f} s")
 
 
 def run_path(dev, model, opts, label):
@@ -526,15 +649,51 @@ def _read_json(*path):
         return json.load(f)
 
 
-def run_forensics(dev, hunt, root, label):
-    """Phase 10: the CLI's ``watch``, ``triage`` and ``shrink`` on the
-    card, triage and shrink held against the CPU. Returns the delivery
-    launches of each path."""
+def fuzz_run(dev_name, root):
+    """Phase 10's fuzz run on ``dev_name`` (in the side card worker),
+    stored under ``root``; the store copied twice, for the shrink on the
+    card (``card``) and on the CPU (``cpu``). Returns the copies, the
+    run's ticks and its delivery launches."""
     import os
     import shutil
     from maelstrom_tpu_torch import harness
     from maelstrom_tpu_torch.kernels import delivery
     from maelstrom_tpu_torch.models import get_model
+    model = get_model(FUZZ_SHRINK_MUTANT, FUZZ_SHRINK["node_count"])
+    delivery.deliver.launches = 0
+    res = harness.run_torch_test(
+        model, dict(FUZZ_SHRINK, store_root=os.path.join(root, "fuzz")),
+        device=dev_name)
+    launches = delivery.deliver.launches
+    if res["invariants"]["violating-instance-ids"] != [0]:
+        raise AssertionError(f"phase 10: the fuzz run did not trip "
+                             f"instance 0: {res['invariants']}")
+    out = {"ticks": res["perf"]["ticks"], "launches": launches}
+    for side in ("card", "cpu"):
+        out[side] = os.path.join(root, f"fuzz-{side}")
+        shutil.copytree(res["store-dir"], out[side])
+    return out
+
+
+def shrink(dev_name, store, label):
+    """``shrink`` of the fuzz run's copy ``store`` on ``dev_name``: its
+    delivery launches."""
+    from maelstrom_tpu_torch.kernels import delivery
+    delivery.deliver.launches = 0
+    _cli(label, "shrink", "--max-attempts", str(SHRINK_ATTEMPTS), store,
+         "--device", dev_name)
+    return delivery.deliver.launches
+
+
+def run_forensics(dev, hunt, root, label, refs, shrink_refs):
+    """Phase 10: the CLI's ``watch`` and ``triage`` on the card, triage
+    held against the CPU (run by the reference workers ``refs``
+    alongside), then the fuzz run and its ``shrink`` on the card and on
+    the CPU, which ran in other processes (``shrink_refs``: futures of
+    ``fuzz run``, ``card`` and ``cpu``). Returns the delivery launches of
+    each path."""
+    import os
+    from maelstrom_tpu_torch.kernels import delivery
     on_card = dev.type == "cuda"
     run_dir = hunt["store-dir"]
     launches = {}
@@ -548,13 +707,14 @@ def run_forensics(dev, hunt, root, label):
 
     t0 = time.monotonic()
     triage = ("triage", run_dir, "--max-instances", str(TRIAGE_MAX))
+    cpu_out = os.path.join(root, "triage-cpu")
+    cpu_triage = submit(refs, _cli, label, *triage, "-o", cpu_out,
+                            "--device", "cpu")
     delivery.deliver.launches = 0
     _cli(label, *triage, "--device", str(dev))
     launches["triage"] = delivery.deliver.launches
     t_card = time.monotonic() - t0
-    cpu_out = os.path.join(root, "triage-cpu")
-    _cli(label, *triage, "-o", cpu_out, "--device", "cpu")
-    t_cpu = time.monotonic() - t0 - t_card
+    _, t_cpu = cpu_triage.result()
     card = _read_json(run_dir, "triage", "summary.json")
     cpu = _read_json(cpu_out, "summary.json")
     ids = [e["instance"] for e in card["triaged"]]
@@ -577,34 +737,18 @@ def run_forensics(dev, hunt, root, label):
                     f"{label}: triage of instance {i}")
     log(f"{label}: triage replayed flagged instances {ids} over "
         f"{card['ticks']} ticks on {dev} in {t_card:.1f} s (CPU "
-        f"{t_cpu:.1f} s): all {card['replayed-violating']} tripped "
+        f"{t_cpu:.1f} s, alongside): all {card['replayed-violating']} tripped "
         f"again, first-violation ticks "
         f"{[e['first-violation-tick'] for e in card['triaged']]}, journal "
         f"events {[e['journal-events'] for e in card['triaged']]}; "
         f"every bundle file ({', '.join(bundle)}) equal to the CPU's; "
         f"launches {launches['triage']}")
 
-    t0 = time.monotonic()
-    model = get_model(FUZZ_SHRINK_MUTANT, FUZZ_SHRINK["node_count"])
-    delivery.deliver.launches = 0
-    fres = harness.run_torch_test(
-        model, dict(FUZZ_SHRINK, store_root=os.path.join(root, "fuzz")),
-        device=str(dev))
-    launches["fuzz run"] = delivery.deliver.launches
-    if fres["invariants"]["violating-instance-ids"] != [0]:
-        raise AssertionError(f"{label}: the fuzz run did not trip "
-                             f"instance 0: {fres['invariants']}")
-    fuzz_dir = fres["store-dir"]
-    cpu_dir = os.path.join(root, "fuzz-cpu-copy")
-    shutil.copytree(fuzz_dir, cpu_dir)
-    t_run = time.monotonic() - t0
-    shrink = ("shrink", "--max-attempts", str(SHRINK_ATTEMPTS))
-    delivery.deliver.launches = 0
-    _cli(label, *shrink, fuzz_dir, "--device", str(dev))
-    launches["shrink"] = delivery.deliver.launches
-    t_card = time.monotonic() - t0 - t_run
-    _cli(label, *shrink, cpu_dir, "--device", "cpu")
-    t_cpu = time.monotonic() - t0 - t_run - t_card
+    fuzz, t_run = shrink_refs["fuzz run"].result()
+    launches["fuzz run"] = fuzz["launches"]
+    launches["shrink"], t_card = shrink_refs["card"].result()
+    _, t_cpu = shrink_refs["cpu"].result()
+    fuzz_dir, cpu_dir = fuzz["card"], fuzz["cpu"]
     card = _read_json(fuzz_dir, "triage", "shrink-summary.json")
     cpu = _read_json(cpu_dir, "triage", "shrink-summary.json")
     if len(card["shrunk"]) != 1:
@@ -618,15 +762,16 @@ def run_forensics(dev, hunt, root, label):
     _same_files(os.path.join(fuzz_dir, sub), os.path.join(cpu_dir, sub),
                 ("shrunk-plan.json",), f"{label}: shrink")
     replays = 1 + rec["attempts"] + (1 if rec["kept"] else 0)
-    ticks = fres["perf"]["ticks"]
+    ticks = fuzz["ticks"]
     if on_card and (launches["shrink"] != replays * ticks
                     or launches["fuzz run"] != ticks):
         raise AssertionError(f"{label}: delivery kernel launched "
                              f"{launches} times for {replays} replays "
                              f"of {ticks} ticks")
-    log(f"{label}: fuzz run of {model.name} stored on {dev} in "
+    log(f"{label}: fuzz run of {FUZZ_SHRINK_MUTANT} stored on {dev} in "
         f"{t_run:.1f} s, instance 0 tripped; shrink on {dev} "
-        f"{t_card:.1f} s, on the CPU {t_cpu:.1f} s: "
+        f"{t_card:.1f} s, on the CPU {t_cpu:.1f} s (both in other "
+        f"processes, during phases 4-9): "
         f"{rec['original-phases']} phase(s)/{rec['original-victims']} "
         f"victim(s) -> {rec['shrunk-phases']}/{rec['shrunk-victims']} in "
         f"{rec['attempts']} attempt(s), kept {rec['kept']}, verified "
@@ -634,6 +779,110 @@ def run_forensics(dev, hunt, root, label):
         f"CPU's; launches {launches['fuzz run']} (run) + "
         f"{launches['shrink']} ({replays} replays)")
     return launches
+
+
+def run_lanes_card_vs_cpu(dev, spec, opts, label, cpu_carries, cpu_test):
+    """Phase 11 (a): the device verdict lanes on the double-vote mutant
+    in ``both`` mode, card against CPU — every carry leaf
+    (``check_summary`` included) at every 25th tick, then
+    ``run_torch_test`` on each: the ``check`` block, the invariants, the
+    network counters and every per-instance verdict equal, a non-empty
+    flagged set, a complete audit, and the farm pooled. ``cpu_carries``
+    and ``cpu_test`` are the futures of the CPU's tick loop and
+    ``run_torch_test`` (:func:`submit`). Returns the card run's
+    delivery launches."""
+    from maelstrom_tpu_torch import harness
+    from maelstrom_tpu_torch.checkers.pool import resolve_check_workers
+    from maelstrom_tpu_torch.kernels import delivery
+    check_small_run_matches_cpu(dev, "the device verdict lanes (" + label
+                                + ")", _timed(_carries, spec, opts,
+                                              str(dev)),
+                                cpu_carries.result(), phase="phase 11")
+    delivery.deliver.launches = 0
+    t0 = time.monotonic()
+    card = harness.run_torch_test(_make_model(spec), opts, device=str(dev))
+    launches = delivery.deliver.launches
+    t_card = time.monotonic() - t0
+    cpu, t_cpu = cpu_test.result()
+    for k in ("valid?", "check", "invariants", "net", "instances"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"phase 11 ({label}): {k} differs between "
+                                 f"{dev} and the CPU")
+    chk, rec = card["check"], card["perf"]["phases"]["check"]
+    if card["valid?"] is not False or not chk["flagged-instance-ids"]:
+        raise AssertionError(f"phase 11 ({label}): valid? {card['valid?']}"
+                             f", flagged {chk['flagged-instance-ids']}")
+    if not chk["device-vs-farm"]["complete"]:
+        raise AssertionError(f"phase 11 ({label}): audit {chk}")
+    if resolve_check_workers(opts.get("check_workers"),
+                             opts["record_instances"]) > 0 \
+            and rec["mode"] != "pooled":
+        raise AssertionError(f"phase 11 ({label}): the farm did not run "
+                             f"pooled: {rec}")
+    ticks = card["perf"]["ticks"]
+    if dev.type == "cuda" and launches != ticks:
+        raise AssertionError(f"phase 11 ({label}): delivery kernel "
+                             f"launched {launches} times for {ticks} "
+                             f"ticks")
+    log(f"phase 11 ({label}): run_torch_test on {dev} {t_card:.1f} s, on "
+        f"the CPU {t_cpu:.1f} s in a reference worker: check, invariants, net and all "
+        f"{len(card['instances'])} verdicts equal; flagged "
+        f"{chk['flagged-instance-ids']}, audit complete, farm "
+        f"{rec['mode']} x{rec['workers']}; launches {launches}")
+    return launches
+
+
+def run_sweep(dev, model, opts, mode):
+    """Phase 11 (b): one ``check_mode`` of the correct model's
+    fleet-scale sweep, the launch counter set to 0 just before and read
+    just after: valid, the farm pooled, the delivery kernel once per
+    tick."""
+    from maelstrom_tpu_torch import harness
+    from maelstrom_tpu_torch.kernels import delivery
+    delivery.deliver.launches = 0
+    t0 = time.monotonic()
+    res = harness.run_torch_test(model, dict(opts, check_mode=mode),
+                                 device=str(dev))
+    wall = time.monotonic() - t0
+    launches = delivery.deliver.launches
+    rec, chk = res["perf"]["phases"]["check"], res["check"]
+    ticks = res["perf"]["ticks"]
+    log(f"phase 11 (sweep, {mode}): {model.name} x{res['instance-count']}"
+        f", {res['checked-instances']} recorded, {ticks} ticks: valid?="
+        f"{res['valid?']}, wall {wall:.1f} s, "
+        f"{res['perf']['ticks-per-sec']:.2f} ticks/s, check-s "
+        f"{rec['check-s']}, decode-s {rec['decode-s']}, feed-s "
+        f"{rec.get('feed-s')}, farm {rec['mode']} x{rec['workers']}, "
+        f"flagged-instances {chk['flagged-instances']}, farm-instances "
+        f"{chk['farm-instances']}, farm-load-fraction "
+        f"{chk['farm-load-fraction']}, launches {launches}")
+    if rec["mode"] != "pooled":
+        raise AssertionError(f"phase 11 (sweep, {mode}): the farm did not "
+                             f"run pooled: {rec}")
+    if res["valid?"] is not True:
+        raise AssertionError(f"phase 11 (sweep, {mode}): valid? "
+                             f"{res['valid?']!r}")
+    if dev.type == "cuda" and launches != ticks:
+        raise AssertionError(f"phase 11 (sweep, {mode}): delivery kernel "
+                             f"launched {launches} times for {ticks} ticks")
+    return res, launches
+
+
+def flag_bits(dev, model, opts, ids):
+    """Which FLAGS bits the lanes raised in instances ``ids``: a replay of
+    just those instances with the lanes on."""
+    from maelstrom_tpu_torch import harness, runtime
+    from maelstrom_tpu_torch.checkers import device_summary as ds
+    sim = harness.make_sim_config(model, dict(
+        opts, n_instances=len(ids), record_instances=0,
+        check_mode="device"))
+    carry, _ = runtime.run_sim(model, sim, opts["seed"], dev,
+                               torch.tensor(ids, dtype=torch.int32,
+                                            device=dev))
+    flags = carry.check_summary[:, ds.L_FLAGS].cpu().numpy()
+    return {name: int(((flags & bit) != 0).sum()) for name, bit in (
+        ("diverged", ds.FLAG_DIVERGED), ("regression", ds.FLAG_REGRESSION),
+        ("model", ds.FLAG_MODEL))}
 
 
 def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
@@ -645,8 +894,15 @@ def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
 
 def main(argv) -> int:
     start = time.monotonic()
-    mark = lambda phase: log(f"{phase} finished {time.monotonic() - start:.1f}"
-                             f" s into the script")
+
+    def mark(phase):
+        # on standard error too: a run stopped at its time limit shows
+        # how far it got
+        line = f"{phase} finished {time.monotonic() - start:.1f} s into " \
+               f"the script"
+        log(line)
+        print(line, file=sys.stderr, flush=True)
+
     rehearse = "--rehearse-on-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
         log("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -654,8 +910,8 @@ def main(argv) -> int:
         return 1
     import maelstrom_tpu_torch  # noqa: F401 — fails outside the repo
     from maelstrom_tpu_torch import fleets
-    from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
     from maelstrom_tpu_torch.kernels import delivery_cases
+    from maelstrom_tpu_torch.models import get_model
     dev = torch.device("cpu" if rehearse else "cuda")
     shapes = dict(delivery_cases.SHAPES)
     flagship, opts = fleets.fleet("lin-kv")
@@ -665,18 +921,24 @@ def main(argv) -> int:
     hunt_model, hunt_opts = fleets.fleet(BUG_HUNT_MUTANT)
     # instance 0 journaled: every row of the fleet carries the NETID lane
     hunt_opts |= dict(time_limit=BUG_HUNT_TIME_LIMIT, journal_instances=1)
+    lanes_opts = dict(LANES_MUTANT)
+    sweep_model = get_model("lin-kv", fleets.BUG_HUNT["node_count"])
+    sweep_opts = dict(fleets.BUG_HUNT, fail_fast=False,
+                      record_instances=SWEEP_RECORDED,
+                      time_limit=SWEEP_TIME_LIMIT)
     # paths cut to keep the script well inside its 1,200 s limit on a
-    # slow host (PERF.md §6): the broadcast fleet to 1 s (from 2;
-    # healed at tick 700), the families to 0.4 s (from 1, then 0.6:
-    # healed before the first partition phase at tick 400; at 0.3 s
-    # g-counter's final reads come before it converges), the
-    # txn-rw-register and kafka fleets to 0.5 s (from 1, then 0.8);
-    # txn-list-append keeps 1 s
+    # slow host (PERF.md §6): the flagship to 1 s (from 4; healed at
+    # tick 700), the broadcast fleet to 1 s (from 2; healed at tick
+    # 700), the families to 0.4 s (from 1, then 0.6: healed before the
+    # first partition phase at tick 400; at 0.3 s g-counter's final
+    # reads come before it converges), the txn fleets and kafka to 0.5 s
+    # (from 1, then 0.8; txn-list-append from 1; healed at tick 200)
+    opts["time_limit"] = FLAGSHIP_TIME_LIMIT
     bopts["time_limit"] = 1.0
     for _, o in paths.values():
         o["time_limit"] = 0.4
-    for w in ("txn-rw-register", "kafka"):
-        txn_paths[w][1]["time_limit"] = 0.5
+    for _, o in txn_paths.values():
+        o["time_limit"] = 0.5
     if rehearse:
         # small ops: one thread is as fast, and spares a loaded host
         torch.set_num_threads(1)
@@ -685,7 +947,6 @@ def main(argv) -> int:
         opts = small(opts, 16)
         # 25 nodes need about 1 s to converge after the heal: the
         # rehearsal checks the script's logic on a 5-node tree
-        from maelstrom_tpu_torch.models import get_model
         bmodel = get_model("broadcast", 5, fleets.BROADCAST_25_TOPOLOGY)
         bopts = small(bopts, 4, 0.2) | dict(node_count=5, concurrency=5)
         paths = {w: (m, small(o, 8, 0.2) | dict(recovery_time=0.1))
@@ -698,6 +959,10 @@ def main(argv) -> int:
         # after the third of four 50-tick chunks
         hunt_opts |= dict(n_instances=32, record_instances=2,
                           time_limit=0.2, chunk_ticks=50, funnel_max=4)
+        lanes_opts |= dict(n_instances=16, record_instances=16,
+                           time_limit=0.15)
+        sweep_opts |= dict(n_instances=64, record_instances=32,
+                           time_limit=0.1, chunk_ticks=50)
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -722,44 +987,88 @@ def main(argv) -> int:
 
     record = check_delivery(dev, shapes, 5 if rehearse else 200)
     mark("phase 2")
-    if not rehearse:
-        check_small_run_matches_cpu(dev, "an active four-lane fault "
-                                    "distribution", flagship,
-                                    small(opts, time_limit=0.25)
-                                    | dict(fault_fuzz=ACTIVE_FUZZ))
-        check_small_run_matches_cpu(dev, "an active fault plan (crash, "
-                                    "links, skew, membership)", flagship,
-                                    small(opts, time_limit=0.25)
-                                    | dict(fault_plan=ACTIVE_PLAN))
-        for w in TUTORIAL:
-            model, o = (bmodel, bopts) if w == "broadcast" else paths[w]
-            label = w
-            if w in ("g-set", "pn-counter"):
-                # 150 ticks, partitioned in [50, 100) (cut from 200)
-                o = small(o, time_limit=0.15, interval=0.05)
-                o["fault_plan"] = CRASH_LINKS_PLAN
-                label += " under a crash and links plan"
-            else:
-                # 100 ticks, partitioned in [25, 50) (cut from 150)
-                o = small(o, time_limit=0.1, interval=0.025)
-            check_small_run_matches_cpu(dev, label, model, o)
-        for label, w, mopts, plan in TXN_KAFKA_SMALL:
-            model, o = fleets.fleet(w, mopts)
-            # 150 ticks (cut from 200), the plan healed at tick 100
-            o = small(o, time_limit=0.15)
-            if plan is not None:
-                o["fault_plan"] = plan
-            check_small_run_matches_cpu(dev, label, model, o)
-        from maelstrom_tpu_torch.models import get_model
-        # the bug hunt's own mutant is held card against CPU by phase
-        # 10's triage of the bug hunt's trippers
-        check_small_run_matches_cpu(
-            dev, "the scripted rotating-majorities schedule "
-            "(lin-kv-bug-no-term-guard, 5 nodes)",
-            get_model("lin-kv-bug-no-term-guard", 5),
-            dict(FIGURE8_SMALL,
-                 nemesis_schedule=fleets.rotating_majorities(5, 50, 150)))
-        mark("phase 3")
+    lanes_spec = ("model", "lin-kv-bug-double-vote", 3,
+                  {"raft_kw": LANES_MUTANT_KW})
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="bug-hunt-store-")
+    refs, side = worker_pool(2, cuda=False), worker_pool(1, cuda=True)
+    try:
+        return drive_paths(dev, full, rehearse, record, mark, refs, side,
+                           root, opts, flagship, bopts, bmodel, paths,
+                           txn_paths, hunt_model, hunt_opts, lanes_spec,
+                           lanes_opts, sweep_model, sweep_opts)
+    finally:
+        for pool in (side, refs):
+            pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase3_runs(opts, bopts, paths):
+    """Phase 3's small card-against-CPU runs: ``(label, model spec,
+    options)``."""
+    from maelstrom_tpu_torch import fleets
+    runs = [("an active four-lane fault distribution", ("fleet", "lin-kv",
+             None), small(opts, time_limit=0.25)
+             | dict(fault_fuzz=ACTIVE_FUZZ)),
+            ("an active fault plan (crash, links, skew, membership)",
+             ("fleet", "lin-kv", None), small(opts, time_limit=0.25)
+             | dict(fault_plan=ACTIVE_PLAN))]
+    for w in TUTORIAL:
+        o = bopts if w == "broadcast" else paths[w][1]
+        label = w
+        if w in ("g-set", "pn-counter"):
+            # 150 ticks, partitioned in [50, 100) (cut from 200)
+            o = small(o, time_limit=0.15, interval=0.05)
+            o["fault_plan"] = CRASH_LINKS_PLAN
+            label += " under a crash and links plan"
+        else:
+            # 100 ticks, partitioned in [25, 50) (cut from 150)
+            o = small(o, time_limit=0.1, interval=0.025)
+        runs.append((label, ("fleet", w, None), o))
+    for label, w, mopts, plan in TXN_KAFKA_SMALL:
+        # 150 ticks (cut from 200), the plan healed at tick 100
+        o = small(fleets.fleet(w, mopts)[1], time_limit=0.15)
+        if plan is not None:
+            o["fault_plan"] = plan
+        runs.append((label, ("fleet", w, mopts), o))
+    # the bug hunt's own mutant is held card against CPU by phase 10's
+    # triage of the bug hunt's trippers
+    runs.append(("the scripted rotating-majorities schedule "
+                 "(lin-kv-bug-no-term-guard, 5 nodes)",
+                 ("model", "lin-kv-bug-no-term-guard", 5, {}),
+                 dict(FIGURE8_SMALL, nemesis_schedule=(
+                     fleets.rotating_majorities(5, 50, 150)))))
+    return runs
+
+
+def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
+                flagship, bopts, bmodel, paths, txn_paths, hunt_model,
+                hunt_opts, lanes_spec, lanes_opts, sweep_model,
+                sweep_opts) -> int:
+    """Phases 3-11 and the result lines. Phase 10's fuzz run and card
+    shrink, then phase 3's card runs, go to the side card worker
+    ``side``, and the CPU halves of phases 3, 10 and 11 (a) to the
+    reference workers ``refs``, while this process drives phases 4-9;
+    phase 3 is checked after phase 9."""
+    import os
+    from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
+    dev_name = str(dev)
+    forensics = "phase 10 (forensics)"
+    shrink_refs = {"fuzz run": submit(side, fuzz_run, dev_name, root),
+                   "card": submit(side, shrink, dev_name,
+                                  os.path.join(root, "fuzz-card"),
+                                  forensics)}
+    small_runs = [] if rehearse else phase3_runs(opts, bopts, paths)
+    small_refs = [(submit(side, _carries, spec, o, dev_name),
+                   submit(refs, _carries, spec, o, "cpu"))
+                  for _, spec, o in small_runs]
+    lanes_refs = (
+        submit(refs, _carries, lanes_spec, lanes_opts, "cpu"),
+        # the serial farm on the CPU: a pool gives the same verdicts
+        # byte for byte (tests/test_torch_check_pool.py)
+        submit(refs, _cpu_test, lanes_spec,
+               dict(lanes_opts, check_workers=0)))
     res, launches = run_path(dev, flagship,
                              dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
                              "phase 4 (flagship, BENCH_FUZZ_DIST)")
@@ -771,6 +1080,10 @@ def main(argv) -> int:
         log("phase 4: network counters equal the bare flagship run's "
             "exactly")
     mark("phase 4")
+    # the fuzz run's store is copied by now (it ran first, alongside)
+    shrink_refs["cpu"] = submit(refs, shrink, "cpu",
+                                shrink_refs["fuzz run"].result()[0]["cpu"],
+                                forensics)
     # 250 ticks (the fleet's fault windows fire in every lane before the
     # heal at tick 125): cut from 1,000 to keep the script inside its limit
     short = dict(opts, time_limit=min(0.25, opts["time_limit"]))
@@ -815,7 +1128,8 @@ def main(argv) -> int:
                         for r in inst])
         kinds = sorted(set().union(*(r.get("anomaly-types") or []
                                      for r in inst)))
-        log(f"phase 8: {w} check-s {tres['perf']['phases']['check-s']}, "
+        check_s = tres["perf"]["phases"]["check"]["check-s"]
+        log(f"phase 8: {w} check-s {check_s}, "
             f"{'txn-count' if w.startswith('txn') else '(send, poll) count'}"
             f" per recorded instance {counts}, anomaly types "
             f"{kinds or 'none'}, dropped-overflow "
@@ -825,22 +1139,43 @@ def main(argv) -> int:
                                  f"recorded instances")
         by_path[f"phase 8 {w}"] = t_launches["deliver"]
     mark("phase 8")
-    import shutil
-    import tempfile
-    root = tempfile.mkdtemp(prefix="bug-hunt-store-")
-    try:
-        hunt, h_launches = run_bug_hunt(dev, hunt_model, hunt_opts,
-                                        "phase 9 (bug hunt)", root)
-        mark("phase 9")
-        f_launches = run_forensics(dev, hunt, root, "phase 10 (forensics)")
-        mark("phase 10")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    hunt, h_launches = run_bug_hunt(dev, hunt_model, hunt_opts,
+                                    "phase 9 (bug hunt)", root)
+    mark("phase 9")
+    for (label, _, _), (card, cpu) in zip(small_runs, small_refs):
+        check_small_run_matches_cpu(dev, label, card.result(), cpu.result())
+    if small_runs:
+        mark("phase 3 (run alongside phases 4-9)")
+    f_launches = run_forensics(dev, hunt, root, forensics, refs,
+                               shrink_refs)
+    mark("phase 10")
     by_path["phase 9 bug hunt (L=21), run and funnel replay"] = \
         h_launches["deliver"]
     by_path["phase 10 triage replay (L=21)"] = f_launches["triage"]
     by_path["phase 10 fuzz run (L=20)"] = f_launches["fuzz run"]
     by_path["phase 10 shrink replays (L=20)"] = f_launches["shrink"]
+    by_path["phase 11 lanes, double-vote both mode"] = run_lanes_card_vs_cpu(
+        dev, lanes_spec, lanes_opts, "double-vote, both mode", *lanes_refs)
+    both, b_launches = run_sweep(dev, sweep_model, sweep_opts, "both")
+    device, d_launches = run_sweep(dev, sweep_model, sweep_opts, "device")
+    if not both["check"]["device-vs-farm"]["complete"]:
+        raise AssertionError(f"phase 11 (sweep): audit {both['check']}")
+    if [v["valid?"] for v in device["instances"]] != \
+            [v["valid?"] for v in both["instances"]]:
+        raise AssertionError("phase 11 (sweep): device mode's verdicts "
+                             "differ from both mode's")
+    flagged = both["check"]["flagged-instance-ids"]
+    if flagged:
+        log(f"phase 11 (sweep): the correct model raised flags in "
+            f"{both['check']['flagged-instances']} instances; flag bits "
+            f"of the first {len(flagged[:64])}: "
+            f"{flag_bits(dev, sweep_model, sweep_opts, flagged[:64])}")
+    log(f"phase 11 (sweep): the both-mode audit is complete and device "
+        f"mode's {len(device['instances'])} per-instance verdicts equal "
+        f"both mode's")
+    by_path["phase 11 sweep, both mode"] = b_launches
+    by_path["phase 11 sweep, device mode"] = d_launches
+    mark("phase 11")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     # the journaled bug hunt's rows: its shape's launches on the path

@@ -5,9 +5,9 @@ tutorial workloads echo, unique-ids, broadcast, g-set, g-counter and
 pn-counter, kafka, and txn-list-append and txn-rw-register over Raft;
 ``models.MUTANTS``: the nine lin-kv Raft mutants and the kafka and txn
 mutants) through :func:`harness.run_torch_test` and prints a JSON
-summary (verdict, invariants, network counters, throughput, device, and
-the fail-fast, availability, funnel and fault blocks where the run has
-them). Unset flags take the harness defaults
+summary (verdict, invariants, network counters, throughput, the verdict
+stage's record, device, and the check, fail-fast, availability, funnel
+and fault blocks where the run has them). Unset flags take the harness defaults
 (``harness.TORCH_DEFAULTS``). Exit code 0 when the run is valid, 1 when
 it is not, 2 for a bad or missing schedule file.
 
@@ -24,7 +24,9 @@ CLI's flags, messages and exit codes:
   schedule to a minimal plan that still trips (1 when an instance could
   not be shrunk, 2 when the run is no fault run).
 
-``triage`` and ``shrink`` replay on ``--device`` (``cuda`` by default).
+``triage`` and ``shrink`` replay on ``--device`` (``cuda`` by default),
+with the run's own options from its heartbeat (``check_mode`` and
+``check_workers`` included).
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ def _positive_int(v: str) -> int:
     n = int(v)
     if n < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
+def _nonnegative_int(v: str) -> int:
+    n = int(v)
+    if n < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {n}")
     return n
 
 
@@ -160,6 +169,25 @@ def _parser() -> argparse.ArgumentParser:
                    help="violation-scan rows per chunk: the fail-fast "
                         "block names the K earliest tripping instances "
                         "(default 8)")
+    p.add_argument("--check-workers", type=_nonnegative_int,
+                   default=None,
+                   help="checker-farm worker processes for the host "
+                        "verdict stage (checkers/pool.py): per-instance "
+                        "histories decode and check in parallel, "
+                        "streaming per chunk. 0 forces the serial path; "
+                        "default auto uses a pool only for >= 16 "
+                        "recorded instances on a multi-core host. "
+                        "Verdicts are identical at every setting")
+    p.add_argument("--check-mode", choices=["farm", "device", "both"],
+                   default="farm",
+                   help="host verdict routing. `farm` checks every "
+                        "recorded instance; `device` keeps per-instance "
+                        "summary lanes in the tick (checkers/"
+                        "device_summary.py) and routes ONLY flagged "
+                        "instances to the farm; `both` runs the farm on "
+                        "everything AND audits that every farm-invalid "
+                        "instance was device-flagged. Flagged verdicts "
+                        "are byte-identical across modes")
     p.add_argument("--no-telemetry", action="store_true")
     p.add_argument("--no-heartbeat", action="store_true",
                    help="do not stream heartbeat.jsonl into the run dir")
@@ -334,7 +362,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .harness import run_torch_test
     from .models import get_model
 
-    opts = {"node_count": args.node_count, "store_root": args.store}
+    opts = {"node_count": args.node_count, "store_root": args.store,
+            "check_workers": args.check_workers,
+            "check_mode": args.check_mode}
     if args.concurrency is not None:
         c = args.concurrency
         opts["concurrency"] = (int(c[:-1]) * args.node_count
@@ -405,8 +435,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     summary["perf"] = {k: perf[k] for k in ("wall-s", "ticks",
                                             "ticks-per-sec",
                                             "msgs-per-sec")}
-    for k in ("checker-errors", "fail-fast", "availability", "funnel",
-              "faults", "fault-fuzz"):
+    summary["perf"]["check"] = perf["phases"]["check"]
+    for k in ("checker-errors", "check", "fail-fast", "availability",
+              "funnel", "faults", "fault-fuzz"):
         if k in res:
             summary[k] = res[k]
     summary["store-dir"] = res.get("store-dir")

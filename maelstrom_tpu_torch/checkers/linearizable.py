@@ -3,8 +3,10 @@
 A copy of ``maelstrom_tpu/checkers/linearizable.py``'s pure-Python
 Wing & Gong / Lowe search (memoized DFS over linearization points,
 quiescent-cut segmentation, an explicit work budget that yields
-``"unknown"``), checked per key. The JAX package's native ``libwgl``
-shim is not carried over: this module is the serial oracle.
+``"unknown"``), checked per key. As in the JAX package, each key goes
+to the native core first (``native.py``, built from
+``cpp/checker/wgl.cpp``) with ten times the state budget, and to the
+Python search only when the core cannot take the case.
 """
 
 from __future__ import annotations
@@ -208,6 +210,7 @@ def linearizable_kv_checker(history, max_ops_per_key: int = 10_000,
                                                 (list, tuple)) \
                 and len(r["value"]) == 2:
             keys.add(r["value"][0])
+    from .native import check_register_history_native
     bad_keys = []
     unknown_keys = []
     for key in sorted(keys, key=repr):
@@ -215,7 +218,12 @@ def linearizable_kv_checker(history, max_ops_per_key: int = 10_000,
         if len(ops) > max_ops_per_key:
             unknown_keys.append(key)
             continue
-        verdict = check_register_history(ops, budget_states=budget_states)
+        # the core's work unit costs ~1/10 of the Python search's: 10x
+        # the budget for the same time (None: a case it cannot take)
+        verdict = check_register_history_native(ops, budget_states * 10)
+        if verdict is None:
+            verdict = check_register_history(ops,
+                                             budget_states=budget_states)
         if verdict is False:
             bad_keys.append(key)
         elif verdict == UNKNOWN:

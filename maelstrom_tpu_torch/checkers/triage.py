@@ -44,8 +44,9 @@ def load_run_info(run_dir: str) -> Dict[str, Any]:
     """What the run dir knows about itself: results.json (when the run
     completed) and the heartbeat prefix. Returns ``{run-dir, results,
     heartbeat, workload, opts, model-config, seed, ticks, chunk-ticks,
-    flagged}``; ``flagged`` comes from the results when there are any,
-    else from the heartbeat in first-seen order."""
+    flagged}``; ``flagged`` comes from the results when there are any
+    (the tripped instances, then those only the device verdict lanes
+    flagged), else from the heartbeat in first-seen order."""
     from ..telemetry.stream import (HEARTBEAT_FILE, flagged_instances,
                                     read_heartbeat)
 
@@ -79,6 +80,12 @@ def load_run_info(run_dir: str) -> Dict[str, Any]:
     if results:
         flagged = list(results.get("invariants", {})
                        .get("violating-instance-ids", []))
+        # the device verdict lanes (check_mode device or both) flag
+        # instances beyond the invariant trips: triage replays them too
+        for i in (results.get("check", {})
+                  .get("flagged-instance-ids", [])):
+            if i not in flagged:
+                flagged.append(i)
     if not flagged and hb:
         flagged = flagged_instances(hb)
 

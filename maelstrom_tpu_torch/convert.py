@@ -60,9 +60,11 @@ def carry_from_numpy(src: Any, row_type=None, device=None) -> Carry:
     legacy models keep it, or a tuple with the fields of ``row_type``),
     ``client_state``, ``stats``, ``violations``, ``key``, and the
     optional ``telemetry``, ``snapshots`` (the slab: an array, or a dict
-    of durable lanes) and ``fault_sched`` (None when absent)."""
+    of durable lanes), ``fault_sched`` and ``check_summary`` (None when
+    absent)."""
     tel = getattr(src, "telemetry", None)
     sched = getattr(src, "fault_sched", None)
+    summ = getattr(src, "check_summary", None)
     return Carry(
         pool=_to_tensor(src.pool, device),
         node_state=_state(src.node_state, row_type, device),
@@ -74,6 +76,7 @@ def carry_from_numpy(src: Any, row_type=None, device=None) -> Carry:
         snapshots=_state(getattr(src, "snapshots", None), row_type, device),
         fault_sched=(None if sched is None
                      else _tuple(FaultSchedule, sched, device)),
+        check_summary=None if summ is None else _to_tensor(summ, device),
     )
 
 

@@ -5,12 +5,15 @@ only), so histories come out byte-identical to the JAX runtime's: one
 vectorized pass emits per-instance column slabs ``(tick, process,
 etype, vals)`` in history order (tick, then process, then completion
 before invocation), and dict records are built lazily at the checker
-boundary.
+boundary. :class:`StreamDecoder` decodes the chunked executor's
+compacted chunks as they arrive (while the card runs the next chunk)
+and hands each chunk's slabs to the checker farm (``checkers/pool.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Sequence
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,6 +28,27 @@ class EventSlab(NamedTuple):
     procs: np.ndarray      # [n] int32 (client index == history process)
     etypes: np.ndarray     # [n] int32 (EV_* codes)
     vals: np.ndarray       # [n, ev_vals] int32
+
+
+def empty_slab(ev_vals: int) -> EventSlab:
+    return EventSlab(ticks=np.zeros((0,), np.int32),
+                     procs=np.zeros((0,), np.int32),
+                     etypes=np.zeros((0,), np.int32),
+                     vals=np.zeros((0, ev_vals), np.int32))
+
+
+def concat_slabs(slabs: Sequence[EventSlab], ev_vals: int) -> EventSlab:
+    """One instance's chunk slabs, concatenated: chunks cover disjoint,
+    increasing tick spans, so the history order holds."""
+    if not slabs:
+        return empty_slab(ev_vals)
+    if len(slabs) == 1:
+        return slabs[0]
+    return EventSlab(
+        ticks=np.concatenate([s.ticks for s in slabs]),
+        procs=np.concatenate([s.procs for s in slabs]),
+        etypes=np.concatenate([s.etypes for s in slabs]),
+        vals=np.concatenate([s.vals for s in slabs], axis=0))
 
 
 def _split_by_instance(order, insts, ticks, procs, etypes, vals,
@@ -63,6 +87,20 @@ def decode_dense(model, events: np.ndarray) -> Dict[int, EventSlab]:
                               R)
 
 
+def decode_compact(model, n_clients: int, n_instances: int,
+                   chunks: Sequence[Tuple[np.ndarray, int]]
+                   ) -> Dict[int, EventSlab]:
+    """Per-chunk compacted ``(rows, count)`` buffers straight into
+    per-instance slabs (the dense tensor is never rebuilt); an
+    overflowed chunk contributes its retained rows."""
+    used = [np.asarray(rows[:min(int(count), rows.shape[0])])
+            for rows, count in chunks if int(count) > 0]
+    if not used:
+        return {}
+    allrows = used[0] if len(used) == 1 else np.concatenate(used, axis=0)
+    return decode_compact_rows(model, n_clients, n_instances, allrows)
+
+
 def decode_compact_rows(model, n_clients: int, n_instances: int,
                         rows: np.ndarray) -> Dict[int, EventSlab]:
     """Column-decode trimmed compact rows ``[(tick, loc, etype,
@@ -81,10 +119,14 @@ def decode_compact_rows(model, n_clients: int, n_instances: int,
 
 
 def materialize_records(model, slab: EventSlab, final_start: int,
-                        ms_per_tick: float) -> List[dict]:
-    """The Jepsen-style dict records of one slab."""
+                        ms_per_tick: float,
+                        index_base: int = 0) -> List[dict]:
+    """The Jepsen-style dict records of one slab — shared by the
+    in-process path and the checker farm's workers, so both build the
+    same bytes. ``index_base`` continues a streamed instance's running
+    ``index`` across its chunk slabs."""
     recs: List[dict] = []
-    idx = 0
+    idx = index_base
     for tick, proc, etype, v in zip(slab.ticks.tolist(), slab.procs.tolist(),
                                     slab.etypes.tolist(),
                                     slab.vals.tolist()):
@@ -133,3 +175,55 @@ class LazyHistories(Sequence):
                                                   self._final_start,
                                                   self._ms_per_tick))
         return self._cache[i]
+
+    def slab(self, i: int) -> Optional[EventSlab]:
+        return self._slabs.get(i)
+
+
+class StreamDecoder:
+    """Incremental column decode for the chunked executor: :meth:`feed`
+    each chunk's compacted rows as they are fetched, then :meth:`finish`
+    into a :class:`LazyHistories`. Each chunk's per-instance slabs also
+    go to ``on_slabs`` (the checker farm's streaming feed)."""
+
+    def __init__(self, model, n_clients: int, n_instances: int,
+                 final_start: int, ms_per_tick: float, on_slabs=None):
+        self._model = model
+        self._C = n_clients
+        self._R = n_instances
+        self._final_start = final_start
+        self._ms_per_tick = ms_per_tick
+        self._on_slabs = on_slabs
+        self._per_instance: Dict[int, List[EventSlab]] = {}
+        self.decode_s = 0.0
+
+    def _add(self, slabs: Dict[int, EventSlab], t0: float) -> None:
+        for inst, slab in slabs.items():
+            self._per_instance.setdefault(inst, []).append(slab)
+        self.decode_s += time.monotonic() - t0
+        if self._on_slabs is not None and slabs:
+            self._on_slabs(slabs)
+
+    def feed(self, rows: np.ndarray, count: int, *_span) -> None:
+        """One chunk's compacted ``rows`` and their ``count`` (past the
+        buffer's length on overflow); ``_span`` is the chunk's ``(t0,
+        length)``, unused."""
+        t0 = time.monotonic()
+        n = min(int(count), rows.shape[0])
+        self._add(decode_compact_rows(self._model, self._C, self._R,
+                                      np.asarray(rows[:n]))
+                  if n else {}, t0)
+
+    def feed_dense(self, events: np.ndarray) -> None:
+        """The single-loop executor's dense events, in one piece."""
+        t0 = time.monotonic()
+        self._add(decode_dense(self._model, events), t0)
+
+    def finish(self) -> LazyHistories:
+        t0 = time.monotonic()
+        V = self._model.ev_vals
+        merged = {inst: concat_slabs(parts, V)
+                  for inst, parts in self._per_instance.items()}
+        self.decode_s += time.monotonic() - t0
+        return LazyHistories(self._model, merged, self._R,
+                             self._final_start, self._ms_per_tick)

@@ -3,10 +3,13 @@
 Counterpart of ``maelstrom_tpu/tpu/harness.py``: :func:`run_torch_test`
 builds a :class:`SimConfig` from CLI-style opts, runs the fleet (chunked
 with event compaction, optionally stopping early on an invariant trip,
-or in one loop), decodes the recorded instances' events into histories,
-checks every recorded instance, replays the instances whose on-device
-invariants tripped (the funnel), and writes the JAX harness's store
-layout. The virtual clock is 1 tick = ``ms_per_tick`` simulated ms.
+or in one loop), decodes the recorded instances' events into histories
+as the chunks arrive and checks them in the checker farm
+(``checkers/pool.py``) — every recorded instance, or with
+``check_mode="device"`` only those the device verdict lanes flagged —
+replays the instances whose on-device invariants tripped (the funnel),
+and writes the JAX harness's store layout. The virtual clock is 1 tick
+= ``ms_per_tick`` simulated ms.
 
 Runs go to the card (``device="cuda"``) unless the caller asks for the
 CPU; with no card and no CPU request they raise — a measurement path
@@ -24,9 +27,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .checkers import checker_failure, compose_valid
+from .checkers import compose_valid, device_summary
 from .checkers.availability import availability_checker
-from .decode import LazyHistories, decode_compact_rows, decode_dense
+from .checkers.pool import (VerdictPipeline, check_instances,
+                            resolve_check_workers)
+from .decode import LazyHistories, decode_dense
 from .faults import (FAULT_KINDS, compile_fault_fuzz, compile_fault_plan,
                      generate_fault_plan)
 from .faults import fuzz as faults_fuzz
@@ -86,22 +91,30 @@ TORCH_DEFAULTS = dict(
     availability=None,       # None, "total" or a fraction of ok ops
     funnel=True,             # replay the invariant-tripping instances
     funnel_max=32,           # ... at most this many
+    check_workers=None,      # checker-farm worker processes (checkers/
+                             # pool.py): 0 = serial, None = auto (a pool
+                             # for >= 16 recorded instances on a
+                             # multi-core host); verdicts are identical
+                             # at every setting
+    check_mode="farm",       # verdict routing: "farm" checks every
+                             # recorded instance on the host; "device"
+                             # runs the device verdict lanes (checkers/
+                             # device_summary.py) and the farm checks
+                             # only the flagged instances; "both" runs
+                             # both and audits the lanes against the farm
 )
+CHECK_MODES = ("farm", "device", "both")
 
 # options of the JAX harness that change neither the trajectory nor the
 # verdict and have no counterpart here, accepted and not used: the
 # device profiler (not ported; ROADMAP A.6), the executable store and
-# the compilation cache (the port compiles nothing per run), and the
-# checker farm's worker count (the port checks serially)
-LIFECYCLE_OPTS = ("device_profile", "aot_store", "check_workers",
-                  "compile_cache")
-# JAX-harness options the port implements only at their neutral value
-NEUTRAL_OPTS = {"check_mode": ("farm", None)}
+# the compilation cache (the port compiles nothing per run)
+LIFECYCLE_OPTS = ("device_profile", "aot_store", "compile_cache")
 # model-selection flags (models.get_model builds the model from them; the
 # harness holds the model to them) and the Elle checker's model names
 MODEL_OPTS = ("crash_clients", "txn_dirty_apply", "consistency_models")
-KNOWN_OPTS = (set(TORCH_DEFAULTS) | set(LIFECYCLE_OPTS) | set(NEUTRAL_OPTS)
-              | set(MODEL_OPTS) | {"store_root", "device"})
+KNOWN_OPTS = (set(TORCH_DEFAULTS) | set(LIFECYCLE_OPTS) | set(MODEL_OPTS)
+              | {"store_root", "device"})
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -124,11 +137,6 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
     if unknown:
         raise ValueError(f"option(s) {', '.join(unknown)} not implemented "
                          f"by maelstrom_tpu_torch")
-    for k, neutral in NEUTRAL_OPTS.items():
-        if opts.get(k) not in neutral:
-            raise ValueError(f"option {k}={opts[k]!r} is not implemented "
-                             f"by maelstrom_tpu_torch (only "
-                             f"{' or '.join(map(repr, neutral))})")
     _check_model_opts(model, opts)
     o = {**TORCH_DEFAULTS, **opts}
     if o.get("layout", "lead") not in ("lead", "auto"):
@@ -194,12 +202,17 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
         hist_buckets=min(max(int(o.get("telemetry_hist_buckets", 16)), 1),
                          31),
         stride=stride, n_windows=max(1, -(-n_ticks // stride)))
+    check_mode = o.get("check_mode") or "farm"
+    if check_mode not in CHECK_MODES:
+        raise ValueError(f"unknown check_mode {check_mode!r} "
+                         "(expected farm/device/both)")
     return SimConfig(net=net, client=client, nemesis=nemesis,
                      n_instances=o["n_instances"], n_ticks=n_ticks,
                      record_instances=min(o["record_instances"],
                                           o["n_instances"]),
                      journal_instances=journal_instances,
-                     telemetry=telemetry, faults=faults)
+                     telemetry=telemetry, faults=faults,
+                     check_summary=check_mode in ("device", "both"))
 
 
 def _check_model_opts(model: Model, opts: Dict[str, Any]) -> None:
@@ -343,21 +356,6 @@ def _write_jsonl(path: str, records) -> None:
             f.write(json.dumps(r) + "\n")
 
 
-def check_histories(model: Model, histories, opts: Dict[str, Any]
-                    ) -> List[dict]:
-    """The workload checker over each history, serially; a checker that
-    raises gives a failing verdict with its traceback."""
-    checker = model.checker()
-    name = getattr(model, "checker_name", None) or f"{model.name}-checker"
-    out = []
-    for inst, history in enumerate(histories):
-        try:
-            out.append(checker(history, opts))
-        except Exception as e:   # a checker blow-up is a failing verdict
-            out.append(checker_failure(e, checker=name, instance=inst))
-    return out
-
-
 def replay_instances(model: Model, opts: Dict[str, Any],
                      instance_ids: List[int], device=None
                      ) -> Dict[str, Any]:
@@ -366,7 +364,9 @@ def replay_instances(model: Model, opts: Dict[str, Any],
     return ``{ids, replayed-violating, verdicts, histories}``. Draws are
     pure functions of (seed, purpose, tick, instance id), so each
     instance replays the trajectory it had in the fleet; the count of
-    replayed instances whose invariants trip again is the self-check."""
+    replayed instances whose invariants trip again is the self-check.
+    The checks go through the checker farm with the run's
+    ``check_workers`` (serial for a small replay under auto)."""
     opts = {**TORCH_DEFAULTS, **opts}
     dev = resolve_device(device or opts.get("device"))
     K = len(instance_ids)
@@ -379,7 +379,11 @@ def replay_instances(model: Model, opts: Dict[str, Any],
                                                   ys.events.cpu().numpy()),
                               K, sim.client.final_start,
                               opts["ms_per_tick"])
-    verdicts = check_histories(model, histories, opts)
+    verdicts = check_instances(
+        model, histories, opts,
+        workers=resolve_check_workers(opts.get("check_workers"), K),
+        final_start=sim.client.final_start,
+        ms_per_tick=opts["ms_per_tick"])
     for iid, h, v in zip(instance_ids, histories, verdicts):
         v["instance"] = int(iid)
         v["ops"] = sum(1 for r in h if r["type"] == "invoke")
@@ -479,6 +483,13 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
         hb = HeartbeatWriter(run_dir, dict(
             heartbeat_meta(model, sim, opts, fuzz_windows),
             pipeline=bool(use_pipe)))
+    # the verdict stage: the farm's workers start before the run (their
+    # start-up overlaps the card's work) and take each chunk's slabs as
+    # the executor consumes it
+    verdict = VerdictPipeline(
+        model, C, R, sim.client.final_start, opts["ms_per_tick"], opts,
+        resolve_check_workers(opts.get("check_workers"), R))
+    events = None
     t0 = time.monotonic()
     try:
         if use_pipe:
@@ -489,15 +500,12 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                 event_cap=int(opts.get("event_capacity") or 0) or None,
                 scan_k=int(opts.get("scan_top_k") or 1),
                 fail_fast=bool(opts.get("fail_fast")), heartbeat=hb,
-                fuzz_windows=fuzz_windows)
+                fuzz_windows=fuzz_windows, event_sink=verdict.feed_chunk,
+                check_mode=opts.get("check_mode"))
             carry = pipe_res.carry
             journal_sends = pipe_res.journal_sends
             journal_recvs = pipe_res.journal_recvs
             phases["pipeline"] = pipe_res.perf
-            rows = [r[:min(n, r.shape[0])] for r, n in pipe_res.compact]
-            allrows = (np.concatenate(rows, axis=0) if rows
-                       else np.zeros((0, 3 + model.ev_vals), np.int32))
-            decode = lambda: decode_compact_rows(model, C, R, allrows)
         else:
             carry, ys = run_sim(model, sim, int(opts["seed"]), dev)
             events = (ys.events.cpu().numpy() if ys.events is not None
@@ -506,36 +514,44 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
             journal_sends, journal_recvs = (
                 None if x is None else x.cpu().numpy()
                 for x in (ys.journal_sends, ys.journal_recvs))
-            decode = lambda: decode_dense(model, events)
     except BaseException:
+        verdict.close()
         if hb is not None:
             # no run-end record: the heartbeat's prefix marks a dead run
             hb.close()
         raise
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    t_dec = time.monotonic()
-    wall = t_dec - t0
+    wall = time.monotonic() - t0
     fleet = None
     if carry.telemetry is not None:
         tel = carry.telemetry
         fleet = fleet_summary(type(tel)(*(x.cpu().numpy() for x in tel)),
                               sim, opts["ms_per_tick"])
-    slabs = decode()
-    histories = LazyHistories(model, slabs, R, sim.client.final_start,
-                              opts["ms_per_tick"])
-    phases["decode-s"] = round(time.monotonic() - t_dec, 4)
-
-    t_chk = time.monotonic()
-    per_instance = check_histories(model, histories, opts)
-    check_s = time.monotonic() - t_chk
-    phases["check-s"] = round(check_s, 4)
+    if events is not None:
+        verdict.feed_dense(events)
+    # --check-mode device: the lanes and the invariants pick the recorded
+    # instances the farm checks; the others were screened clean on the
+    # card and cost no host checker work
+    check_mode = opts.get("check_mode") or "farm"
+    violations = carry.violations.cpu().numpy()
+    summ = (carry.check_summary.cpu().numpy()
+            if carry.check_summary is not None else None)
+    flagged_all = device_summary.flagged_mask(violations, summ)
+    flagged_ids = np.nonzero(flagged_all)[0]
+    per_instance, histories, check_rec = verdict.finish(
+        flagged=[int(i) for i in flagged_ids if i < R]
+        if check_mode == "device" else None)
+    if summ is not None:
+        check_rec["check-mode"] = check_mode
+        check_rec["farm-load-fraction"] = round(
+            check_rec["farm-instances"] / max(1, R), 6)
+    phases["check"] = check_rec
     availability = None
     if opts.get("availability") is not None:
         availability = availability_checker(
             [r for h in histories for r in h], opts["availability"])
 
-    violations = carry.violations.cpu().numpy()
     n_violating = int((violations > 0).sum())
     violating_ids = np.nonzero(violations)[0]
     overall = compose_valid(r.get("valid?", True) for r in per_instance)
@@ -570,16 +586,38 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
             "dropped-loss": stats["dropped_loss"],
             "dropped-overflow": stats["dropped_overflow"],
         },
-        "device": device_info(dev),
-        "perf": {
-            "wall-s": wall,
-            "ticks": ticks_run,
-            "ticks-per-sec": ticks_run / wall if wall > 0 else 0.0,
-            "msgs-per-sec": stats["delivered"] / wall if wall > 0 else 0.0,
-            "instance-ticks-per-sec": (sim.n_instances * ticks_run / wall
-                                       if wall > 0 else 0.0),
-            "phases": phases,
-        },
+    }
+    if summ is not None:
+        results["check"] = {
+            "mode": check_mode,
+            # fleet-wide, recorded or not: triage replays these
+            "flagged-instances": int(flagged_all.sum()),
+            "flagged-instance-ids": flagged_ids[:1024].tolist(),
+            "farm-instances": check_rec["farm-instances"],
+            "farm-load-fraction": check_rec["farm-load-fraction"],
+            "summary-bytes-per-tick":
+                device_summary.summary_bytes_per_tick(sim.n_instances),
+        }
+        if check_mode == "both":
+            # the audit: the farm checked every recorded instance, so a
+            # farm-invalid one the lanes did not flag is a screening gap
+            # (device mode would have passed it)
+            missed = [i for i, r in enumerate(per_instance)
+                      if r.get("valid?") is False
+                      and not bool(flagged_all[i])]
+            results["check"]["device-vs-farm"] = {
+                "complete": not missed, "missed-instance-ids": missed}
+            if missed:
+                results["valid?"] = False
+    results["device"] = device_info(dev)
+    results["perf"] = {
+        "wall-s": wall,
+        "ticks": ticks_run,
+        "ticks-per-sec": ticks_run / wall if wall > 0 else 0.0,
+        "msgs-per-sec": stats["delivered"] / wall if wall > 0 else 0.0,
+        "instance-ticks-per-sec": (sim.n_instances * ticks_run / wall
+                                   if wall > 0 else 0.0),
+        "phases": phases,
     }
     if pipe_stats and pipe_stats.get("overflowed-chunks"):
         results["events-truncated"] = True
@@ -646,13 +684,7 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
             status="stopped" if results.get("fail-fast") else "complete",
             **{"valid?": results["valid?"],
                "violating-instances": n_violating,
-               # the JAX verdict stage's record; the port checks serially
-               "check": {"mode": "serial", "workers": 0, "instances": R,
-                         "farm-instances": len(per_instance),
-                         "decode-s": phases["decode-s"],
-                         "check-s": phases["check-s"],
-                         "verdicts-per-s": (round(len(per_instance)
-                                                  / check_s, 1)
-                                            if check_s > 0 else None)},
+               # the verdict stage's record (perf.phases.check)
+               "check": check_rec,
                **({"store-dir": run_dir} if run_dir else {})})
     return results

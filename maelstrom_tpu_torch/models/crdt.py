@@ -7,8 +7,6 @@ CRDT state in fixed lanes and each tick, with probability
 a lattice join (bitwise OR of a set's bitmask words, pointwise max of a
 counter table). The element domain is capped: 64 set elements in two
 int32 words, so an element's bit 31 is ``INT32_MIN`` in its word.
-
-The device verdict lane (``summary_step``) is not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import rng, wire, xla_math
+from ..checkers import device_summary as ds
 from ..runtime import EV_INFO, EV_OK, Model, op_rows
 from ..topology import adjacency
 
@@ -141,6 +140,24 @@ class GossipSetModel(_GossipModel):
                               cfg.lanes, (read_body[:, 0], read_body[:, 1]))
         return row, out
 
+    def summary_step(self, summ, node_state, events, cfg, params=None):
+        """The grow-only set lane, per instance: frontier = the popcount
+        of the nodes' union bitmask (monotone: a g-set only grows); hash
+        = the union words. Model flag: a read completing while some view
+        still differs from node 0's inside the unsettled window (it may
+        show a lost element to the host checker)."""
+        # [I, N, 2, 32]: every bit of every word, the union by max over N
+        bit = torch.arange(32, device=node_state.device)
+        bits = ((node_state.long() & 0xFFFFFFFF)[..., None] >> bit) & 1
+        union_bits = bits.amax(dim=1)                          # [I, 2, 32]
+        frontier = union_bits.flatten(1).sum(dim=1)
+        union = (union_bits << bit).sum(dim=-1)
+        unsettled = (node_state[:, 1:] != node_state[:, :1]).flatten(1).any(
+            dim=1)
+        h = union[:, 0] * ds.HASH_C1 + union[:, 1] * ds.HASH_C2
+        summ, stale = ds.stale_read_window(summ, events, unsettled, F_READ)
+        return ds.fold_frontier(summ, frontier, h, model_flag=stale)
+
     # --- client side --------------------------------------------------------
 
     def sample_op(self, keys, uniq, cfg, params=None):
@@ -253,6 +270,29 @@ class PNCounterModel(_GossipModel):
                               _sel(mtype == T_ADD, T_ADD_OK, T_READ_OK),
                               cfg.lanes, (_sel(mtype == T_READ, value, 0),))
         return row, out
+
+    def summary_step(self, summ, node_state, events, cfg, params=None):
+        """The counter-table lane over ``[I, viewer N, origin N, 2]``:
+        frontier = the per-origin max over viewers, summed over origins
+        and both polarities (adds and max-merges only grow entries);
+        hash = that max table. Model flag: some viewer's entry for origin
+        o above o's own (views only propagate by gossip from the origin),
+        or a read completing while some view lags its origin inside the
+        unsettled window (the interval checker's stale read)."""
+        best = node_state.amax(dim=1)                          # [I, N, 2]
+        frontier = best.flatten(1).sum(dim=1)
+        n = node_state.shape[1]
+        diag = torch.arange(n, device=node_state.device)
+        own = node_state[:, diag, diag]                        # [I, N, 2]
+        inflated = (node_state > own[:, None]).flatten(1).any(dim=1)
+        unsettled = (node_state < own[:, None]).flatten(1).any(dim=1)
+        flat = best.flatten(1).long()
+        pos = torch.arange(flat.shape[1], device=flat.device)
+        h = (((flat * ds.HASH_C1 + pos) & 0xFFFFFFFF)
+             * ((pos << 1) | 1)).sum(dim=1)
+        summ, stale = ds.stale_read_window(summ, events, unsettled, F_READ)
+        return ds.fold_frontier(summ, frontier, h,
+                                model_flag=inflated | stale)
 
     # --- client side --------------------------------------------------------
 

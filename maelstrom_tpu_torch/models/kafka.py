@@ -19,8 +19,6 @@ may legally jump backwards (the checker marks it reassigned).
 Mutants: :class:`KafkaOffsetReuse` hands out the same offset twice (a
 non-atomic fetch-and-add); :class:`KafkaCommitRegression` lets a commit
 overwrite instead of taking the maximum.
-
-The device verdict lane (``summary_step``) is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .. import rng, wire, xla_math
+from ..checkers import device_summary as ds
 from ..runtime import EV_INFO, EV_OK, TYPE_ERROR, Model
 from .raft_core import sel, set_drop, tget
 
@@ -208,6 +207,25 @@ class KafkaModel(Model):
     def invariants(self, ns: KafkaRow, cfg, params=None) -> torch.Tensor:
         """Per instance: a committed offset at or past its log's end."""
         return (ns.committed >= ns.log_len).flatten(1).any(dim=1)
+
+    def summary_step(self, summ, ns: KafkaRow, events, cfg, params=None):
+        """The committed-offset lane, per instance: frontier = the
+        committed watermark summed over every (node, key) — per-slot
+        commits only advance on a correct trace, so a commit overwritten
+        downward (KafkaCommitRegression) regresses the sum even where
+        another node holds a higher offset; hash = every node's committed
+        log prefix (forensic only: replication legitimately churns it);
+        model flag = a committed offset at or past the log end."""
+        committed = ns.committed                               # [I, N, K]
+        frontier = (committed + 1).flatten(1).sum(dim=1)
+        pos = torch.arange(self.log_cap, device=committed.device)
+        in_pref = pos <= committed[..., None]                  # [I, N, K, cap]
+        terms = (((ns.log_vals.long() * ds.HASH_C1 + pos) & 0xFFFFFFFF)
+                 * ((pos << 1) | 1))
+        h = torch.where(in_pref, terms, 0).flatten(1).sum(dim=1)
+        return ds.fold_frontier(
+            summ, frontier, h,
+            model_flag=(committed >= ns.log_len).flatten(1).any(dim=1))
 
     # --- client side --------------------------------------------------------
 

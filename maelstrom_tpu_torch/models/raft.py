@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from .. import rng, wire, xla_math
+from ..checkers import device_summary as ds
 from ..runtime import EV_INFO, EV_OK, Model
 from . import raft_core
 from .raft_core import (ENTRY_LANES, F_CAS, F_READ, F_WRITE, NIL,  # noqa: F401
@@ -241,6 +242,28 @@ class RaftModel(Model):
         log_mismatch = (diff & in_prefix).flatten(1).any(dim=1)
         overwrote = (ns.truncated_committed > 0).any(dim=1)
         return two_leaders | log_mismatch | overwrote
+
+    def summary_step(self, summ, ns: RaftRow, events, cfg, params=None):
+        """The committed-prefix lane, per instance: frontier = the max
+        commit index (monotone: commit_idx is a durable lane); hash = the
+        max-commit node's (the first, on a tie) committed-prefix hash;
+        divergence = the nodes' prefix hashes disagreeing at the min
+        commit index (every node has committed that far), the sticky
+        overwrote witness, or a log end below ``last_applied`` (an
+        applied entry vanished: the dirty-apply mutants' lost acked
+        txns, which the committed-prefix lanes cannot see)."""
+        commit = ns.commit_idx                                 # [I, N]
+        frontier = commit.max(dim=1).values
+        ref = commit.argmax(dim=1)
+        terms = ds.prefix_terms(ns.log_term, ns.log_body)      # [I, N, LOGN]
+        pos = torch.arange(self.log_cap, device=commit.device)
+        h = ds.masked_hash(tget(terms, ref), pos < frontier[:, None])
+        in_lo = pos < commit.min(dim=1).values[:, None]        # [I, LOGN]
+        hs = ds.masked_hash(terms, in_lo[:, None, :])          # [I, N]
+        diverged = ((hs != tget(hs, ref)[:, None]).any(dim=1)
+                    | (ns.truncated_committed > 0).any(dim=1)
+                    | (ns.log_len < ns.last_applied).any(dim=1))
+        return ds.fold_frontier(summ, frontier, h, diverged=diverged)
 
     # --- client side --------------------------------------------------------
 

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .checkers import device_summary
 from .faults import fuzz as faults_fuzz
 from .faults.engine import span_summary
 from .runtime import (Carry, EV_NONE, Model, SimConfig, default_instance_ids,
@@ -181,6 +182,16 @@ def violation_scan(violations: torch.Tensor, telemetry,
                         insts.to(torch.int32)], dim=1)
 
 
+def scan_source(carry: Carry) -> torch.Tensor:
+    """What the chunk scan counts: each instance's violation ticks, plus
+    one when a device verdict lane flagged it (the JAX executor's
+    source), so a flag counts as a trip."""
+    if carry.check_summary is None:
+        return carry.violations
+    flags = carry.check_summary[:, device_summary.L_FLAGS]
+    return carry.violations + (flags != 0).to(torch.int32)
+
+
 class PipelineResult(NamedTuple):
     carry: Carry
     compact: List[Tuple[np.ndarray, int]]   # per chunk (rows, count)
@@ -196,7 +207,8 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                       chunk: int = 100, event_cap: Optional[int] = None,
                       scan_k: int = DEFAULT_SCAN_TOP_K,
                       fail_fast: bool = False,
-                      heartbeat=None, fuzz_windows=None) -> PipelineResult:
+                      heartbeat=None, fuzz_windows=None, event_sink=None,
+                      check_mode: Optional[str] = None) -> PipelineResult:
     """Run the horizon chunk by chunk; returns the final carry, each
     chunk's compacted event rows, executor stats, the violation scan
     of the last consumed chunk and the journaled instances' sent rows
@@ -215,7 +227,16 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     :class:`.telemetry.stream.HeartbeatWriter`) gets one record per
     consumed chunk; it only reads what the chunk copied, and on a fuzz
     run the fleet's drawn windows ``fuzz_windows``
-    (``fuzz.fleet_windows``) for its span counters."""
+    (``fuzz.fleet_windows``) for its span counters.
+
+    With the device verdict lanes on (``sim.check_summary``) the scan
+    counts flagged instances — invariant trips or summary flags — so
+    ``fail_fast`` stops on any device-detected suspicion and, with
+    ``check_mode`` given, each heartbeat record gains the ``check`` lane
+    ``{mode, flagged, of}``. ``event_sink(rows, count, t0, length)``
+    receives each consumed chunk's compacted events (the streaming
+    verdict stage, ``checkers/pool.py``: chunk *k* decodes while chunk
+    *k + 1* runs)."""
     if instance_ids is None:
         instance_ids = default_instance_ids(sim, device)
     R, J, V = sim.record_instances, sim.journal_instances, model.ev_vals
@@ -242,6 +263,8 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
             ovf = count > rows.shape[0]
             stats["overflowed-chunks"] += int(ovf)
             compact.append((rows, count))
+            if event_sink is not None:
+                event_sink(rows, count, t0, length)
         if J > 0:
             journal.append((host.pop(0).numpy(), host.pop(0).numpy()))
         last_scan[0] = host.pop().numpy()
@@ -252,6 +275,12 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                     fuzz_windows, t0, length)}
             elif sim.faults.active:
                 extra = {"fault": span_summary(sim.faults, t0, length)}
+            if sim.check_summary and check_mode:
+                # the scan already counts the flagged instances
+                extra = dict(extra or {})
+                extra["check"] = {"mode": check_mode,
+                                  "flagged": int(last_scan[0][0, 0]),
+                                  "of": sim.n_instances}
             heartbeat.record_chunk(
                 chunk=k, t0=t0, ticks=length,
                 net=stats_vec_to_net(host.pop().numpy()),
@@ -276,7 +305,7 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                 if J > 0:
                     sends.append(ys.journal_sends)
                     recvs.append(ys.journal_recvs)
-            scan = violation_scan(carry.violations, carry.telemetry,
+            scan = violation_scan(scan_source(carry), carry.telemetry,
                                   instance_ids, k=scan_k)
             out = ((buf.rows, buf.count) if buf is not None else ()) + (
                 (torch.stack(sends), torch.stack(recvs)) if J > 0 else ())

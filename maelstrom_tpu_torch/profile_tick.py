@@ -2,7 +2,7 @@
 
     python -m maelstrom_tpu_torch.profile_tick [--workload lin-kv]
         [--node-count N] [--topology T] [--pool-slots S]
-        [--instances 4096] [--ticks 20] [--fuzz]
+        [--instances 4096] [--ticks 20] [--fuzz] [--lanes]
         [--out chiprun_out/tick_profile.json]
 
 Runs a fleet of ``fleets.py`` on ``cuda``: for lin-kv (the default) the
@@ -16,11 +16,12 @@ tutorial workloads their family run. ``--node-count`` (clients follow
 at one per node for broadcast), ``--topology`` and ``--pool-slots``
 change it. ``--fuzz`` adds the benchmark's all-healthy fault
 distribution (``faults.fuzz.BENCH_FUZZ_DIST``) as a second
-configuration in the same process. Each configuration warms up past
-the first partition phase (t >= 400); then ``--ticks`` ticks are timed
-on the host clock around a synchronize (wall ms/tick), in turns bare,
-fuzz, fuzz, bare, and each configuration profiles the same number of
-ticks. Per configuration and per tick it reports the kernels launched,
+configuration in the same process, and ``--lanes`` the device verdict
+lanes (``check_mode="device"``). Each configuration warms up past the
+first partition phase (t >= 400); then ``--ticks`` ticks are timed on
+the host clock around a synchronize (wall ms/tick), in turns in the
+order given and back (bare, fuzz, lanes, lanes, fuzz, bare), and each
+configuration profiles the same number of ticks. Per configuration and per tick it reports the kernels launched,
 the device-busy time (sum of kernel durations) and so the idle share,
 the delivery kernel's device time, and per phase (the runtime's
 ``record_function`` ranges) the host time and the busy device time of
@@ -31,7 +32,8 @@ CUDA card; refuses to run without one.
 on the CPU and prints the operators dispatched per tick, views left
 out — on the card nearly each is one kernel launch (4,136 for the
 flagship against the 4,134 kernels its card profile shows), so it
-predicts a tick's launches before a chip run.
+predicts a tick's launches before a chip run; with ``--lanes`` also
+with the lanes on.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import time
 import torch
 
 PHASES = ("nemesis", "faults", "deliver", "node_phase", "client_step",
-          "enqueue", "telemetry")
+          "enqueue", "check_summary", "telemetry")
 
 
 class _Fleet:
@@ -181,6 +183,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fuzz", action="store_true",
                     help="also profile under the benchmark's all-healthy "
                          "fault distribution, in the same process")
+    ap.add_argument("--lanes", action="store_true",
+                    help="also profile with the device verdict lanes on "
+                         "(check_mode device), in the same process")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the operators a tick dispatches, on the "
                          "CPU at 8 instances (no card needed)")
@@ -208,22 +213,29 @@ def main(argv=None) -> int:
                           fleets.FLAGSHIP_MODEL_KW
                           if args.workload == "lin-kv" else None)
     if args.count_ops:
-        n = dispatched_ops_per_tick(model, dict(opts, n_instances=8),
-                                    args.warmup_to, args.ticks)
-        print(json.dumps({"workload": args.workload,
-                          "dispatched_ops_per_tick": n}))
+        rec = {"workload": args.workload,
+               "dispatched_ops_per_tick": dispatched_ops_per_tick(
+                   model, dict(opts, n_instances=8), args.warmup_to,
+                   args.ticks)}
+        if args.lanes:
+            rec["dispatched_ops_per_tick_lanes"] = dispatched_ops_per_tick(
+                model, dict(opts, n_instances=8, check_mode="device"),
+                args.warmup_to, args.ticks)
+        print(json.dumps(rec))
         return 0
     build.build_all([delivery.SOURCE])
     dev = torch.device("cuda")
     configs = {"bare": opts}
     if args.fuzz:
         configs["fuzz"] = dict(opts, fault_fuzz=BENCH_FUZZ_DIST)
+    if args.lanes:
+        configs["lanes"] = dict(opts, check_mode="device")
     runs = {}
     with torch.no_grad():
         for name, o in configs.items():
             runs[name] = _Fleet(model, o, dev)
             runs[name].run(args.warmup_to)
-        order = list(configs) + list(configs)[::-1]   # bare, fuzz, fuzz, bare
+        order = list(configs) + list(configs)[::-1]   # bare, ..., bare
         walls = {name: [] for name in configs}
         for name in order:
             walls[name].append(runs[name].wall_ms(args.ticks))

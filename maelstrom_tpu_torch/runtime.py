@@ -16,7 +16,8 @@ and steps them all each tick:
     enqueue     : crash/park send masks, client retarget, then
                   netsim.enqueue with latency, loss and the link planes
     faults      : the snapshot slab update
-    invariants + the telemetry fold
+    invariants, the device verdict lanes (checkers/device_summary.py)
+                  and the telemetry fold
 
 Every random draw derives from (master key, purpose, [tick,] instance
 id) through ``rng.fold_in``, exactly as in JAX, so an instance's
@@ -34,6 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from . import netsim, rng, wire, xla_math
+from .checkers import device_summary
 from .faults import engine as faults_engine
 from .faults import fuzz as faults_fuzz
 from .faults.engine import NO_PLANES, FaultConfig
@@ -156,6 +158,20 @@ class Model:
         """Per-instance bool ``[I]``: True = violated this tick."""
         x = tree_leaves(node_state)[0]
         return torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+
+    def summary_step(self, summ, node_state, events, cfg: NetConfig,
+                     params=None) -> torch.Tensor:
+        """The device verdict lanes' model hook
+        (``checkers/device_summary.py``): fold each instance's committed
+        frontier, prefix hash and divergence witness into its summary row
+        — normally one ``device_summary.fold_frontier`` call. Runs every
+        tick for every instance when ``check_mode`` is ``device`` or
+        ``both``: ``summ [I, N_LANES]``, ``node_state`` leaves ``[I, N,
+        ...]``, ``events [I, C, 2, 2 + ev_vals]`` (slot 0 the
+        completions). A nonzero FLAGS lane routes the instance to the
+        host farm. Default: the identity (the runtime still folds the
+        availability and net counter twins)."""
+        return summ
 
     def sample_op(self, keys, uniq, cfg, params=None):
         raise NotImplementedError
@@ -485,6 +501,8 @@ class SimConfig(NamedTuple):
     telemetry: TelemetryConfig = TelemetryConfig()
     faults: FaultConfig = FaultConfig()   # the fault plan or fuzz
                                           # distribution (faults/)
+    check_summary: bool = False  # the device verdict lanes
+                                 # (check_mode device or both)
 
 
 class TickOutputs(NamedTuple):
@@ -509,6 +527,8 @@ class Carry(NamedTuple):
                                 # unless a crash or membership lane runs
     fault_sched: Any = None     # faults.fuzz.FaultSchedule [I, ...],
                                 # drawn at init; None unless fuzzing
+    check_summary: Any = None   # the device verdict lanes [I, N_LANES]
+                                # int32; None unless sim.check_summary
 
 
 # RNG purpose tags (runtime.py in the JAX package)
@@ -588,6 +608,8 @@ def init_carry(model: Model, sim: SimConfig, seed: int, device=None,
         telemetry=flight.init_telemetry(I, sim.telemetry, device),
         snapshots=snapshots,
         fault_sched=fault_sched,
+        check_summary=(device_summary.init_summary(I, device)
+                       if sim.check_summary else None),
     )
 
 
@@ -731,6 +753,12 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 dropped_loss=s.dropped_loss + sum_i32(n_lost),
                 dropped_overflow=s.dropped_overflow + sum_i32(n_ovf))
             violated = model.invariants(node_state, cfg, params)
+        with record_function("check_summary"):
+            # the full fleet's events, before the [:R] slice below
+            summ = device_summary.update_summary(
+                model, carry.check_summary, node_state, events, n_sent,
+                n_del, cfg, params)
+        with record_function("telemetry"):
             tel = _update_telemetry(
                 carry.telemetry, sim, t, events, invoked_prev,
                 netsim.pool_occupancy(pool), inbox,
@@ -740,7 +768,8 @@ def make_tick_fn(model: Model, sim: SimConfig,
                           client_state=client_state, stats=stats,
                           violations=carry.violations + violated.to(_I32),
                           key=key, telemetry=tel, snapshots=snapshots,
-                          fault_sched=carry.fault_sched)
+                          fault_sched=carry.fault_sched,
+                          check_summary=summ)
         R, J = sim.record_instances, sim.journal_instances
         # copies: a view would hold the whole fleet's rows until the
         # chunk's journal is stacked

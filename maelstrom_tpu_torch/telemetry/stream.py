@@ -261,6 +261,15 @@ def render_chunk_line(rec: Dict[str, Any]) -> str:
             if fz.get(lane):
                 bits.append(f"{lane} {fz[lane]}")
         parts.append("fuzz[" + " ".join(bits) + "]")
+    chk = rec.get("check")
+    if chk:
+        # the device verdict lanes: the fleet's flagged count this chunk,
+        # `check[device flagged 3/100k]`
+        of = chk.get("of", 0)
+        of_s = (f"{of // 1000}k" if of >= 1000 and of % 1000 == 0
+                else str(of))
+        parts.append(f"check[{chk.get('mode', '?')} flagged "
+                     f"{chk.get('flagged', 0)}/{of_s}]")
     parts.append("OVERFLOW" if rec.get("events-overflowed") else "")
     n_lanes = len(rec.get("violations") or ())
     more = f", +{n_lanes - 1} more named" if v and n_lanes > 1 else ""

@@ -322,15 +322,15 @@ def test_harness_under_plan_matches_jax(tmp_path):
     (dict(topology="tree"), "topology"),
     (dict(layout="minor"), "layout"),
     (dict(checkpoint_every=2), "checkpoint_every"),
-    (dict(check_mode="device"), "check_mode"),
+    (dict(check_mode="bogus"), "check_mode"),
     (dict(profile_dir="profile"), "profile_dir"),
     (dict(run_tag="item0"), "run_tag"),
     (dict(nemesis=["partition", "bridge"]), "bridge"),
     (dict(nemesis_kind="ring"), "ring"),
 ])
 def test_unimplemented_option_raises(extra, msg):
-    """Nothing is dropped silently: an option the port does not
-    implement raises, naming it."""
+    """Nothing is dropped silently: an option (or an option value) the
+    port does not implement raises, naming it."""
     _, model = _models(OPTS)
     with pytest.raises(ValueError, match=msg):
         harness.make_sim_config(model, dict(OPTS, **extra))

@@ -115,6 +115,27 @@ Phases (any failure exits non-zero and prints no result line):
     load fraction, and, if the lanes flagged any instance of the correct
     model, which flag bits.
 
+12. the campaign on the card, in the side card worker (after its phase
+    3 and phase 10 work): a one-item campaign spec of the bare flagship
+    (``fleets.FLAGSHIP``, 4096 instances, 1,000 ticks in 100-tick
+    chunks, a carry checkpoint every 2 chunks; a spec cannot carry the
+    flagship model's ``log_cap`` and ``heartbeat``, so the item runs
+    ``get_model("lin-kv", 3)``) is submitted with ``campaign submit``,
+    drained by ``python -m maelstrom_tpu_torch campaign run`` in a
+    child process, which is SIGKILLed once ``checkpoint/state.npz``
+    reaches tick 400, and finished by ``campaign resume`` (in the side
+    worker): the item must be done and resumed, its heartbeat must hold
+    one resume seam and end at 1,000 ticks, and its results (less
+    ``perf``) and recorded history must equal an uninterrupted,
+    checkpointed card run of the same options (run in the side worker
+    while the child runs); the resumed suffix must launch the delivery
+    kernel once per tick (the killed child's launches die with it and
+    are not counted). Then a 24-instance, 150-tick checkpointed flagship
+    on the card and on the CPU (a reference worker) must leave
+    ``state.npz`` files equal array by array. It prints the
+    ``state.npz`` size, each save's ``checkpoint-s``, the restore time,
+    and the checkpointed runs' ticks/s beside phase 4's.
+
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
 txn-list-append (bare, and under a crash and links plan, whose slab
@@ -129,7 +150,7 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-11 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-12 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
 its phase 10 compares the CPU with itself).
@@ -238,6 +259,14 @@ LANES_MUTANT_KW = dict(log_cap=64, heartbeat=8)
 # ticks (cut from 2.5 s)
 SWEEP_RECORDED = 1024
 SWEEP_TIME_LIMIT = 0.2
+# phase 12: the campaign item (the bare flagship, 1,000 ticks in 100-tick
+# chunks, a checkpoint every 2 chunks), killed once its checkpoint
+# reaches KILL_AT_TICKS, and the small card-against-CPU checkpointed run
+CAMPAIGN = dict(time_limit=1.0, chunk_ticks=100, checkpoint_every=2)
+KILL_AT_TICKS = 400
+CHILD_DEADLINE_S = 300
+SMALL_CHECKPOINT = dict(n_instances=24, time_limit=0.15, chunk_ticks=50,
+                        checkpoint_every=1)
 # phase 3's scripted run: the JAX tests' Figure-8 options
 # (tests/test_tpu_raft.py:70-75) at 24 instances for 200 ticks, the
 # rotating majorities in 50-tick phases until tick 150 (cut from 250 and
@@ -885,6 +914,204 @@ def flag_bits(dev, model, opts, ids):
         ("model", ds.FLAG_MODEL))}
 
 
+def _child_env():
+    """The environment of a child ``python -m maelstrom_tpu_torch``: this
+    checkout on its path."""
+    import os
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+
+
+def _ckpt_ticks(run_dir):
+    """The tick frontier of ``run_dir``'s checkpoint (its header alone),
+    or None."""
+    import os
+    from maelstrom_tpu_torch.campaign.checkpoint import checkpoint_path
+    path = checkpoint_path(run_dir)
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())["ticks"]
+
+
+def _segment_rates(run_dir):
+    """Ticks per second of each heartbeat segment (the killed run, then
+    each resumed one): its ticks over its last chunk record's wall-s."""
+    import os
+    with open(os.path.join(run_dir, "heartbeat.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    rates, seg, start = [], [], None
+    for rec in records:
+        if rec.get("type") == "resume":
+            seg, start = [], rec["from-ticks"]
+            rates.append(None)
+        elif rec.get("type") == "chunk":
+            seg.append(rec)
+            if start is None:
+                start = 0
+                rates.append(None)
+            last = seg[-1]
+            rates[-1] = round((last["t0"] + last["ticks"] - start)
+                              / last["wall-s"], 3)
+    return rates
+
+
+def campaign_phase(dev_name, root, item_opts, kill_at):
+    """Phase 12 in the side card worker: submit a one-item campaign,
+    drain it in a child ``campaign run`` SIGKILLed at a checkpoint of
+    tick ``kill_at`` or later, run the uninterrupted checkpointed
+    reference here meanwhile, then ``campaign resume`` here. Checks the
+    item against the reference; returns what the main process logs."""
+    import os
+    import signal
+    import subprocess
+    import threading
+    from maelstrom_tpu_torch import harness
+    from maelstrom_tpu_torch.campaign import queue as cqueue
+    from maelstrom_tpu_torch.campaign.checkpoint import checkpoint_path
+    from maelstrom_tpu_torch.kernels import delivery
+    from maelstrom_tpu_torch.models import get_model
+    label = "phase 12 (campaign)"
+    spec = os.path.join(root, "flagship-campaign.json")
+    with open(spec, "w") as f:
+        json.dump({"name": "flagship", "items": [
+            dict(item_opts, workload="lin-kv")]}, f)
+    store = os.path.join(root, "campaign-store")
+    cdir = _cli(label, "campaign", "submit", spec, "--store", store)[-1]
+    out = {"cdir": cdir}
+    child_log = os.path.join(root, "campaign-run.log")
+    t0 = time.monotonic()
+    with open(child_log, "w") as log_f:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "maelstrom_tpu_torch", "campaign", "run",
+             cdir, "--device", dev_name], env=_child_env(), stdout=log_f,
+            stderr=subprocess.STDOUT)
+    killed = {}
+
+    def watch_and_kill():
+        deadline = time.monotonic() + CHILD_DEADLINE_S
+        while time.monotonic() < deadline and child.poll() is None:
+            run_dir = cqueue.list_items(cdir)[0].get("run-dir")
+            ticks = _ckpt_ticks(run_dir) if run_dir else None
+            if ticks is not None and ticks >= kill_at:
+                child.send_signal(signal.SIGKILL)
+                killed.update(ticks=ticks, s=time.monotonic() - t0)
+                return
+            time.sleep(0.2)
+
+    watcher = threading.Thread(target=watch_and_kill)
+    watcher.start()
+    try:
+        # the uninterrupted reference, on the card alongside the child
+        delivery.deliver.launches = 0
+        t_ref = time.monotonic()
+        ref = harness.run_torch_test(
+            get_model("lin-kv", item_opts["node_count"]),
+            dict(item_opts, store_root=os.path.join(root, "campaign-ref")),
+            device=dev_name)
+        out["ref_s"] = time.monotonic() - t_ref
+        out["ref_launches"] = delivery.deliver.launches
+    finally:
+        watcher.join()
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+    if not killed:
+        with open(child_log) as f:
+            tail = f.read()[-2000:]
+        raise AssertionError(f"{label}: the child campaign run ended "
+                             f"(rc {child.returncode}) or stalled before "
+                             f"a checkpoint at tick {kill_at}: {tail}")
+    item = cqueue.list_items(cdir)[0]
+    if item["status"] != "running":
+        raise AssertionError(f"{label}: the killed item is "
+                             f"{item['status']}, not running")
+    run_dir = item["run-dir"]
+    delivery.deliver.launches = 0
+    t_res = time.monotonic()
+    lines = _cli(label, "campaign", "resume", cdir, "--device", dev_name)
+    out["resume_s"] = time.monotonic() - t_res
+    out["resume_launches"] = delivery.deliver.launches
+    item = cqueue.list_items(cdir)[0]
+    from maelstrom_tpu_torch.telemetry.stream import read_heartbeat
+    hb = read_heartbeat(run_dir)
+    results = _read_json(run_dir, "results.json")
+    pipe = results["perf"]["phases"]["pipeline"]
+    resumed_from = pipe.get("resumed-from-ticks")
+    if not (item["status"] == "done" and item["valid?"] is True
+            and item["resumed-from-checkpoint"] is True):
+        raise AssertionError(f"{label}: item {item['status']}, valid? "
+                             f"{item.get('valid?')}, resumed "
+                             f"{item.get('resumed-from-checkpoint')}: "
+                             f"{lines[-5:]}")
+    ticks = results["perf"]["ticks"]
+    if len(hb["resumes"]) != 1 or hb["end"] is None \
+            or hb["end"]["ticks"] != ticks:
+        raise AssertionError(f"{label}: heartbeat seams {hb['resumes']}, "
+                             f"end {hb['end']}")
+    if resumed_from is None or resumed_from < killed["ticks"]:
+        raise AssertionError(f"{label}: resumed from {resumed_from}, the "
+                             f"child was killed at a checkpoint of tick "
+                             f"{killed['ticks']}")
+    ref_j = json.loads(json.dumps(ref, default=repr))
+    differ = [k for k in set(results) | set(ref_j)
+              if k not in ("perf", "store-dir")
+              and results.get(k) != ref_j.get(k)]
+    if differ:
+        raise AssertionError(f"{label}: the resumed item's results differ "
+                             f"from the uninterrupted run's in {differ}")
+    n_hist = results["checked-instances"]
+    _same_files(run_dir, ref["store-dir"],
+                [f"history-{i}.jsonl" for i in range(n_hist)], label)
+    if dev_name != "cpu" and (out["resume_launches"] != ticks - resumed_from
+                              or out["ref_launches"] != ticks):
+        raise AssertionError(f"{label}: delivery kernel launched "
+                             f"{out['resume_launches']} times for the "
+                             f"{ticks - resumed_from} resumed ticks and "
+                             f"{out['ref_launches']} for the reference's "
+                             f"{ticks}")
+    ref_pipe = ref["perf"]["phases"]["pipeline"]
+    out.update(
+        killed_at=killed["ticks"], killed_after_s=killed["s"],
+        resumed_from=resumed_from, ticks=ticks, net=results["net"],
+        npz_bytes=os.path.getsize(checkpoint_path(run_dir)),
+        ref_save_s=ref_pipe.get("checkpoint-save-s"),
+        resume_save_s=pipe.get("checkpoint-save-s"),
+        restore_s=results["perf"]["phases"].get("restore-s"),
+        ref_tps=ref["perf"]["ticks-per-sec"],
+        segment_tps=_segment_rates(run_dir), histories=n_hist,
+        attempts=item["attempts"])
+    return out
+
+
+def checkpoint_run(dev_name, root, opts):
+    """Phase 12's small checkpointed flagship on ``dev_name``: the path of
+    the last ``state.npz`` it wrote."""
+    import os
+    from maelstrom_tpu_torch import fleets, harness
+    from maelstrom_tpu_torch.campaign.checkpoint import checkpoint_path
+    model, _ = fleets.fleet("lin-kv")
+    res = harness.run_torch_test(model, dict(
+        opts, store_root=os.path.join(root, f"checkpoint-{dev_name}")),
+        device=dev_name)
+    return checkpoint_path(res["store-dir"])
+
+
+def same_npz(a, b, label):
+    """Two ``state.npz`` files equal array by array: the same keys, and
+    every array's dtype, shape and values, the header included."""
+    with np.load(a) as x, np.load(b) as y:
+        if sorted(x.files) != sorted(y.files):
+            raise AssertionError(f"{label}: keys differ")
+        for k in x.files:
+            if x[k].dtype != y[k].dtype or x[k].shape != y[k].shape \
+                    or not np.array_equal(x[k], y[k]):
+                raise AssertionError(f"{label}: {k} differs")
+        header = json.loads(bytes(x["__meta__"]).decode())
+        return len(x.files), header
+
+
 def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
     """A fleet's options cut to a small input: partitions every
     ``interval`` s, healed 0.05 s before the end."""
@@ -926,6 +1153,8 @@ def main(argv) -> int:
     sweep_opts = dict(fleets.BUG_HUNT, fail_fast=False,
                       record_instances=SWEEP_RECORDED,
                       time_limit=SWEEP_TIME_LIMIT)
+    campaign = (dict(fleets.FLAGSHIP, **CAMPAIGN), KILL_AT_TICKS,
+                small(fleets.FLAGSHIP) | SMALL_CHECKPOINT)
     # paths cut to keep the script well inside its 1,200 s limit on a
     # slow host (PERF.md §6): the flagship to 1 s (from 4; healed at
     # tick 700), the broadcast fleet to 1 s (from 2; healed at tick
@@ -963,6 +1192,9 @@ def main(argv) -> int:
                            time_limit=0.15)
         sweep_opts |= dict(n_instances=64, record_instances=32,
                            time_limit=0.1, chunk_ticks=50)
+        # one checkpoint (tick 100 of 200) to kill at
+        campaign = (campaign[0] | dict(n_instances=16, time_limit=0.2,
+                                       chunk_ticks=50), 100, campaign[2])
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -997,7 +1229,7 @@ def main(argv) -> int:
         return drive_paths(dev, full, rehearse, record, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
-                           lanes_opts, sweep_model, sweep_opts)
+                           lanes_opts, sweep_model, sweep_opts, campaign)
     finally:
         for pool in (side, refs):
             pool.shutdown(wait=True, cancel_futures=True)
@@ -1045,12 +1277,14 @@ def phase3_runs(opts, bopts, paths):
 def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
                 flagship, bopts, bmodel, paths, txn_paths, hunt_model,
                 hunt_opts, lanes_spec, lanes_opts, sweep_model,
-                sweep_opts) -> int:
-    """Phases 3-11 and the result lines. Phase 10's fuzz run and card
-    shrink, then phase 3's card runs, go to the side card worker
-    ``side``, and the CPU halves of phases 3, 10 and 11 (a) to the
-    reference workers ``refs``, while this process drives phases 4-9;
-    phase 3 is checked after phase 9."""
+                sweep_opts, campaign) -> int:
+    """Phases 3-12 and the result lines. Phase 10's fuzz run and card
+    shrink, then phase 3's card runs, then phase 12's card work go to
+    the side card worker ``side``, and the CPU halves of phases 3, 10,
+    11 (a) and 12 to the reference workers ``refs``, while this process
+    drives phases 4-9; phase 3 is checked after phase 9, phase 12 after
+    phase 11. ``campaign`` is phase 12's ``(item options, kill tick,
+    small checkpointed run's options)``."""
     import os
     from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
     dev_name = str(dev)
@@ -1069,6 +1303,11 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
         # byte for byte (tests/test_torch_check_pool.py)
         submit(refs, _cpu_test, lanes_spec,
                dict(lanes_opts, check_workers=0)))
+    item_opts, kill_at, small_ckpt = campaign
+    campaign_refs = (
+        submit(side, campaign_phase, dev_name, root, item_opts, kill_at),
+        submit(side, checkpoint_run, dev_name, root, small_ckpt),
+        submit(refs, checkpoint_run, "cpu", root, small_ckpt))
     res, launches = run_path(dev, flagship,
                              dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
                              "phase 4 (flagship, BENCH_FUZZ_DIST)")
@@ -1176,8 +1415,48 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     by_path["phase 11 sweep, both mode"] = b_launches
     by_path["phase 11 sweep, device mode"] = d_launches
     mark("phase 11")
+    camp, t_camp = campaign_refs[0].result()
+    (card_npz, t_card), (cpu_npz, t_cpu) = (campaign_refs[1].result(),
+                                            campaign_refs[2].result())
+    label = "phase 12 (campaign)"
+    log(f"{label}: {camp['cdir']}: the child `campaign run` was SIGKILLed "
+        f"{camp['killed_after_s']:.1f} s after its start, at a checkpoint of "
+        f"tick {camp['killed_at']}; `campaign resume` resumed the item "
+        f"from tick {camp['resumed_from']} and finished it in "
+        f"{camp['resume_s']:.1f} s: done, valid, resumed, attempts "
+        f"{camp['attempts']}, one heartbeat seam, the end at "
+        f"{camp['ticks']} ticks; results and {camp['histories']} "
+        f"recorded history equal to the uninterrupted checkpointed run "
+        f"({camp['ref_s']:.1f} s, alongside the child); net "
+        f"{json.dumps(camp['net'])}; the side worker's phase 12 "
+        f"{t_camp:.1f} s")
+    log(f"{label}: state.npz {camp['npz_bytes']} B; checkpoint-s per "
+        f"save: uninterrupted run {camp['ref_save_s']}, resumed segment "
+        f"{camp['resume_save_s']}; restore-s {camp['restore_s']}")
+    log(f"{label}: ticks/s: the checkpointed uninterrupted run "
+        f"{camp['ref_tps']:.2f}, the killed and the resumed segments "
+        f"{camp['segment_tps']} (heartbeat), phase 4's flagship "
+        f"{res['perf']['ticks-per-sec']:.2f} (its own model, under "
+        f"BENCH_FUZZ_DIST, not checkpointed)")
+    n_arrays, header = same_npz(card_npz, cpu_npz,
+                                "phase 12 (checkpoint, card vs CPU)")
+    log(f"phase 12 (checkpoint, card vs CPU): the "
+        f"{small_ckpt['n_instances']}-instance "
+        f"{int(small_ckpt['time_limit'] * 1000)}-tick checkpointed "
+        f"flagship's state.npz at tick {header['ticks']} ({n_arrays} "
+        f"arrays) on {dev} ({t_card:.1f} s) equals the CPU's "
+        f"({t_cpu:.1f} s) array by array, header included")
+    by_path["phase 12 campaign resume, resumed suffix"] = \
+        camp["resume_launches"]
+    by_path["phase 12 uninterrupted checkpointed run"] = \
+        camp["ref_launches"]
+    mark("phase 12 (its card work in the side worker)")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
+    record["launches_not_counted"] = {
+        "phase 12 campaign run child": "SIGKILLed mid-run: its launch "
+        "count dies with the process; the resumed suffix and the "
+        "uninterrupted run of the same item are counted"}
     # the journaled bug hunt's rows: its shape's launches on the path
     record["shapes"]["bug-hunt-netid"]["launches"] = (
         h_launches["deliver"] + f_launches["triage"])

@@ -22,11 +22,23 @@ CLI's flags, messages and exit codes:
   cannot be triaged);
 - ``shrink RUN_DIR`` delta-debugs each flagged instance's fault
   schedule to a minimal plan that still trips (1 when an instance could
-  not be shrunk, 2 when the run is no fault run).
+  not be shrunk, 2 when the run is no fault run);
+- ``watch --campaign CAMPAIGN_DIR`` renders every item's live row (0
+  once every item is done or failed, 3 before).
 
 ``triage`` and ``shrink`` replay on ``--device`` (``cuda`` by default),
 with the run's own options from its heartbeat (``check_mode`` and
 ``check_workers`` included).
+
+``campaign submit|run|status|resume|report`` is the durable campaign
+control plane (``campaign/``), with the JAX CLI's arguments and exit
+codes: ``submit SPEC`` expands a sweep into a queued campaign dir;
+``run DIR`` drains it on ``--device``, each item checkpointing its
+carry (1 if an item failed or was invalid); ``resume DIR`` requeues a
+dead worker's items and drains them, each resumed from its checkpoint,
+or finishes one killed run dir in place; ``status`` and ``report``
+render the live table and the trend summary. A spec, queue or
+checkpoint that cannot be used exits 2.
 """
 
 from __future__ import annotations
@@ -193,6 +205,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="do not stream heartbeat.jsonl into the run dir")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
     p.add_argument("--chunk-ticks", type=int)
+    p.add_argument("--checkpoint-every", type=_nonnegative_int,
+                   default=None,
+                   help="durable carry checkpoint every K chunks (0 = "
+                        "off). A checkpointed run killed at any point "
+                        "resumes in place with `campaign resume "
+                        "<run-dir>`; needs --store and the chunked "
+                        "executor")
     p.add_argument("--seed", type=int)
     p.add_argument("--store", default="store")
     p.add_argument("--device", default="cuda",
@@ -209,7 +228,10 @@ def _parser() -> argparse.ArgumentParser:
     p_watch.add_argument("--interval", type=float, default=1.0,
                          help="--follow poll interval in seconds")
     p_watch.add_argument("--campaign", action="store_true",
-                         help="campaign dirs: not ported (refused)")
+                         help="PATH is a campaign dir: render every "
+                              "item's live row (merged heartbeats); "
+                              "-f re-renders until every item is done "
+                              "or failed")
 
     p_triage = sub.add_parser(
         "triage", help="replay a run's flagged instances and write "
@@ -253,7 +275,98 @@ def _parser() -> argparse.ArgumentParser:
                           help="replay budget per instance (default 24)")
     p_shrink.add_argument("--device", default="cuda",
                           help="torch device of the replays")
+
+    p_camp = sub.add_parser(
+        "campaign", help="durable sweep campaigns: submit a work-queue "
+                         "matrix, drain and resume it across process "
+                         "deaths, aggregate trend reports")
+    camp_sub = p_camp.add_subparsers(dest="action", required=True)
+    c_submit = camp_sub.add_parser(
+        "submit", help="expand a campaign spec (JSON; TOML on Python "
+                       "3.11+) into a queued campaign dir")
+    c_submit.add_argument("path", help="campaign spec file")
+    c_submit.add_argument("--store", default="store")
+    c_run = camp_sub.add_parser(
+        "run", help="drain the queue: claim items and run them through "
+                    "the chunked executor with periodic carry "
+                    "checkpoints; exit 1 if any item failed or was "
+                    "invalid")
+    c_run.add_argument("path", help="campaign dir (from submit)")
+    c_run.add_argument("--max-items", type=_positive_int, default=None)
+    c_run.add_argument("--checkpoint-every", type=_nonnegative_int,
+                       default=None,
+                       help="chunks between carry checkpoints "
+                            "(default 4; 0 disables)")
+    c_run.add_argument("--compile-cache", default=None,
+                       help="the JAX CLI's compile cache: accepted and "
+                            "not used (the port compiles nothing per "
+                            "run)")
+    c_run.add_argument("--aot-store", default=None,
+                       help="the JAX CLI's executable store: accepted "
+                            "and not used")
+    c_run.add_argument("--triage", action="store_true",
+                       help="run `triage` on each invalid item's run dir")
+    c_run.add_argument("--device", default="cuda",
+                       help="torch device of the runs")
+    c_status = camp_sub.add_parser(
+        "status", help="merge every item's heartbeat into one live "
+                       "table")
+    c_status.add_argument("path", help="campaign dir")
+    c_resume = camp_sub.add_parser(
+        "resume", help="campaign dir: requeue dead workers' items and "
+                       "drain (each resumes from its checkpoint); run "
+                       "dir: finish that one run in place, equal to an "
+                       "uninterrupted run")
+    c_resume.add_argument("path", help="campaign dir or run dir")
+    c_resume.add_argument("--max-items", type=_positive_int,
+                          default=None)
+    c_resume.add_argument("--force", action="store_true",
+                          help="also requeue running items with no or "
+                               "foreign locks (lost remote worker)")
+    c_resume.add_argument("--triage", action="store_true",
+                          help="triage invalid items")
+    c_resume.add_argument("--device", default="cuda",
+                          help="torch device of the runs")
+    c_report = camp_sub.add_parser(
+        "report", help="aggregate completed items into "
+                       "<campaign>/summary.json trend rows")
+    c_report.add_argument("path", help="campaign dir")
+    c_report.add_argument("--no-static-cost", action="store_true",
+                          help="leave out the ir-bytes-est column "
+                               "(null in the port: no static cost "
+                               "model)")
     return ap
+
+
+def _watch_campaign(args) -> int:
+    """``watch --campaign``: every item of a campaign dir in one table,
+    re-rendered each poll with ``--follow`` until every item is done or
+    failed."""
+    from .campaign.queue import DONE, FAILED, QueueError
+    from .campaign.report import campaign_status, render_status
+
+    try:
+        status = campaign_status(args.path)
+    except QueueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not args.follow:
+        print(render_status(status))
+        settled = all(r["status"] in (DONE, FAILED)
+                      for r in status["items"])
+        return 0 if settled else 3
+    try:
+        while True:
+            status = campaign_status(args.path)
+            print(render_status(status), flush=True)
+            if all(r["status"] in (DONE, FAILED)
+                   for r in status["items"]):
+                return 0
+            time.sleep(args.interval)
+            print()
+    except KeyboardInterrupt:
+        print()
+        return 130
 
 
 def cmd_watch(args) -> int:
@@ -263,9 +376,7 @@ def cmd_watch(args) -> int:
                                    render_chunk_line, render_watch_report)
 
     if args.campaign:
-        print("error: watch --campaign tails a campaign dir; campaigns "
-              "are not ported to maelstrom_tpu_torch", file=sys.stderr)
-        return 2
+        return _watch_campaign(args)
     path = heartbeat_path(os.path.realpath(args.path))
     if not os.path.exists(path):
         print(f"error: no heartbeat at {args.path} (heartbeat.jsonl is "
@@ -354,11 +465,79 @@ def cmd_shrink(args) -> int:
     return 0
 
 
+def _drained(summary) -> int:
+    print(f"\nran {summary['ran']} item(s): {summary['done']} done "
+          f"({summary['invalid']} invalid), {summary['failed']} failed")
+    return 1 if (summary["failed"] or summary["invalid"]) else 0
+
+
+def cmd_campaign(args) -> int:
+    """The durable campaign control plane (``campaign/``)."""
+    from .campaign.checkpoint import CheckpointError
+    from .campaign.queue import (QueueError, load_campaign,
+                                 requeue_stale, submit_campaign)
+    from .campaign.report import (campaign_report, campaign_status,
+                                  render_report, render_status)
+    from .campaign.runner import resume_run, run_campaign
+    from .campaign.spec import SpecError, load_spec
+
+    try:
+        if args.action == "submit":
+            cdir = submit_campaign(load_spec(args.path), args.store)
+            meta = load_campaign(cdir)
+            print(f"submitted campaign {meta['name']!r}: "
+                  f"{meta['n-items']} item(s)")
+            print(cdir)
+            return 0
+        if args.action == "run":
+            requeued = requeue_stale(args.path)
+            if requeued:
+                print(f"requeued {len(requeued)} preempted item(s): "
+                      f"{requeued}")
+            # only explicit flags override the items' spec options
+            overrides = {k: getattr(args, k) for k in (
+                "checkpoint_every", "compile_cache", "aot_store")
+                if getattr(args, k) is not None}
+            return _drained(run_campaign(
+                args.path, max_items=args.max_items, overrides=overrides,
+                triage_invalid=args.triage, device=args.device))
+        if args.action == "status":
+            print(render_status(campaign_status(args.path)))
+            return 0
+        if args.action == "resume":
+            if os.path.exists(os.path.join(args.path, "campaign.json")):
+                # a campaign dir: requeue dead work, then drain it
+                requeued = requeue_stale(args.path, force=args.force)
+                print(f"requeued {len(requeued)} preempted item(s)"
+                      + (f": {requeued}" if requeued else ""))
+                return _drained(run_campaign(
+                    args.path, max_items=args.max_items,
+                    triage_invalid=args.triage, device=args.device))
+            # a run dir: finish it in place
+            results = resume_run(os.path.realpath(args.path),
+                                 device=args.device)
+            print(json.dumps(results, indent=2, default=repr))
+            verdict = results.get("valid?")
+            return 0 if verdict is True else (
+                2 if verdict == "unknown" else 1)
+        if args.action == "report":
+            summary = campaign_report(
+                args.path, static_cost=not args.no_static_cost)
+            print(render_report(summary))
+            print(f"\nwrote {os.path.join(args.path, 'summary.json')}")
+            return 0
+    except (SpecError, QueueError, CheckpointError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    raise AssertionError(f"unhandled campaign action {args.action!r}")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd != "test":
         return {"watch": cmd_watch, "triage": cmd_triage,
-                "shrink": cmd_shrink}[args.cmd](args)
+                "shrink": cmd_shrink,
+                "campaign": cmd_campaign}[args.cmd](args)
     from .harness import run_torch_test
     from .models import get_model
 
@@ -374,7 +553,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "rpc_timeout", "p_loss", "n_instances", "record_instances",
                  "inbox_k", "pool_slots", "ms_per_tick", "pipeline",
                  "chunk_ticks", "fault_snapshot_every", "scan_top_k",
-                 "journal_instances", "seed"):
+                 "journal_instances", "checkpoint_every", "seed"):
         v = getattr(args, flag)
         if v is not None:
             opts[flag] = v

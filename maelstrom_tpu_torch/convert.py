@@ -17,7 +17,7 @@ also its slab), and a dict of lanes (the Raft and txn slab).
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Tuple
+from typing import Any, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -105,3 +105,21 @@ def carry_leaves(carry: Any, prefix: str = "carry"
             yield from carry_leaves(carry[k], f"{prefix}.{k}")
     elif carry is not None:
         yield prefix, np.asarray(carry)
+
+
+def carry_with_leaves(template: Any, leaves: Iterable[np.ndarray]) -> Any:
+    """``template`` (a carry with numpy leaves) with its leaves taken, in
+    :func:`carry_leaves` order, from ``leaves``: the inverse of
+    :func:`carry_leaves` on one structure. Dicts keep the template's key
+    order."""
+    it = iter(leaves)
+
+    def fill(t):
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(fill(getattr(t, f)) for f in t._fields))
+        if isinstance(t, dict):
+            filled = {k: fill(t[k]) for k in sorted(t)}
+            return {k: filled[k] for k in t}
+        return None if t is None else next(it)
+
+    return fill(template)

@@ -8,8 +8,11 @@ as the chunks arrive and checks them in the checker farm
 (``checkers/pool.py``) — every recorded instance, or with
 ``check_mode="device"`` only those the device verdict lanes flagged —
 replays the instances whose on-device invariants tripped (the funnel),
-and writes the JAX harness's store layout. The virtual clock is 1 tick
-= ``ms_per_tick`` simulated ms.
+and writes the JAX harness's store layout. With ``checkpoint_every`` K
+a stored chunked run checkpoints its carry every K chunks, and
+``run_torch_test(..., resume_from=run_dir)`` finishes a killed one in
+place (``campaign/``). The virtual clock is 1 tick = ``ms_per_tick``
+simulated ms.
 
 Runs go to the card (``device="cuda"``) unless the caller asks for the
 CPU; with no card and no CPU request they raise — a measurement path
@@ -80,6 +83,12 @@ TORCH_DEFAULTS = dict(
                              # violation scan trips (at most one chunk
                              # in flight runs past it)
     scan_top_k=8,
+    checkpoint_every=0,      # chunks between carry checkpoints (campaign/
+                             # checkpoint.py; 0 = off): a checkpointed
+                             # run killed at any point resumes in place
+                             # (`campaign resume <run-dir>`)
+    run_tag=None,            # store-dir suffix (<ts>-<tag>): campaign
+                             # items pass item<k>
     nemesis_kind="random-halves",
     nemesis_schedule=(),     # kind="scripted": ((until_tick, ((dst, src),
                              # ...)), ...)
@@ -114,7 +123,7 @@ LIFECYCLE_OPTS = ("device_profile", "aot_store", "compile_cache")
 # harness holds the model to them) and the Elle checker's model names
 MODEL_OPTS = ("crash_clients", "txn_dirty_apply", "consistency_models")
 KNOWN_OPTS = (set(TORCH_DEFAULTS) | set(LIFECYCLE_OPTS) | set(MODEL_OPTS)
-              | {"store_root", "device"})
+              | {"store_root", "store_dir", "device"})
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -291,11 +300,14 @@ def device_info(device: torch.device) -> Dict[str, Any]:
     return {"type": device.type, "name": device.type, "count": 1}
 
 
-def prepare_store_dir(name: str, store_root: str) -> str:
+def prepare_store_dir(name: str, store_root: str,
+                      tag: Optional[str] = None) -> str:
     """A fresh run directory ``<store_root>/<name>-torch/<timestamp>``
-    with a ``latest`` symlink repointed atomically."""
+    (``<timestamp>-<tag>`` with a ``tag``: campaign items pass
+    ``item<k>``) with a ``latest`` symlink repointed atomically."""
     from datetime import datetime
-    base = datetime.now().strftime("%Y%m%d-%H%M%S-%f")
+    ts = datetime.now().strftime("%Y%m%d-%H%M%S-%f")
+    base = f"{ts}-{tag}" if tag else ts
     parent = os.path.join(store_root, f"{name}-torch")
     d = os.path.join(parent, base)
     for attempt in range(2, 100):
@@ -305,13 +317,16 @@ def prepare_store_dir(name: str, store_root: str) -> str:
         except FileExistsError:
             d = os.path.join(parent, f"{base}-{attempt}")
     latest = os.path.join(parent, "latest")
-    tmp = os.path.join(parent, f".latest-tmp-{os.getpid()}")
+    # one temporary name per call: threads of one process share the pid
+    tmp = os.path.join(parent, f".latest-tmp-{os.getpid()}-{id(d)}")
     try:
         os.symlink(os.path.basename(d), tmp)
         os.replace(tmp, latest)
     except OSError:
-        if os.path.lexists(tmp):
+        try:
             os.unlink(tmp)
+        except OSError:
+            pass
     return d
 
 
@@ -395,10 +410,10 @@ def replay_instances(model: Model, opts: Dict[str, Any],
     }
 
 
-# options that, with the model, fix a run's trajectory: the heartbeat's
-# run-start record carries them, so triage and shrink can rebuild the
-# run's SimConfig and replay its instances (the JAX harness's list, less
-# the checkpoint stride, which the port has no option for)
+# options that, with the model, fix a run's trajectory, and the policy
+# knobs a resumed run keeps: the heartbeat's run-start record carries
+# them, so triage, shrink and campaign resume can rebuild the run (the
+# JAX harness's list)
 _REPRO_OPT_KEYS = (
     "node_count", "concurrency", "rate", "time_limit", "latency",
     "latency_dist", "p_loss", "nemesis", "nemesis_interval",
@@ -408,7 +423,8 @@ _REPRO_OPT_KEYS = (
     "telemetry_stride", "telemetry_hist_buckets", "chunk_ticks",
     "event_capacity", "seed", "topology", "availability",
     "consistency_models", "key_count", "pipeline", "fail_fast",
-    "scan_top_k", "funnel", "funnel_max", "check_workers", "check_mode",
+    "scan_top_k", "funnel", "funnel_max", "checkpoint_every",
+    "check_workers", "check_mode",
     "aot_store", "fault_plan", "fault_fuzz", "fault_snapshot_every",
     "crash_clients", "txn_dirty_apply")
 
@@ -449,22 +465,74 @@ def heartbeat_meta(model: Model, sim: SimConfig, opts: Dict[str, Any],
     return meta
 
 
+def _resume_state(model: Model, sim: SimConfig, seed: int, run_dir: str,
+                  dev: torch.device):
+    """The cut a killed run left in ``<run_dir>/checkpoint/``, its carry
+    rebuilt on ``dev`` in the structure of the port's own init carry."""
+    from .campaign.checkpoint import (KIND_PIPELINED, KIND_SHARDED,
+                                      SHARDED_REFUSAL, CheckpointError,
+                                      load_checkpoint, restore_carry)
+    from .pipeline import ResumeState
+    from .runtime import init_carry
+    ck = load_checkpoint(run_dir)
+    if ck is None:
+        raise CheckpointError(
+            f"{run_dir} has no checkpoint to resume from "
+            f"(checkpointing is opt-in: --checkpoint-every K)")
+    if ck["kind"] == KIND_SHARDED:
+        raise CheckpointError(f"{run_dir} holds a 'sharded' checkpoint: "
+                              + SHARDED_REFUSAL)
+    if ck["kind"] != KIND_PIPELINED:
+        raise CheckpointError(
+            f"{run_dir} holds a {ck['kind']!r} checkpoint; "
+            f"run_torch_test resumes single-device runs only")
+    template = init_carry(model, sim, seed, dev)
+    return ResumeState(carry=restore_carry(template, ck["carry"],
+                                           device=dev),
+                       ticks=int(ck["ticks"]), chunks=int(ck["chunks"]),
+                       compact=tuple(ck["compact"]),
+                       journal=tuple(ck["journal"]))
+
+
 def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
-                   device: Optional[str] = None) -> Dict[str, Any]:
+                   device: Optional[str] = None,
+                   resume_from: Optional[str] = None) -> Dict[str, Any]:
     """Configure, run, decode, check — one run of the fleet.
 
     ``device`` (or ``opts["device"]``) defaults to ``cuda``. The results
     carry the JAX harness's keys in its order, and the port's
     ``device``, ``perf.ticks-per-sec``, ``faults`` and ``fault-fuzz``.
     A run with a store streams ``heartbeat.jsonl`` into its directory
-    from the first chunk on (``heartbeat=False`` turns it off)."""
+    from the first chunk on (``heartbeat=False`` turns it off).
+
+    ``resume_from`` continues a checkpointed run in place: pass the
+    killed run's store dir, with ``opts`` rebuilt from its heartbeat's
+    run-start record (``campaign.runner.resume_run`` does both). The run
+    restores the carry and the host accumulators from
+    ``<run_dir>/checkpoint/``, appends a resume seam to the heartbeat,
+    and rewrites the run dir's artifacts with results equal to an
+    uninterrupted run's."""
     opts = {**TORCH_DEFAULTS, **(opts or {})}
     dev = resolve_device(device or opts.get("device"))
     sim = make_sim_config(model, opts)
-    run_dir = (prepare_store_dir(model.name, opts["store_root"])
-               if opts.get("store_root") else None)
-    R, C = sim.record_instances, sim.client.n_clients
+    run_dir = None
+    resume = None
     phases: Dict[str, Any] = {}
+    if resume_from is not None:
+        t_r = time.monotonic()
+        run_dir = os.path.realpath(resume_from)
+        resume = _resume_state(model, sim, int(opts["seed"]), run_dir, dev)
+        phases["restore-s"] = round(time.monotonic() - t_r, 4)
+        opts = {**opts, "pipeline": "on"}   # checkpoints are chunked
+    elif opts.get("store_dir"):
+        # the caller made (and recorded) the run dir: a campaign item
+        # knows where its checkpoint lives before the run starts
+        run_dir = opts["store_dir"]
+        os.makedirs(run_dir, exist_ok=True)
+    elif opts.get("store_root"):
+        run_dir = prepare_store_dir(model.name, opts["store_root"],
+                                    tag=opts.get("run_tag"))
+    R, C = sim.record_instances, sim.client.n_clients
     pipe_res = None
     use_pipe = resolve_pipeline(sim, opts)
     if opts.get("fail_fast") and not use_pipe:
@@ -480,15 +548,44 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
     hb = None
     if run_dir and opts.get("heartbeat", True):
         from .telemetry.stream import HeartbeatWriter
-        hb = HeartbeatWriter(run_dir, dict(
-            heartbeat_meta(model, sim, opts, fuzz_windows),
-            pipeline=bool(use_pipe)))
+        if resume is not None:
+            hb = HeartbeatWriter(run_dir, {"workload": model.name,
+                                           "chunks-done": resume.chunks},
+                                 resume_from=resume.ticks)
+        else:
+            hb = HeartbeatWriter(run_dir, dict(
+                heartbeat_meta(model, sim, opts, fuzz_windows),
+                pipeline=bool(use_pipe)))
+    checkpoint_cb = None
+    if int(opts.get("checkpoint_every") or 0) > 0:
+        if run_dir and use_pipe:
+            from .campaign.checkpoint import (KIND_PIPELINED,
+                                              make_checkpoint_cb)
+            checkpoint_cb = make_checkpoint_cb(
+                run_dir, kind=KIND_PIPELINED,
+                meta={"workload": model.name, "seed": int(opts["seed"]),
+                      "layout": "lead",
+                      "chunk-ticks": int(opts.get("chunk_ticks") or 100)})
+        else:
+            # durability the caller asked for would not exist: say so,
+            # as the JAX harness does
+            why = ("no store dir to hold checkpoint/" if not run_dir
+                   else "the monolithic executor has no chunk "
+                        "boundaries to checkpoint at")
+            print(f"note: --checkpoint-every has no effect here "
+                  f"({why}); the run will NOT be resumable",
+                  file=sys.stderr)
     # the verdict stage: the farm's workers start before the run (their
     # start-up overlaps the card's work) and take each chunk's slabs as
     # the executor consumes it
     verdict = VerdictPipeline(
         model, C, R, sim.client.final_start, opts["ms_per_tick"], opts,
         resolve_check_workers(opts.get("check_workers"), R))
+    if resume is not None:
+        # the checkpointed chunks go through the stream decoder ahead of
+        # the live suffix, so the histories cover the whole horizon
+        for rows, count in resume.compact:
+            verdict.feed_chunk(np.asarray(rows), int(count), 0, 0)
     events = None
     t0 = time.monotonic()
     try:
@@ -501,7 +598,10 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                 scan_k=int(opts.get("scan_top_k") or 1),
                 fail_fast=bool(opts.get("fail_fast")), heartbeat=hb,
                 fuzz_windows=fuzz_windows, event_sink=verdict.feed_chunk,
-                check_mode=opts.get("check_mode"))
+                check_mode=opts.get("check_mode"),
+                checkpoint_cb=checkpoint_cb,
+                checkpoint_every=int(opts.get("checkpoint_every") or 0),
+                resume=resume)
             carry = pipe_res.carry
             journal_sends = pipe_res.journal_sends
             journal_recvs = pipe_res.journal_recvs

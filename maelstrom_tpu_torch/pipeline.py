@@ -13,6 +13,12 @@ then. Overflow (more events than the capacity) is counted, never
 silent. Trajectories equal the unchunked loop's: compaction only reads
 the tick's events.
 
+Every ``checkpoint_every`` chunks the executor hands a consistent cut —
+the carry and the host-side accumulators covering exactly the ticks
+issued — to a checkpoint sink (``campaign/checkpoint.py``); ``resume``
+continues such a cut, so a killed run finishes equal to an
+uninterrupted one.
+
 The chunk loop is a plain Python loop over ticks; PyTorch issues each
 tick's kernels asynchronously on the card.
 """
@@ -53,6 +59,41 @@ def plan_chunks(n_ticks: int, chunk: int) -> List[Tuple[int, int]]:
         plans.append((t, use))
         t += use
     return plans
+
+
+class ResumeState(NamedTuple):
+    """A restored mid-run cut to continue from (built by
+    ``campaign/checkpoint.py`` from a checkpoint on disk): the carry at
+    tick frontier ``ticks``, the absolute consumed-chunk cursor
+    ``chunks``, and the host accumulators ``compact`` and ``journal``
+    covering ticks ``[0, ticks)``, so the resumed run's outputs span the
+    whole horizon."""
+    carry: Any
+    ticks: int
+    chunks: int = 0
+    compact: Tuple[Tuple[np.ndarray, int], ...] = ()
+    journal: Tuple[Tuple[np.ndarray, np.ndarray], ...] = ()
+
+
+def resume_plans(n_ticks: int, chunk: int,
+                 resume: Optional[ResumeState]) -> List[Tuple[int, int]]:
+    """The chunk plan of a (possibly resumed) run: the whole horizon's
+    plan less the prefix the resume covers. Checkpoints fall on chunk
+    boundaries of the same plan, so the rest is an exact suffix; a
+    frontier off every boundary means the chunk plan changed between
+    the run and its resume, and is refused."""
+    plans = plan_chunks(n_ticks, chunk)
+    if resume is None:
+        return plans
+    if resume.ticks >= n_ticks:
+        return []
+    rest = [p for p in plans if p[0] >= resume.ticks]
+    if not rest or rest[0][0] != resume.ticks:
+        raise ValueError(
+            f"checkpoint tick frontier {resume.ticks} is not a chunk "
+            f"boundary of plan_chunks({n_ticks}, {chunk}) — resume "
+            f"with the original --chunk-ticks")
+    return rest
 
 
 def event_capacity(sim: SimConfig, model: Model, chunk: int) -> int:
@@ -208,7 +249,10 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                       scan_k: int = DEFAULT_SCAN_TOP_K,
                       fail_fast: bool = False,
                       heartbeat=None, fuzz_windows=None, event_sink=None,
-                      check_mode: Optional[str] = None) -> PipelineResult:
+                      check_mode: Optional[str] = None,
+                      checkpoint_cb=None, checkpoint_every: int = 0,
+                      resume: Optional[ResumeState] = None
+                      ) -> PipelineResult:
     """Run the horizon chunk by chunk; returns the final carry, each
     chunk's compacted event rows, executor stats, the violation scan
     of the last consumed chunk and the journaled instances' sent rows
@@ -236,22 +280,39 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     ``{mode, flagged, of}``. ``event_sink(rows, count, t0, length)``
     receives each consumed chunk's compacted events (the streaming
     verdict stage, ``checkers/pool.py``: chunk *k* decodes while chunk
-    *k + 1* runs)."""
+    *k + 1* runs).
+
+    ``checkpoint_cb(carry, ticks, host)`` receives, every
+    ``checkpoint_every`` chunks (not after the last), the carry at a
+    consistent cut with the host accumulators (``{"compact",
+    "journal", "chunks"}``): the chunk just issued is consumed first and
+    the next one is issued only after the callback returns, so the carry
+    the callback reads is the one the accumulators cover. ``resume``
+    continues a checkpointed run from its tick frontier; the returned
+    compact chunks and journal then cover the whole horizon."""
     if instance_ids is None:
         instance_ids = default_instance_ids(sim, device)
     R, J, V = sim.record_instances, sim.journal_instances, model.ev_vals
-    plans = plan_chunks(sim.n_ticks, chunk)
+    full_plans = plan_chunks(sim.n_ticks, chunk)
+    plans = resume_plans(sim.n_ticks, chunk, resume)
     cap = int(event_cap) if event_cap else event_capacity(
-        sim, model, plans[0][1])
+        sim, model, full_plans[0][1])
     t_init = time.monotonic()
-    carry = init_carry(model, sim, seed, device, instance_ids)
+    carry = (resume.carry if resume is not None
+             else init_carry(model, sim, seed, device, instance_ids))
     tick = make_tick_fn(model, sim, instance_ids, device)
     init_s = time.monotonic() - t_init
 
-    compact: List[Tuple[np.ndarray, int]] = []
-    journal: List[Tuple[np.ndarray, np.ndarray]] = []
-    stats = {"overflowed-chunks": 0, "fetch-s": 0.0, "issue-s": 0.0,
-             "chunk-issue-s": []}
+    compact: List[Tuple[np.ndarray, int]] = (
+        [(np.asarray(r), int(n)) for r, n in resume.compact]
+        if resume is not None else [])
+    journal: List[Tuple[np.ndarray, np.ndarray]] = (
+        [(np.asarray(a), np.asarray(b)) for a, b in resume.journal]
+        if resume is not None else [])
+    stats = {"overflowed-chunks": sum(1 for r, n in compact
+                                      if n > r.shape[0]),
+             "fetch-s": 0.0, "issue-s": 0.0, "chunk-issue-s": [],
+             "checkpoint-s": []}
     last_scan: List[Optional[np.ndarray]] = [None]
 
     def consume(fetch, k: int, t0: int, length: int):
@@ -291,10 +352,12 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
         return int(last_scan[0][0, 0]) > 0
 
     pending = None
-    chunks = ticks_dispatched = 0
+    issued = 0
+    chunks = resume.chunks if resume is not None else 0
+    ticks_dispatched = resume.ticks if resume is not None else 0
     stopped = False
     with torch.no_grad():
-        for t0, length in plans:
+        for i, (t0, length) in enumerate(plans):
             t_i = time.monotonic()
             buf = new_buffer(cap, V, device) if R > 0 else None
             sends, recvs = [], []
@@ -321,21 +384,43 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                        else False)
             pending = (fetch, chunks, t0, length)
             chunks += 1
+            issued += 1
+            if checkpoint_cb is not None and checkpoint_every > 0 \
+                    and issued % checkpoint_every == 0 \
+                    and i + 1 < len(plans):
+                # a consistent cut: the chunk just issued is consumed,
+                # and the carry is read before the next chunk is issued
+                tripped = consume(*pending) or tripped
+                pending = None
+                t_c = time.monotonic()
+                checkpoint_cb(carry, ticks_dispatched,
+                              {"compact": list(compact),
+                               "journal": list(journal),
+                               "chunks": chunks})
+                stats["checkpoint-s"].append(
+                    round(time.monotonic() - t_c, 4))
             if fail_fast and tripped:
                 stopped = True
                 break
-        consume(*pending)
-    perf = {"chunks": chunks, "chunk-ticks": plans[0][1],
+        if pending is not None:
+            consume(*pending)
+    perf = {"chunks": issued, "chunk-ticks": full_plans[0][1],
             "event-capacity": cap, "init-s": round(init_s, 4),
             "issue-s": round(stats["issue-s"], 4),
             "chunk-issue-s": stats["chunk-issue-s"],
             "fetch-s": round(stats["fetch-s"], 4),
             "overflowed-chunks": stats["overflowed-chunks"],
             "ticks-dispatched": ticks_dispatched}
+    if stats["checkpoint-s"]:
+        perf["checkpoints"] = len(stats["checkpoint-s"])
+        perf["checkpoint-s"] = round(sum(stats["checkpoint-s"]), 4)
+        perf["checkpoint-save-s"] = stats["checkpoint-s"]
+    if resume is not None:
+        perf["resumed-from-ticks"] = resume.ticks
     if stopped:
         perf["stopped-early"] = True
     j_sends = j_recvs = None
-    if J > 0:
+    if J > 0 and journal:
         j_sends = np.concatenate([a for a, _ in journal], axis=0)
         j_recvs = np.concatenate([b for _, b in journal], axis=0)
     return PipelineResult(carry=carry, compact=compact, perf=perf,

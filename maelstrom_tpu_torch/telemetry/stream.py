@@ -19,6 +19,9 @@ Records (one JSON object per line):
   "events-overflowed": bool}``, plus ``fault`` (the plan's epoch over
   the chunk, ``faults.engine.span_summary``) on fault-plan runs or
   ``fault-fuzz`` (``faults.fuzz.span_counters``) on fuzz runs;
+- ``{"type": "resume", "from-ticks": t, ...}``: a seam, written when a
+  killed run is resumed from its checkpoint (``campaign resume``);
+  chunk records go on after it;
 - ``{"type": "run-end", "status": "complete"|"stopped", ...}``: absent
   when the run died.
 
@@ -86,15 +89,24 @@ class HeartbeatWriter:
     most one torn final line. The writer tracks the first violation it
     sees so ``finish`` can summarize without re-reading the file."""
 
-    def __init__(self, run_dir: str, meta: Optional[Dict[str, Any]] = None):
+    def __init__(self, run_dir: str, meta: Optional[Dict[str, Any]] = None,
+                 resume_from: Optional[int] = None):
         self.path = os.path.join(run_dir, HEARTBEAT_FILE)
-        self._f = open(self.path, "w")
+        # a resumed run appends to the killed run's valid prefix: the
+        # original run-start record (with its repro opts) stays the first
+        # line, a "resume" record marks the seam, and chunk records go on
+        # at the absolute chunk cursor
+        self._f = open(self.path, "a" if resume_from is not None else "w")
         self._t0 = time.monotonic()
         self.chunks = 0
         self.ticks = 0
         self.first_violation: Optional[Dict[str, int]] = None
-        self._write({"type": "run-start",
-                     "schema": HEARTBEAT_SCHEMA, **(meta or {})})
+        if resume_from is not None:
+            self._write({"type": "resume", "schema": HEARTBEAT_SCHEMA,
+                         "from-ticks": int(resume_from), **(meta or {})})
+        else:
+            self._write({"type": "run-start",
+                         "schema": HEARTBEAT_SCHEMA, **(meta or {})})
 
     def _write(self, rec: Dict[str, Any]) -> None:
         self._f.write(json.dumps(rec, default=repr) + "\n")
@@ -157,9 +169,8 @@ def heartbeat_path(path: str) -> str:
 
 def read_heartbeat(path: str) -> Dict[str, Any]:
     """Parse a heartbeat file (or run dir) into ``{header, chunks, end,
-    skipped}``. Tolerates a torn tail — a run killed mid-write leaves a
-    valid prefix and this reader uses it. ``resume`` records (the JAX
-    package's campaign seams) are read as it reads them."""
+    resumes, skipped}``. Tolerates a torn tail — a run killed mid-write
+    leaves a valid prefix and this reader uses it."""
     path = heartbeat_path(path)
     header: Optional[Dict[str, Any]] = None
     chunks: List[Dict[str, Any]] = []

@@ -98,9 +98,6 @@ def _records(run_dir):
 def _clockless(rec):
     rec = {k: v for k, v in rec.items()
            if k not in ("wall-s", "store-dir")}
-    if rec["type"] == "run-start":
-        rec["opts"] = {k: v for k, v in rec["opts"].items()
-                       if k != "checkpoint_every"}
     if "check" in rec and rec["type"] == "run-end":
         rec["check"] = {k: v for k, v in rec["check"].items()
                         if k not in ("decode-s", "check-s",

@@ -321,10 +321,8 @@ def test_harness_under_plan_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra,msg", [
     (dict(topology="tree"), "topology"),
     (dict(layout="minor"), "layout"),
-    (dict(checkpoint_every=2), "checkpoint_every"),
     (dict(check_mode="bogus"), "check_mode"),
     (dict(profile_dir="profile"), "profile_dir"),
-    (dict(run_tag="item0"), "run_tag"),
     (dict(nemesis=["partition", "bridge"]), "bridge"),
     (dict(nemesis_kind="ring"), "ring"),
 ])

@@ -5,17 +5,16 @@ they rest on.
 - **Heartbeat.** On the same options each package's ``heartbeat.jsonl``
   holds the same records, less the wall and device clocks (``wall-s``,
   ``device-s``), the verdict stage's timings and the run directory; the
-  run-start record's repro options less ``checkpoint_every``, which the
-  JAX harness always records and the port has no option for. Cases: a
-  complete bare run, a fault-plan run, a fuzz run and a fail-fast stop.
+  run-start record whole, its repro options ``checkpoint_every``
+  included. Cases: a complete bare run, a fault-plan run, a fuzz run and
+  a fail-fast stop.
 - **Triage.** The double-vote fail-fast run of the JAX triage tests
   (``test_stream_triage.BUGGY_OPTS``), stored by each package and
   triaged by each package's ``triage_run``: the flagged ids come from
   the live runs, and every bundle file is equal (``history.jsonl``,
   ``journal.edn``, ``messages.svg`` byte for byte; ``summary.json`` and
   ``repro.json`` with the run directories and the two package-name
-  strings mapped, and ``repro.json``'s options less ``checkpoint_every``
-  as above), also on a partial run dir without results.json.
+  strings mapped), also on a partial run dir without results.json.
 - **Shrink.** ``shrink_plan``'s reduction (ddmin rounds, greedy
   candidates, halved durations) equals JAX's on multi-phase plans under
   deterministic replay predicates, replay for replay; and
@@ -122,9 +121,6 @@ def _records(run_dir):
 def _comparable(rec):
     rec = {k: v for k, v in rec.items()
            if k not in ("wall-s", "device-s", "store-dir")}
-    if rec["type"] == "run-start":
-        rec["opts"] = {k: v for k, v in rec["opts"].items()
-                       if k != "checkpoint_every"}
     if "check" in rec:
         rec["check"] = {k: v for k, v in rec["check"].items()
                         if k not in ("decode-s", "check-s",
@@ -178,7 +174,8 @@ def test_heartbeat_reader_and_watch_report_match_jax(stored, tmp_path,
     assert torn == jstream.read_heartbeat(str(tmp_path))
     assert len(torn["chunks"]) == len(hb["chunks"]) - 1
     # the CLI: 0 for a finished run, 3 without a run-end record, 2
-    # without a heartbeat or for a campaign dir
+    # without a heartbeat, or with --campaign on a dir that is no
+    # campaign (the JAX CLI's message)
     assert main(["watch", run_dir]) == 0
     out = capsys.readouterr().out
     assert out.strip() == stream.render_watch_report(hb, path=run_dir)
@@ -190,7 +187,8 @@ def test_heartbeat_reader_and_watch_report_match_jax(stored, tmp_path,
     assert main(["watch", str(tmp_path / "nothing")]) == 2
     assert "no heartbeat" in capsys.readouterr().err
     assert main(["watch", run_dir, "--campaign"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    assert capsys.readouterr().err == \
+        f"error: not a campaign dir (no campaign.json): {run_dir}\n"
 
 
 def _mapped(text, jdir, tdir):
@@ -202,13 +200,9 @@ def _mapped(text, jdir, tdir):
 
 
 def _repro(path, jdir=None, tdir=None):
-    """A repro.json, the JAX package's mapped; its options less the
-    checkpoint stride the JAX run-start record adds."""
+    """A repro.json, the JAX package's mapped."""
     text = read(*os.path.split(path)).decode()
-    rec = json.loads(text if jdir is None else _mapped(text, jdir, tdir))
-    for opts in (rec["opts"], rec["replay"]["args"]["opts"]):
-        opts.pop("checkpoint_every", None)
-    return rec
+    return json.loads(text if jdir is None else _mapped(text, jdir, tdir))
 
 
 def _assert_bundles_equal(jsum, tsum, jdir, tdir):

@@ -276,6 +276,16 @@ FIGURE8_SMALL = dict(node_count=5, concurrency=4, n_instances=24,
                      latency=5.0, rpc_timeout=0.8, nemesis=["partition"],
                      nemesis_kind="scripted", recovery_time=0.05, seed=11,
                      telemetry=True, layout="lead")
+# phase 13: the flagship (fleets.FLAGSHIP with its model) at 8,192 global
+# instances, 500 ticks in 100-tick chunks: one shard, two shards (a
+# checkpoint at tick 200), and the tick-200 checkpoint resumed at four
+# shards. 4 recorded instances in all (4, 2, 1 a shard), so that every
+# shard count records the same global ids 0-3
+MESH = dict(n_global=8192, time_limit=0.5, chunk=100, ckpt_tick=200,
+            recorded=4, reshard=4)
+# the small sharded run held card against CPU (state.npz): 24 instances a
+# shard, two shards, 150 ticks in 50-tick chunks, a save every 2 chunks
+SMALL_MESH = dict(n_instances=24, time_limit=0.15, chunk=50, every=2)
 
 
 def log(msg: str) -> None:
@@ -1112,6 +1122,188 @@ def same_npz(a, b, label):
         return len(x.files), header
 
 
+def mesh_devices(dev_name, n):
+    """``n`` shards' devices: round-robin over the visible cards (so two
+    shards sit on the first two cards, or both on ``cuda:0`` on a
+    one-card host), or ``n`` CPU shards."""
+    if dev_name == "cpu":
+        return [torch.device("cpu")] * n
+    vis = torch.cuda.device_count()
+    return [torch.device("cuda", s % vis) for s in range(n)]
+
+
+def mesh_sim(model, opts, n_shards):
+    """The fleet's per-shard sim at ``n_shards`` shards of
+    ``MESH["n_global"]`` (or ``opts["n_global"]``) instances."""
+    from maelstrom_tpu_torch import harness
+    g = opts["n_global"]
+    return harness.make_sim_config(model, dict(
+        opts["fleet"], n_instances=g // n_shards,
+        record_instances=opts["recorded"] // n_shards,
+        time_limit=opts["time_limit"]))
+
+
+def mesh_run(model, sim, seed, devices, chunk, **kw):
+    """``run_sim_sharded_chunked`` on ``devices``, the launch counts set
+    to 0 just before and read just after: ``(outputs, perf, wall s,
+    launches by device)``."""
+    from maelstrom_tpu_torch.kernels import delivery
+    from maelstrom_tpu_torch.parallel import mesh
+    perf = {}
+    delivery.reset_launches()
+    t0 = time.monotonic()
+    out = mesh.run_sim_sharded_chunked(
+        model, sim, seed, mesh=mesh.make_mesh(devices=devices), chunk=chunk,
+        perf=perf, return_telemetry=True, **kw)
+    wall = time.monotonic() - t0
+    return out, perf, wall, dict(delivery.deliver.launches_by_device)
+
+
+def same_mesh_outputs(ref, got, label):
+    """Stats, violations, events and every merged telemetry leaf equal."""
+    if tuple(ref[0]) != tuple(got[0]):
+        raise AssertionError(f"{label}: stats {tuple(got[0])} differ from "
+                             f"{tuple(ref[0])}")
+    for name, a, b in (("violations", ref[1], got[1]),
+                       ("events", ref[2], got[2])):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {name} differ")
+    for f, a, b in zip(ref[3]._fields, ref[3], got[3]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: telemetry {f} differs")
+
+
+def expect_launches(by_dev, devices, ticks, label, on_card):
+    """The delivery kernel once per tick on every shard, by device."""
+    want = {}
+    for d in devices:
+        want[str(d)] = want.get(str(d), 0) + ticks
+    if on_card and by_dev != want:
+        raise AssertionError(f"{label}: delivery launches by device "
+                             f"{by_dev}, expected {want}")
+
+
+def mesh_phase(dev_name, root, opts):
+    """Phase 13 in its card worker: the 1-shard reference, the 2-shard run
+    (checkpointed at ``ckpt_tick``) in each issue mode, and the resume of
+    that checkpoint at ``reshard`` shards, each held equal to the
+    reference; the reference's recorded instances checked. Returns what
+    the main process logs."""
+    import os
+    from maelstrom_tpu_torch import decode, fleets, harness
+    from maelstrom_tpu_torch.campaign import checkpoint as ckpt
+    from maelstrom_tpu_torch.checkers.pool import check_instances
+    from maelstrom_tpu_torch.parallel import mesh
+    from maelstrom_tpu_torch.pipeline import ResumeState
+    label = "phase 13 (shards)"
+    on_card = dev_name != "cpu"
+    model, _ = fleets.fleet("lin-kv")
+    seed = int(opts["fleet"]["seed"])
+    chunk = opts["chunk"]
+    out = {"visible": torch.cuda.device_count() if on_card else 0,
+           "launches": {}, "rates": {}}
+    sim1 = mesh_sim(model, opts, 1)
+    ticks = sim1.n_ticks
+    devs1 = mesh_devices(dev_name, 1)
+    ref, perf, wall, by_dev = mesh_run(model, sim1, seed, devs1, chunk)
+    expect_launches(by_dev, devs1, ticks, f"{label}: 1 shard", on_card)
+    out["launches"]["1 shard"] = by_dev
+    out["rates"]["S=1"] = (ticks / wall, int(ref[0].delivered) / wall,
+                           perf)
+    hists = decode.LazyHistories(model, decode.decode_dense(model, ref[2]),
+                                 opts["recorded"], sim1.client.final_start,
+                                 harness.MS_PER_TICK)
+    verdicts = check_instances(model, hists,
+                               {**harness.TORCH_DEFAULTS, **opts["fleet"]},
+                               final_start=sim1.client.final_start)
+    out["valid"] = [v.get("valid?") for v in verdicts]
+    if out["valid"] != [True] * opts["recorded"]:
+        raise AssertionError(f"{label}: the reference's recorded instances "
+                             f"are not all valid: {out['valid']}")
+    # two shards, a checkpoint at ckpt_tick, each issue mode
+    sim2 = mesh_sim(model, opts, 2)
+    devs2 = mesh_devices(dev_name, 2)
+    out["devices"] = [str(d) for d in devs2]
+    ck_dir = os.path.join(root, "mesh-checkpoint")
+    sink = ckpt.make_checkpoint_cb(ck_dir, kind=ckpt.KIND_SHARDED)
+    saves = []
+
+    def at_ckpt_tick(state, t, host):
+        if t == opts["ckpt_tick"]:
+            t_s = time.monotonic()
+            sink(state, t, host)
+            saves.append(time.monotonic() - t_s)
+
+    for threads in (True, False):
+        mode = "threads" if threads else "sequential"
+        mesh._ISSUE_THREADS = threads
+        try:
+            kw = (dict(checkpoint_cb=at_ckpt_tick,
+                       checkpoint_every=opts["ckpt_tick"] // chunk)
+                  if threads else {})
+            got, perf, wall, by_dev = mesh_run(model, sim2, seed, devs2,
+                                               chunk, **kw)
+        finally:
+            mesh._ISSUE_THREADS = True
+        if on_card and perf["issue-threads"] != threads:
+            raise AssertionError(f"{label}: issue mode {mode} not taken")
+        same_mesh_outputs(ref, got, f"{label}: 2 shards ({mode})")
+        expect_launches(by_dev, devs2, ticks, f"{label}: 2 shards ({mode})",
+                        on_card)
+        out["launches"][f"2 shards, {mode}"] = by_dev
+        # the save's own time is not the issue mode's
+        run_s = wall - sum(perf.get("checkpoint-save-s", []))
+        out["rates"][f"S=2 {mode}"] = (ticks / run_s,
+                                       int(got[0].delivered) / run_s, perf)
+    if len(saves) != 1:
+        raise AssertionError(f"{label}: {len(saves)} saves at tick "
+                             f"{opts['ckpt_tick']}")
+    out["checkpoint_s"] = saves[0]
+    out["npz_bytes"] = os.path.getsize(ckpt.checkpoint_path(ck_dir))
+    # the tick-ckpt_tick checkpoint resumed at another shard count
+    S = opts["reshard"]
+    simr = mesh_sim(model, opts, S)
+    devsr = mesh_devices(dev_name, S)
+    t_r = time.monotonic()
+    ck = ckpt.load_checkpoint(ck_dir)
+    wire = ckpt.restore_carry(
+        mesh.wire_template(model, simr, mesh.make_mesh(devices=devsr)),
+        ck["carry"], shard=ck["meta"]["shard"])
+    out["restore_s"] = time.monotonic() - t_r
+    resume = ResumeState(carry=wire, ticks=ck["ticks"], chunks=ck["chunks"],
+                         events=tuple(ck["events"]))
+    got, perf, wall, by_dev = mesh_run(model, simr, seed, devsr, chunk,
+                                       resume=resume)
+    same_mesh_outputs(ref, got, f"{label}: resumed at {S} shards")
+    expect_launches(by_dev, devsr, ticks - ck["ticks"],
+                    f"{label}: resumed at {S} shards", on_card)
+    out["launches"][f"{S} shards, resumed suffix"] = by_dev
+    out["resumed"] = (ck["meta"]["shard"]["n-shards"], ck["ticks"], S)
+    out["rates"][f"S={S} resumed"] = ((ticks - ck["ticks"]) / wall, None,
+                                      perf)
+    out["net"] = {f: int(x) for f, x in zip(ref[0]._fields, ref[0])}
+    return out
+
+
+def small_mesh_checkpoint(dev_name, root, opts):
+    """Phase 13's small sharded checkpointed flagship on ``dev_name``: the
+    path of its last ``state.npz``."""
+    import os
+    from maelstrom_tpu_torch import fleets, harness
+    from maelstrom_tpu_torch.campaign import checkpoint as ckpt
+    from maelstrom_tpu_torch.parallel import mesh
+    model, fl = fleets.fleet("lin-kv")
+    o = small(fl, opts["n_instances"], opts["time_limit"])
+    sim = harness.make_sim_config(model, o)
+    d = os.path.join(root, f"mesh-small-{dev_name}")
+    mesh.run_sim_sharded_chunked(
+        model, sim, int(o["seed"]),
+        mesh=mesh.make_mesh(devices=mesh_devices(dev_name, 2)),
+        chunk=opts["chunk"], checkpoint_every=opts["every"],
+        checkpoint_cb=ckpt.make_checkpoint_cb(d, kind=ckpt.KIND_SHARDED))
+    return ckpt.checkpoint_path(d)
+
+
 def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
     """A fleet's options cut to a small input: partitions every
     ``interval`` s, healed 0.05 s before the end."""
@@ -1155,6 +1347,7 @@ def main(argv) -> int:
                       time_limit=SWEEP_TIME_LIMIT)
     campaign = (dict(fleets.FLAGSHIP, **CAMPAIGN), KILL_AT_TICKS,
                 small(fleets.FLAGSHIP) | SMALL_CHECKPOINT)
+    mesh_opts = dict(MESH, fleet=dict(fleets.FLAGSHIP))
     # paths cut to keep the script well inside its 1,200 s limit on a
     # slow host (PERF.md §6): the flagship to 1 s (from 4; healed at
     # tick 700), the broadcast fleet to 1 s (from 2; healed at tick
@@ -1195,6 +1388,8 @@ def main(argv) -> int:
         # one checkpoint (tick 100 of 200) to kill at
         campaign = (campaign[0] | dict(n_instances=16, time_limit=0.2,
                                        chunk_ticks=50), 100, campaign[2])
+        mesh_opts = dict(mesh_opts, n_global=32, time_limit=0.2, chunk=50,
+                         ckpt_tick=100, fleet=small(fleets.FLAGSHIP))
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -1225,15 +1420,61 @@ def main(argv) -> int:
     import tempfile
     root = tempfile.mkdtemp(prefix="bug-hunt-store-")
     refs, side = worker_pool(2, cuda=False), worker_pool(1, cuda=True)
+    # phase 13's card work: a card worker of its own, alongside the rest
+    shards = worker_pool(1, cuda=True)
     try:
+        mesh_refs = (
+            submit(shards, mesh_phase, str(dev), root, mesh_opts),
+            submit(shards, small_mesh_checkpoint, str(dev), root,
+                   SMALL_MESH),
+            submit(refs, small_mesh_checkpoint, "cpu", root, SMALL_MESH))
         return drive_paths(dev, full, rehearse, record, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
-                           lanes_opts, sweep_model, sweep_opts, campaign)
+                           lanes_opts, sweep_model, sweep_opts, campaign,
+                           mesh_refs)
     finally:
-        for pool in (side, refs):
+        for pool in (shards, side, refs):
             pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
+
+
+def log_mesh_phase(dev, mesh_ref, card_npz_ref, cpu_npz_ref):
+    """Phase 13's results, checked and logged in the main process: the
+    delivery launches of each of its runs, by device."""
+    from maelstrom_tpu_torch.kernels.devtime import card_line
+    label = "phase 13 (shards)"
+    m, t_mesh = mesh_ref.result()
+    (card_npz, t_card), (cpu_npz, t_cpu) = (card_npz_ref.result(),
+                                            cpu_npz_ref.result())
+    card = card_line() if dev.type == "cuda" else "no card (rehearsal)"
+    g = m["rates"]
+    log(f"{label}: {m['visible']} visible card(s); the two shards on "
+        f"{m['devices']}; {card}")
+    log(f"{label}: the 1-shard reference and the 2-shard runs (threads, "
+        f"sequential issue) agree on stats, violations, events and every "
+        f"merged telemetry leaf; the recorded instances' verdicts "
+        f"{m['valid']}; net {json.dumps(m['net'])}")
+    s0, t0, s1 = m["resumed"]
+    log(f"{label}: the {s0}-shard checkpoint at tick {t0} resumed at {s1} "
+        f"shards equals the reference; state.npz {m['npz_bytes']} B, "
+        f"checkpoint-s {m['checkpoint_s']:.4f}, restore-s "
+        f"{m['restore_s']:.4f}")
+    for name, (tps, mps, perf) in g.items():
+        log(f"{label}: {name}: {tps:.3f} ticks/s"
+            + ("" if mps is None else f", {mps:.0f} simulated msgs/s")
+            + f"; shard-issue-s {perf['shard-issue-s']}, merge-s "
+              f"{perf['merge-s']}, init-s {perf['init-s']} ({card})")
+    log(f"{label}: the worker's phase 13 took {t_mesh:.1f} s")
+    n_arrays, header = same_npz(card_npz, cpu_npz,
+                                "phase 13 (sharded checkpoint, card vs CPU)")
+    log(f"phase 13 (sharded checkpoint, card vs CPU): the 2 x "
+        f"{SMALL_MESH['n_instances']}-instance sharded flagship's state.npz "
+        f"at tick {header['ticks']} ({n_arrays} arrays, "
+        f"{header['n-events']} event blocks) on {dev} ({t_card:.1f} s) "
+        f"equals the CPU's ({t_cpu:.1f} s) array by array, header "
+        f"included")
+    return {f"phase 13 {k}": v for k, v in m["launches"].items()}
 
 
 def phase3_runs(opts, bopts, paths):
@@ -1277,7 +1518,7 @@ def phase3_runs(opts, bopts, paths):
 def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
                 flagship, bopts, bmodel, paths, txn_paths, hunt_model,
                 hunt_opts, lanes_spec, lanes_opts, sweep_model,
-                sweep_opts, campaign) -> int:
+                sweep_opts, campaign, mesh_refs) -> int:
     """Phases 3-12 and the result lines. Phase 10's fuzz run and card
     shrink, then phase 3's card runs, then phase 12's card work go to
     the side card worker ``side``, and the CPU halves of phases 3, 10,
@@ -1451,6 +1692,8 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     by_path["phase 12 uninterrupted checkpointed run"] = \
         camp["ref_launches"]
     mark("phase 12 (its card work in the side worker)")
+    by_path.update(log_mesh_phase(dev, *mesh_refs))
+    mark("phase 13 (its card work in a card worker of its own)")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     record["launches_not_counted"] = {

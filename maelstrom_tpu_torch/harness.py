@@ -469,8 +469,7 @@ def _resume_state(model: Model, sim: SimConfig, seed: int, run_dir: str,
                   dev: torch.device):
     """The cut a killed run left in ``<run_dir>/checkpoint/``, its carry
     rebuilt on ``dev`` in the structure of the port's own init carry."""
-    from .campaign.checkpoint import (KIND_PIPELINED, KIND_SHARDED,
-                                      SHARDED_REFUSAL, CheckpointError,
+    from .campaign.checkpoint import (KIND_PIPELINED, CheckpointError,
                                       load_checkpoint, restore_carry)
     from .pipeline import ResumeState
     from .runtime import init_carry
@@ -479,9 +478,6 @@ def _resume_state(model: Model, sim: SimConfig, seed: int, run_dir: str,
         raise CheckpointError(
             f"{run_dir} has no checkpoint to resume from "
             f"(checkpointing is opt-in: --checkpoint-every K)")
-    if ck["kind"] == KIND_SHARDED:
-        raise CheckpointError(f"{run_dir} holds a 'sharded' checkpoint: "
-                              + SHARDED_REFUSAL)
     if ck["kind"] != KIND_PIPELINED:
         raise CheckpointError(
             f"{run_dir} holds a {ck['kind']!r} checkpoint; "

@@ -66,13 +66,16 @@ class ResumeState(NamedTuple):
     ``campaign/checkpoint.py`` from a checkpoint on disk): the carry at
     tick frontier ``ticks``, the absolute consumed-chunk cursor
     ``chunks``, and the host accumulators ``compact`` and ``journal``
-    covering ticks ``[0, ticks)``, so the resumed run's outputs span the
-    whole horizon."""
+    (``events``: the sharded executor's dense chunks, in global-id
+    order) covering ticks ``[0, ticks)``, so the resumed run's outputs
+    span the whole horizon. The sharded executor's ``carry`` is its
+    wire carry (``parallel/mesh.py``)."""
     carry: Any
     ticks: int
     chunks: int = 0
     compact: Tuple[Tuple[np.ndarray, int], ...] = ()
     journal: Tuple[Tuple[np.ndarray, np.ndarray], ...] = ()
+    events: Tuple[np.ndarray, ...] = ()
 
 
 def resume_plans(n_ticks: int, chunk: int,

@@ -81,6 +81,48 @@ def scan_to_violations(vec) -> List[Dict[str, int]]:
             for _, tick, inst in rows if int(inst) >= 0]
 
 
+def combine_shard_scans(scans, n_instances_per_shard: Optional[int],
+                        k: Optional[int] = None) -> np.ndarray:
+    """Merge per-shard top-K violation scans ``[n_shards, K, 3]`` (a flat
+    ``[n_shards, 3]`` reads as K=1) into one fleet scan ``[k, 3]``
+    (default ``k`` = the per-shard K), on the host.
+
+    ``n_instances_per_shard=None`` means the rows already carry global
+    instance ids (the sharded executor scans with each shard's global
+    ids); an int maps a contiguous block's local index ``i`` of shard
+    ``s`` to ``s * n_instances_per_shard + i``. Rows are ordered by
+    earliest first-violation tick, ties and unknown ticks to the lowest
+    global id; lane 0 of every row is the violating count summed over
+    shards."""
+    scans = np.asarray(scans)
+    if scans.ndim == 2:
+        scans = scans[:, None, :]
+    n_shards, K, _ = scans.shape
+    k_out = max(1, int(k) if k else K)
+    n = int(scans[:, 0, 0].sum())
+    out = np.full((k_out, 3), -1, np.int32)
+    out[:, 0] = n
+    if n <= 0:
+        return out
+    big = np.iinfo(np.int32).max
+    rows = []   # (tick key, global instance, tick)
+    for shard in range(n_shards):
+        if int(scans[shard, 0, 0]) <= 0:
+            continue
+        for _, tick, inst in scans[shard]:
+            if int(inst) < 0:
+                continue
+            gid = (int(inst) if n_instances_per_shard is None
+                   else shard * n_instances_per_shard + int(inst))
+            rows.append((int(tick) if int(tick) >= 0 else big, gid,
+                         int(tick)))
+    rows.sort()
+    for j, (_, gid, tick) in enumerate(rows[:k_out]):
+        out[j, 1] = tick
+        out[j, 2] = gid
+    return out
+
+
 class HeartbeatWriter:
     """Appends heartbeat records to ``<run_dir>/heartbeat.jsonl``.
 

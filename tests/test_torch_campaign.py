@@ -215,21 +215,32 @@ def test_restore_refuses_config_mismatch(tmp_path, case):
 
 
 def test_sharded_checkpoint_refused_by_name(tmp_path):
-    """The JAX package's sharded checkpoints, and resharding, wait for
-    the multi-GPU port: refused, naming it."""
+    """What is still refused: ``run_torch_test`` resumes single-device
+    runs only (a sharded checkpoint is refused in JAX's words, as
+    ``run_tpu_test`` refuses it), and ``reshard_carry`` needs the shard
+    metadata the sharded executor records."""
     model = get_model("echo", 2)
     sim = harness.make_sim_config(model, ECHO_OPTS)
     carry = init_carry(model, sim, 3, "cpu")
     d = str(tmp_path)
     save_checkpoint(d, kind="sharded", state=carry, ticks=50, chunks=1)
-    with pytest.raises(CheckpointError, match="sharded.*multi-GPU"):
+    with pytest.raises(CheckpointError) as e:
         harness.run_torch_test(model, dict(ECHO_OPTS), device="cpu",
                                resume_from=d)
-    with pytest.raises(CheckpointError, match="multi-GPU"):
-        restore_carry(carry, load_checkpoint(d)["carry"],
-                      shard={"n-shards": 2})
-    with pytest.raises(CheckpointError, match="reshard_carry"):
-        ckpt.reshard_carry(load_checkpoint(d)["carry"], {"n-shards": 2}, 1)
+    with pytest.raises(jckpt.CheckpointError) as je:
+        run_tpu_test(jget_model("echo", 2), dict(ECHO_OPTS, **JAX_RUN),
+                     resume_from=d)
+    assert str(e.value) == str(je.value).replace("run_tpu_test",
+                                                 "run_torch_test")
+    assert "holds a 'sharded' checkpoint" in str(e.value)
+    assert "resumes single-device runs only" in str(e.value)
+    leaves = load_checkpoint(d)["carry"]
+    with pytest.raises(CheckpointError) as e:
+        ckpt.reshard_carry(leaves, {"n-shards": 2}, 1)
+    with pytest.raises(jckpt.CheckpointError) as je:
+        jckpt.reshard_carry(leaves, {"n-shards": 2}, 1)
+    assert str(e.value) == str(je.value)
+    assert "lacks per-leaf shard metadata" in str(e.value)
 
 
 @pytest.mark.parametrize("n_ticks,chunk,frontier", [

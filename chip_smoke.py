@@ -136,6 +136,23 @@ Phases (any failure exits non-zero and prints no result line):
     ``state.npz`` size, each save's ``checkpoint-s``, the restore time,
     and the checkpointed runs' ticks/s beside phase 4's.
 
+13. instance sharding (``maelstrom_tpu_torch/parallel/mesh.py``), in a
+    card worker of its own from phase 2 on: the flagship
+    (``fleets.FLAGSHIP`` with its model, 4 recorded instances in all) at
+    8,192 global instances for 500 ticks in 100-tick chunks, once at one
+    shard (the reference; its recorded instances checked valid), once
+    at two shards (on the first two cards, or both on ``cuda:0``) with a
+    checkpoint at tick 200, and that checkpoint resumed at four shards
+    through ``reshard_carry``: both held equal to the reference (stats,
+    violations, events, every merged telemetry leaf), the delivery
+    kernel once per tick on every shard, counted by device. Then a
+    2 x 24-instance sharded checkpointed flagship on the card and on
+    the CPU (a reference worker) must leave ``state.npz`` files equal
+    array by array. It prints the shards' devices and the visible card
+    count, each run's ticks/s and simulated msgs/s with its per-shard
+    issue and merge seconds, ``checkpoint-s``, ``restore-s`` and the
+    ``state.npz`` size, beside the card's name and power limit.
+
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
 txn-list-append (bare, and under a crash and links plan, whose slab
@@ -150,7 +167,7 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-12 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-13 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
 its phase 10 compares the CPU with itself).
@@ -1185,10 +1202,10 @@ def expect_launches(by_dev, devices, ticks, label, on_card):
 
 def mesh_phase(dev_name, root, opts):
     """Phase 13 in its card worker: the 1-shard reference, the 2-shard run
-    (checkpointed at ``ckpt_tick``) in each issue mode, and the resume of
-    that checkpoint at ``reshard`` shards, each held equal to the
-    reference; the reference's recorded instances checked. Returns what
-    the main process logs."""
+    (checkpointed at ``ckpt_tick``), and the resume of that checkpoint at
+    ``reshard`` shards, each held equal to the reference; the
+    reference's recorded instances checked. Returns what the main
+    process logs."""
     import os
     from maelstrom_tpu_torch import decode, fleets, harness
     from maelstrom_tpu_torch.campaign import checkpoint as ckpt
@@ -1205,6 +1222,10 @@ def mesh_phase(dev_name, root, opts):
     sim1 = mesh_sim(model, opts, 1)
     ticks = sim1.n_ticks
     devs1 = mesh_devices(dev_name, 1)
+    # a process's first run pays for the CUDA context: not timed
+    mesh_run(model, mesh_sim(model, dict(opts, n_global=opts["recorded"],
+                                         time_limit=0.01), 1),
+             seed, devs1, chunk)
     ref, perf, wall, by_dev = mesh_run(model, sim1, seed, devs1, chunk)
     expect_launches(by_dev, devs1, ticks, f"{label}: 1 shard", on_card)
     out["launches"]["1 shard"] = by_dev
@@ -1220,7 +1241,7 @@ def mesh_phase(dev_name, root, opts):
     if out["valid"] != [True] * opts["recorded"]:
         raise AssertionError(f"{label}: the reference's recorded instances "
                              f"are not all valid: {out['valid']}")
-    # two shards, a checkpoint at ckpt_tick, each issue mode
+    # two shards, a checkpoint at ckpt_tick
     sim2 = mesh_sim(model, opts, 2)
     devs2 = mesh_devices(dev_name, 2)
     out["devices"] = [str(d) for d in devs2]
@@ -1234,27 +1255,16 @@ def mesh_phase(dev_name, root, opts):
             sink(state, t, host)
             saves.append(time.monotonic() - t_s)
 
-    for threads in (True, False):
-        mode = "threads" if threads else "sequential"
-        mesh._ISSUE_THREADS = threads
-        try:
-            kw = (dict(checkpoint_cb=at_ckpt_tick,
-                       checkpoint_every=opts["ckpt_tick"] // chunk)
-                  if threads else {})
-            got, perf, wall, by_dev = mesh_run(model, sim2, seed, devs2,
-                                               chunk, **kw)
-        finally:
-            mesh._ISSUE_THREADS = True
-        if on_card and perf["issue-threads"] != threads:
-            raise AssertionError(f"{label}: issue mode {mode} not taken")
-        same_mesh_outputs(ref, got, f"{label}: 2 shards ({mode})")
-        expect_launches(by_dev, devs2, ticks, f"{label}: 2 shards ({mode})",
-                        on_card)
-        out["launches"][f"2 shards, {mode}"] = by_dev
-        # the save's own time is not the issue mode's
-        run_s = wall - sum(perf.get("checkpoint-save-s", []))
-        out["rates"][f"S=2 {mode}"] = (ticks / run_s,
-                                       int(got[0].delivered) / run_s, perf)
+    got, perf, wall, by_dev = mesh_run(
+        model, sim2, seed, devs2, chunk, checkpoint_cb=at_ckpt_tick,
+        checkpoint_every=opts["ckpt_tick"] // chunk)
+    same_mesh_outputs(ref, got, f"{label}: 2 shards")
+    expect_launches(by_dev, devs2, ticks, f"{label}: 2 shards", on_card)
+    out["launches"]["2 shards"] = by_dev
+    # the save's own time is not the shards'
+    run_s = wall - sum(perf.get("checkpoint-save-s", []))
+    out["rates"]["S=2"] = (ticks / run_s, int(got[0].delivered) / run_s,
+                           perf)
     if len(saves) != 1:
         raise AssertionError(f"{label}: {len(saves)} saves at tick "
                              f"{opts['ckpt_tick']}")
@@ -1451,15 +1461,15 @@ def log_mesh_phase(dev, mesh_ref, card_npz_ref, cpu_npz_ref):
     g = m["rates"]
     log(f"{label}: {m['visible']} visible card(s); the two shards on "
         f"{m['devices']}; {card}")
-    log(f"{label}: the 1-shard reference and the 2-shard runs (threads, "
-        f"sequential issue) agree on stats, violations, events and every "
-        f"merged telemetry leaf; the recorded instances' verdicts "
-        f"{m['valid']}; net {json.dumps(m['net'])}")
+    log(f"{label}: the 1-shard reference and the 2-shard run agree on "
+        f"stats, violations, events and every merged telemetry leaf; the "
+        f"recorded instances' verdicts {m['valid']}; net "
+        f"{json.dumps(m['net'])}")
     s0, t0, s1 = m["resumed"]
     log(f"{label}: the {s0}-shard checkpoint at tick {t0} resumed at {s1} "
         f"shards equals the reference; state.npz {m['npz_bytes']} B, "
         f"checkpoint-s {m['checkpoint_s']:.4f}, restore-s "
-        f"{m['restore_s']:.4f}")
+        f"{m['restore_s']:.4f} ({card})")
     for name, (tps, mps, perf) in g.items():
         log(f"{label}: {name}: {tps:.3f} ticks/s"
             + ("" if mps is None else f", {mps:.0f} simulated msgs/s")

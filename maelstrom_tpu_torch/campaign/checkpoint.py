@@ -44,6 +44,8 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..parallel.mesh import (SHARD_LEAF_INSTANCE, SHARD_LEAF_KEY,
+                             SHARD_LEAF_SUM)
 
 CHECKPOINT_DIR = "checkpoint"
 CHECKPOINT_FILE = "state.npz"
@@ -155,11 +157,6 @@ def load_checkpoint(run_dir: str) -> Optional[Dict[str, Any]]:
             "meta": header.get("meta", {}), "path": path}
 
 
-_KIND_INSTANCE = "instance"
-_KIND_SUM = "sum"
-_KIND_KEY = "key"
-
-
 def reshard_carry(leaves: List[np.ndarray], shard: Dict[str, Any],
                   n_shards: int) -> Tuple[List[np.ndarray], Dict[str, Any]]:
     """Re-chunk a sharded wire carry written at S shards onto
@@ -199,7 +196,7 @@ def reshard_carry(leaves: List[np.ndarray], shard: Dict[str, Any],
     for i, (leaf, kind) in enumerate(zip(leaves, kinds)):
         leaf = np.asarray(leaf)
         rest = leaf.shape[1:]
-        if kind == _KIND_INSTANCE:
+        if kind == SHARD_LEAF_INSTANCE:
             if leaf.shape[0] != total:
                 raise CheckpointError(
                     f"carry leaf {i} ({kind}): leading axis "
@@ -209,7 +206,7 @@ def reshard_carry(leaves: List[np.ndarray], shard: Dict[str, Any],
             i2 = total // n_shards
             out.append(g.reshape((i2, n_shards) + rest)
                        .swapaxes(0, 1).reshape(leaf.shape).copy())
-        elif kind == _KIND_SUM:
+        elif kind == SHARD_LEAF_SUM:
             if leaf.shape[0] != S:
                 raise CheckpointError(
                     f"carry leaf {i} ({kind}): leading axis "
@@ -218,7 +215,7 @@ def reshard_carry(leaves: List[np.ndarray], shard: Dict[str, Any],
             for s in range(S):
                 new[s % n_shards] = new[s % n_shards] + leaf[s]
             out.append(new)
-        elif kind == _KIND_KEY:
+        elif kind == SHARD_LEAF_KEY:
             if leaf.shape[0] != S:
                 raise CheckpointError(
                     f"carry leaf {i} ({kind}): leading axis "
@@ -244,7 +241,7 @@ def _template_shards(t_leaves, kinds) -> Optional[int]:
     """The resume mesh's shard count read off a wire template: the
     leading axis of any per-shard ("sum" or "key") leaf."""
     for t, kind in zip(t_leaves, kinds):
-        if kind in (_KIND_SUM, _KIND_KEY) and len(t.shape):
+        if kind in (SHARD_LEAF_SUM, SHARD_LEAF_KEY) and len(t.shape):
             return int(t.shape[0])
     return None
 
@@ -279,7 +276,7 @@ def restore_carry(template: Any, leaves: List[np.ndarray],
             total = ck_shards * ck_per
             t_total = next(
                 (int(t.shape[0]) for t, k in zip(t_leaves, kinds)
-                 if k == _KIND_INSTANCE and len(t.shape)), total)
+                 if k == SHARD_LEAF_INSTANCE and len(t.shape)), total)
             if t_total != total:
                 raise CheckpointError(
                     f"carry saved at {ck_shards} shards, mesh has "

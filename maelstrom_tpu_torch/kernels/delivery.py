@@ -31,7 +31,6 @@ the limits of the first kernel of this port, which gave one block of
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -81,26 +80,20 @@ def geometry(S: int, L: int, NT: int, K: int, vec: bool) -> Geometry:
 
 
 _launch_fn = None
-# the sharded executor issues each shard from its own thread: the first
-# build and the launch counts are shared
-_lock = threading.Lock()
 
 
 def _launcher():
     """``deliver_launch`` of the built library, resolved once."""
     global _launch_fn
     if _launch_fn is None:
-        with _lock:
-            if _launch_fn is None:
-                from . import build
-                fn = build.load(SOURCE).deliver_launch
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p] + [ctypes.c_int] * 9 \
-                    + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                _launch_fn = fn
+        from . import build
+        fn = build.load(SOURCE).deliver_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p] + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
     return _launch_fn
 
 
@@ -144,11 +137,9 @@ def deliver_cuda(pool: torch.Tensor, partitions: torch.Tensor, t: int,
                  geo.warp_bytes, geo.warps_per_block, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"deliver kernel launch failed: CUDA error {err}")
-    with _lock:
-        deliver.launches += 1
-        name = str(dev)
-        deliver.launches_by_device[name] = \
-            deliver.launches_by_device.get(name, 0) + 1
+    deliver.launches += 1
+    by_dev = deliver.launches_by_device
+    by_dev[str(dev)] = by_dev.get(str(dev), 0) + 1
     return pool_out, inbox, n_del, n_drop
 
 
@@ -164,9 +155,8 @@ def deliver(pool: torch.Tensor, partitions: torch.Tensor, t: int,
 
 def reset_launches() -> None:
     """Set the launch counts to 0 (a run reads them after)."""
-    with _lock:
-        deliver.launches = 0
-        deliver.launches_by_device = {}
+    deliver.launches = 0
+    deliver.launches_by_device = {}
 
 
 # launches of the kernel, in all and by device ("cuda:0": n): incremented

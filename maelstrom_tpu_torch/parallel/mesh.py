@@ -21,10 +21,11 @@ order on the host (:func:`deinterleave`).
 Each shard has its own carry, instance ids and tick function on its
 device, and its work stays on that device's current stream; the
 delivery kernel launches once per tick on every shard's device. The
-shards' ticks are issued from one thread per shard (PyTorch's ops and
-the kernel's ``ctypes`` call release the interpreter lock in their
-native part), joined at each chunk's end and merged in shard order, so
-no result depends on thread timing.
+shards' chunks are issued one after another from the calling thread:
+on a card the ops return once queued, so shard s+1 is issued while
+shard s's kernels run. (One issuing thread per shard was slower on the
+card: the threads hand the interpreter lock to each other at every op;
+``PERF.md``.)
 
 The wire carry — what a checkpoint holds — is the JAX executor's: every
 leaf of a shard's carry leads with a shard-divisible axis (the NetStats
@@ -37,8 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,11 +62,6 @@ SHARD_LEAF_INSTANCE = "instance"   # chunks along the global instance axis
 SHARD_LEAF_SUM = "sum"             # one additive partial-sum slot per shard
 SHARD_LEAF_KEY = "key"             # the replicated master RNG key
 
-# issue each card's shards from a thread of their own (False: one after
-# another from the calling thread); chip_smoke.py times both on the card
-_ISSUE_THREADS = True
-
-
 class Mesh:
     """Devices in row-major order over named axes. A device may repeat:
     ``[cpu] * 4`` or ``[cuda:0] * 2`` puts several shards on one device,
@@ -89,10 +84,6 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
-
-    def __repr__(self) -> str:
-        return (f"Mesh({[str(d) for d in self.devices]}, "
-                f"axes={self.axis_names}, shape={self.shape})")
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -199,8 +190,7 @@ def _deinterleave_telemetry(tel: Optional[Telemetry], series,
 
 def _sum_i32(xs) -> int:
     """The int32 sum of per-shard counters, wrapping as ``psum``."""
-    return int(np.sum(np.asarray([int(x) for x in xs], np.int64)
-                      .astype(np.int32), dtype=np.int32))
+    return int(np.int64(sum(int(x) for x in xs)).astype(np.int32))
 
 
 def _prepare(sim: SimConfig, seed: int, params) -> int:
@@ -229,47 +219,6 @@ def _on(device: torch.device):
                 yield
         else:
             yield
-
-
-def _threaded(devices: Sequence[torch.device]) -> bool:
-    """Whether the shards are issued from a thread each: only on cards,
-    where a thread's ops return once queued. CPU ops run to completion
-    in the calling thread, and there threads only contend for the
-    interpreter lock."""
-    return (_ISSUE_THREADS and len(devices) > 1
-            and all(d.type == "cuda" for d in devices))
-
-
-class _Issuer:
-    """Runs ``fn(i)`` for every shard ``i``: from a thread per shard when
-    :func:`_threaded` (each thread under the caller's default device),
-    joined, the results in shard order; else in the calling thread."""
-
-    def __init__(self, devices: Sequence[torch.device]):
-        self.n = len(devices)
-        self._pool = None
-        if _threaded(devices):
-            default = torch.get_default_device()
-            # a thread's default device is its own: pass the caller's on
-            init = ((lambda: torch.set_default_device(default))
-                    if default.type != "cpu" else None)
-            self._pool = ThreadPoolExecutor(
-                max_workers=self.n, thread_name_prefix="shard",
-                initializer=init)
-
-    @property
-    def threaded(self) -> bool:
-        return self._pool is not None
-
-    def map(self, fn: Callable[[int], Any]) -> List[Any]:
-        if self._pool is None:
-            return [fn(i) for i in range(self.n)]
-        futures = [self._pool.submit(fn, i) for i in range(self.n)]
-        return [f.result() for f in futures]
-
-    def close(self) -> None:
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
 
 
 def run_sim_unsharded(model: Model, sim: SimConfig, seed: int,
@@ -324,27 +273,21 @@ def run_sim_sharded(model: Model, sim: SimConfig, seed: int, params=None,
     S = mesh.size
     all_ids = shard_instance_ids(sim.n_instances, S)
 
-    def shard(s):
-        dev = mesh.devices[s]
+    runs = []
+    for s, dev in enumerate(mesh.devices):
         with _on(dev):
-            carry, ys = run_sim(model, sim, seed32, dev,
-                                torch.from_numpy(all_ids[s]).to(dev))
-            events = (_np(ys.events) if ys.events is not None
-                      else _empty_events(model, sim))
-            return convert.carry_to_numpy(carry), events
-
-    issuer = _Issuer(mesh.devices)
-    try:
-        outs = issuer.map(shard)
-    finally:
-        issuer.close()
-    carries = [c for c, _ in outs]
+            runs.append(run_sim(model, sim, seed32, dev,
+                                torch.from_numpy(all_ids[s]).to(dev)))
+    # every shard is issued before the first copy to the host waits
+    carries = [convert.carry_to_numpy(c) for c, _ in runs]
     stats = NetStats(*(_sum_i32(xs) for xs in zip(*(c.stats
                                                     for c in carries))))
     violations = deinterleave(
         np.concatenate([c.violations for c in carries], axis=0), S)
-    events = deinterleave(np.concatenate([e for _, e in outs], axis=1), S,
-                          axis=1)
+    events = deinterleave(np.concatenate(
+        [_np(ys.events) if ys.events is not None
+         else _empty_events(model, sim) for _, ys in runs], axis=1), S,
+        axis=1)
     if not return_telemetry:
         return stats, violations, events
     tel = None
@@ -396,7 +339,7 @@ def _leaf_kind(name: str) -> str:
     return SHARD_LEAF_INSTANCE
 
 
-def wire_leaf_kinds(model: Model, sim: SimConfig, params=None) -> List[str]:
+def wire_leaf_kinds(model: Model, sim: SimConfig) -> List[str]:
     """Per-leaf reshard kind of the wire carry, in leaf order (aligned
     with a sharded checkpoint's ``carry/{i}`` arrays): ``"instance"``
     leaves chunk along the global round-robin instance axis, ``"sum"``
@@ -406,7 +349,7 @@ def wire_leaf_kinds(model: Model, sim: SimConfig, params=None) -> List[str]:
         _shard_wire_structure(model, sim))]
 
 
-def wire_template(model: Model, sim: SimConfig, mesh, params=None) -> Carry:
+def wire_template(model: Model, sim: SimConfig, mesh) -> Carry:
     """The GLOBAL wire carry's structure, shapes and dtypes at
     ``mesh.size`` shards, as a carry of zero-stride numpy leaves (no
     memory): every shard's leading axis times the shard count.
@@ -552,8 +495,8 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
     stats = {"issue-s": [0.0] * S, "merge-s": 0.0, "checkpoint-s": []}
 
     def issue(s: int, t0: int, length: int):
-        """Shard ``s``'s chunk, in its issue thread: the ticks, then the
-        snapshots and the queued copies."""
+        """Shard ``s``'s chunk: the ticks, then the snapshots and the
+        queued copies."""
         t_i = time.monotonic()
         with _on(mesh.devices[s]):
             carry, evs = carries[s], []
@@ -607,47 +550,40 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
                   "interleaved": True,
                   "leaf-kinds": wire_leaf_kinds(model, sim)} \
         if checkpoint_cb is not None and checkpoint_every > 0 else None
-    issuer = _Issuer(mesh.devices)
     pending = None
     issued = 0
     ticks_dispatched = resume.ticks if resume is not None else 0
     stopped = False
     t_run = time.monotonic()
-    try:
-        for i, (t0, length) in enumerate(plans):
-            fetches = issuer.map(lambda s: issue(s, t0, length))
-            ticks_dispatched = t0 + length
-            # chunk k's copies are read once chunk k+1 is issued
-            tripped = consume(*pending) if pending is not None else False
-            pending = (fetches, t0, length)
-            issued += 1
-            if shard_meta is not None and issued % checkpoint_every == 0 \
-                    and i + 1 < len(plans):
-                # a consistent cut: every shard's chunk just issued is
-                # consumed before any copy of the carry
-                tripped = consume(*pending) or tripped
-                pending = None
-                t_c = time.monotonic()
-                checkpoint_cb(_gather_wire(carries), ticks_dispatched,
-                              {"events": list(events_chunks),
-                               "chunks": chunk_idx[0],
-                               "shard": shard_meta})
-                stats["checkpoint-s"].append(
-                    round(time.monotonic() - t_c, 4))
-            if fail_fast and tripped:
-                stopped = True
-                break
-        if pending is not None:
-            consume(*pending)
-    finally:
-        issuer.close()
+    for i, (t0, length) in enumerate(plans):
+        fetches = [issue(s, t0, length) for s in range(S)]
+        ticks_dispatched = t0 + length
+        # chunk k's copies are read once chunk k+1 is issued
+        tripped = consume(*pending) if pending is not None else False
+        pending = (fetches, t0, length)
+        issued += 1
+        if shard_meta is not None and issued % checkpoint_every == 0 \
+                and i + 1 < len(plans):
+            # a consistent cut: every shard's chunk just issued is
+            # consumed before any copy of the carry
+            tripped = consume(*pending) or tripped
+            pending = None
+            t_c = time.monotonic()
+            checkpoint_cb(_gather_wire(carries), ticks_dispatched,
+                          {"events": list(events_chunks),
+                           "chunks": chunk_idx[0], "shard": shard_meta})
+            stats["checkpoint-s"].append(round(time.monotonic() - t_c, 4))
+        if fail_fast and tripped:
+            stopped = True
+            break
+    if pending is not None:
+        consume(*pending)
     wire = _gather_wire(carries)
     if perf is not None:
         perf.update({
             "chunks": issued, "chunk-ticks": plan_chunks(sim.n_ticks,
                                                          chunk)[0][1],
-            "shards": S, "devices": [str(d) for d in mesh.devices],
-            "issue-threads": issuer.threaded,
+            "shards": S,
             "init-s": round(init_s, 4),
             "run-s": round(time.monotonic() - t_run, 4),
             "shard-issue-s": [round(x, 4) for x in stats["issue-s"]],

@@ -219,37 +219,38 @@ def test_fail_fast_stop_matches_jax(tmp_path):
         str(tmp_path / "torch"))) is not None
 
 
-def test_issue_threads_equal_sequential_issue(monkeypatch):
-    """One issuing thread per shard (the cards' mode, forced here on CPU
-    shards) and one thread for all give the same results: the merge is
-    in shard order."""
+def test_chunked_equals_one_shot_and_unsharded():
+    """The chunk loop (with a checkpoint cut) changes no result: the
+    chunked executor equals the one-shot runner and the unsharded
+    oracle."""
     tm = RaftModel(**RAFT_KW)
     sim = harness.make_sim_config(tm, dict(RAFT_OPTS, time_limit=0.08))
-    kw = dict(mesh=cpu_mesh(2), chunk=40, return_telemetry=True)
-    out = {}
-    for threads in (True, False):
-        monkeypatch.setattr(mesh, "_threaded", lambda devices: threads)
-        perf = {}
-        out[threads] = mesh.run_sim_sharded_chunked(tm, sim, 9, perf=perf,
-                                                    **kw)
-        assert perf["issue-threads"] is threads
-    _same_outputs(out[True], out[False])
-    _same_tel(out[True][3], out[False][3])
+    cuts = []
+    chunked = mesh.run_sim_sharded_chunked(
+        tm, sim, 9, mesh=cpu_mesh(2), chunk=20, return_telemetry=True,
+        checkpoint_every=2,
+        checkpoint_cb=lambda wire, ticks, host: cuts.append(ticks))
+    assert cuts == [40]
+    one_shot = mesh.run_sim_sharded(tm, sim, 9, mesh=cpu_mesh(2),
+                                    return_telemetry=True)
+    oracle = mesh.run_sim_unsharded(tm, sim, 9, 2, device="cpu",
+                                    return_telemetry=True)
+    for out in (one_shot, oracle):
+        _same_outputs(chunked, out)
+        _same_tel(chunked[3], out[3])
 
 
-def test_no_tensor_without_a_device(monkeypatch):
+def test_no_tensor_without_a_device():
     """Under ``torch.set_default_device("meta")`` a tensor made without an
     explicit device is a meta tensor, and any op mixing it with the
     shards' CPU tensors raises: the sharded executor (init, ticks, scans,
-    copies, and its issue threads, which take the caller's default
-    device) still equals its run under the CPU default."""
+    copies, the merge) still equals its run under the CPU default."""
     tm = RaftModel(**RAFT_KW)
     sim = harness.make_sim_config(tm, dict(RAFT_OPTS, time_limit=0.08,
                                            check_mode="both"))
     kw = dict(mesh=cpu_mesh(2), chunk=40, return_telemetry=True,
               return_check_summary=True)
     want = mesh.run_sim_sharded_chunked(tm, sim, 9, **kw)
-    monkeypatch.setattr(mesh, "_threaded", lambda devices: True)
     torch.set_default_device("meta")
     try:
         with pytest.raises(RuntimeError):

@@ -31,7 +31,6 @@ from maelstrom_tpu.tpu.harness import make_sim_config as jmake_sim_config
 from maelstrom_tpu.tpu.pipeline import ResumeState as JResumeState
 from maelstrom_tpu_torch import harness
 from maelstrom_tpu_torch.campaign import checkpoint as ckpt
-from maelstrom_tpu_torch.campaign.checkpoint import CheckpointError
 from maelstrom_tpu_torch.models import get_model
 from maelstrom_tpu_torch.models.raft import RaftModel
 from maelstrom_tpu_torch.parallel import mesh
@@ -298,7 +297,8 @@ def test_reshard_sweep_raft_lanes(tmp_path, S):
     tm, jm = RaftModel(**RAFT_KW), JRaftModel(**RAFT_KW)
 
     def sims(n):
-        o = dict(opts, n_instances=8 // n)
+        # all 8 recorded: the recorded set is the same at every S
+        o = dict(opts, n_instances=8 // n, record_instances=8 // n)
         return (jmake_sim_config(jm, o), harness.make_sim_config(tm, o))
 
     d = str(tmp_path)

@@ -153,6 +153,24 @@ Phases (any failure exits non-zero and prints no result line):
     issue and merge seconds, ``checkpoint-s``, ``restore-s`` and the
     ``state.npz`` size, beside the card's name and power limit.
 
+14. the device profiler (``telemetry/profiler.py``), behind phase 13 in
+    its card worker: the flagship (``fleets.FLAGSHIP`` with its model,
+    4,096 instances) under ``BENCH_FUZZ_DIST``, as phase 4 runs it, for
+    300 ticks in 100-tick chunks with ``device_profile`` off, auto and
+    on in turns, each a stored ``run_torch_test``: every carry leaf, the
+    counters and the verdict of auto and on equal the off run's, the
+    delivery kernel once per tick in each; the profiled runs' heartbeat
+    chunk records carry ``device-ms`` (phases of ``PHASE_LABELS``) from
+    the event-trace source, and ``perf.phases.device`` counts 3
+    captured chunks; ``python -m maelstrom_tpu_torch profile`` on the
+    "on" run (a child process) exits 0 and names the hot scope; a
+    50-tick run with ``profile_dir`` writes one Chrome trace; ``python
+    -m maelstrom_tpu_torch.bench`` (a child process) at 0.3 simulated
+    seconds prints the metric line with ``value`` > 0. It prints the
+    ticks/s of off, auto and on, the per-phase ms/tick, each captured
+    chunk's phase sum against its device wall and issue time, the
+    ``profile`` table, the bench line and the launches.
+
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
 txn-list-append (bare, and under a crash and links plan, whose slab
@@ -167,10 +185,11 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-13 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-14 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic; it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
-its phase 10 compares the CPU with itself).
+its phase 10 compares the CPU with itself; its phase 14 profiles with
+the timed source and checks that the bench module refuses to run).
 ``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
 simulated seconds instead (a quicker check; the broadcast fleet for at
 least 1 s, which it needs to converge after the heal).
@@ -249,7 +268,7 @@ FUZZ_SHRINK = dict(
     node_count=3, concurrency=4, n_instances=1, record_instances=1,
     time_limit=0.3, rate=300.0, latency=5.0, rpc_timeout=0.08,
     recovery_time=0.1, seed=17, inbox_k=2, pool_slots=24, pipeline="on",
-    funnel=False,
+    funnel=False, device_profile="off",
     fault_fuzz={"windows": [2, 2], "gap": [150, 260],
                 "duration": [50, 90],
                 "crash": {"rate": 1.0, "victims": [2, 2]},
@@ -269,7 +288,7 @@ LANES_MUTANT = dict(node_count=3, concurrency=6, n_instances=32,
                     rpc_timeout=1.0, nemesis=["partition"],
                     nemesis_interval=0.04, p_loss=0.05, recovery_time=0.0,
                     seed=7, telemetry=False, funnel=False, layout="lead",
-                    check_mode="both")
+                    check_mode="both", device_profile="off")
 LANES_MUTANT_KW = dict(log_cap=64, heartbeat=8)
 # phase 11 (b): the bug hunt's fleet (fleets.BUG_HUNT) with the correct
 # lin-kv model, no fail-fast, 1,024 of the 4,096 instances recorded, 200
@@ -279,11 +298,12 @@ SWEEP_TIME_LIMIT = 0.2
 # phase 12: the campaign item (the bare flagship, 1,000 ticks in 100-tick
 # chunks, a checkpoint every 2 chunks), killed once its checkpoint
 # reaches KILL_AT_TICKS, and the small card-against-CPU checkpointed run
-CAMPAIGN = dict(time_limit=1.0, chunk_ticks=100, checkpoint_every=2)
+CAMPAIGN = dict(time_limit=1.0, chunk_ticks=100, checkpoint_every=2,
+                device_profile="off")
 KILL_AT_TICKS = 400
 CHILD_DEADLINE_S = 300
 SMALL_CHECKPOINT = dict(n_instances=24, time_limit=0.15, chunk_ticks=50,
-                        checkpoint_every=1)
+                        checkpoint_every=1, device_profile="off")
 # phase 3's scripted run: the JAX tests' Figure-8 options
 # (tests/test_tpu_raft.py:70-75) at 24 instances for 200 ticks, the
 # rotating majorities in 50-tick phases until tick 150 (cut from 250 and
@@ -303,6 +323,16 @@ MESH = dict(n_global=8192, time_limit=0.5, chunk=100, ckpt_tick=200,
 # the small sharded run held card against CPU (state.npz): 24 instances a
 # shard, two shards, 150 ticks in 50-tick chunks, a save every 2 chunks
 SMALL_MESH = dict(n_instances=24, time_limit=0.15, chunk=50, every=2)
+# phases 4-13 run without the device profiler (whose default is auto), so
+# their ticks/s stay comparable with earlier calls; phase 14 prices it
+NO_PROFILE = dict(device_profile="off")
+# phase 14: the flagship (fleets.FLAGSHIP with its model) under
+# BENCH_FUZZ_DIST, as phase 4 runs it, for 300 ticks in 100-tick chunks
+# with device_profile off, auto and on in turns; a 50-tick run under a
+# torch.profiler session (profile_dir); the bench module for 0.3
+# simulated seconds
+PROFILE = dict(time_limit=0.3, chunk=100, trace_ticks=50,
+               bench_seconds=0.3, modes=("off", "auto", "on"))
 
 
 def log(msg: str) -> None:
@@ -1314,6 +1344,208 @@ def small_mesh_checkpoint(dev_name, root, opts):
     return ckpt.checkpoint_path(d)
 
 
+def _profiled_run(model, opts, dev_name, root, name):
+    """``run_torch_test`` stored under ``root``, the delivery launches
+    set to 0 just before and read just after: ``(results, final carry
+    with numpy leaves, launches, wall s)``. The carry is the one the
+    chunked executor returns to the harness."""
+    import os
+    from maelstrom_tpu_torch import convert, harness, pipeline
+    from maelstrom_tpu_torch.kernels import delivery
+    run = pipeline.run_sim_pipelined
+    kept = {}
+
+    def keep(*args, **kw):
+        res = run(*args, **kw)
+        kept["carry"] = convert.carry_to_numpy(res.carry)
+        return res
+
+    pipeline.run_sim_pipelined = keep
+    delivery.deliver.launches = 0
+    t0 = time.monotonic()
+    try:
+        res = harness.run_torch_test(model, dict(
+            opts, store_root=os.path.join(root, name)), device=dev_name)
+    finally:
+        pipeline.run_sim_pipelined = run
+    return (res, kept.get("carry"), delivery.deliver.launches,
+            time.monotonic() - t0)
+
+
+def profile_phase(dev_name, root, opts):
+    """Phase 14 in phase 13's card worker: the flagship with
+    ``device_profile`` off, auto and on in turns, each held to the
+    off run's carry, counters and verdict; the profiled runs' heartbeat
+    lanes and roll-up checked; ``profile`` on the "on" run in a child
+    process; a ``profile_dir`` run; the bench module in a child process.
+    Returns what the main process logs."""
+    import glob
+    import os
+    import subprocess
+    from maelstrom_tpu_torch import convert, fleets
+    from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
+    from maelstrom_tpu_torch.telemetry.profiler import PHASE_LABELS
+    from maelstrom_tpu_torch.telemetry.stream import read_heartbeat
+    label = "phase 14 (device profile)"
+    on_card = dev_name != "cpu"
+    source = "trace" if on_card else "timed"
+    model, _ = fleets.fleet("lin-kv")
+    base = dict(opts["fleet"], time_limit=opts["time_limit"],
+                chunk_ticks=opts["chunk"], pipeline="on",
+                fault_fuzz=BENCH_FUZZ_DIST)
+    out = {"runs": {}, "launches": {}}
+    ref = None
+    for mode in opts["modes"]:
+        res, carry, launches, wall = _profiled_run(
+            model, dict(base, device_profile=mode), dev_name, root,
+            f"profile-{mode}")
+        ticks = res["perf"]["ticks"]
+        if on_card and launches != ticks:
+            raise AssertionError(f"{label} ({mode}): {launches} delivery "
+                                 f"launches for {ticks} ticks")
+        view = (res["valid?"], res["net"], res["invariants"])
+        if ref is None:
+            ref = (view, carry)
+        else:
+            if view != ref[0]:
+                raise AssertionError(f"{label}: the {mode} run's verdict or "
+                                     f"counters differ from the off run's")
+            want = dict(convert.carry_leaves(ref[1]))
+            for name, x in convert.carry_leaves(carry):
+                if not np.array_equal(x, want.pop(name)):
+                    raise AssertionError(f"{label}: the {mode} run's carry "
+                                         f"differs from the off run's: "
+                                         f"{name}")
+            if want:
+                raise AssertionError(f"{label}: leaves missing: {want}")
+        if res["valid?"] is not True:
+            raise AssertionError(f"{label} ({mode}): valid? "
+                                 f"{res['valid?']}")
+        dev = res["perf"]["phases"].get("device")
+        chunks = read_heartbeat(res["store-dir"])["chunks"]
+        lanes = [c for c in chunks if c.get("device-ms")]
+        n_chunks = len(chunks)
+        if mode == "off":
+            if dev is not None or lanes:
+                raise AssertionError(f"{label}: the off run has device "
+                                     f"records")
+        else:
+            # auto captures chunks 0-2, which are all of a 3-chunk run
+            want_n = n_chunks if mode == "on" else min(n_chunks, 3)
+            if dev is None or dev["captured-chunks"] != want_n \
+                    or dev["source"] != source or len(lanes) != want_n:
+                raise AssertionError(f"{label} ({mode}): roll-up {dev}, "
+                                     f"{len(lanes)} lanes of {n_chunks}")
+            for c in lanes:
+                if not set(c["device-ms"]) <= set(PHASE_LABELS) \
+                        or c["device-source"] != source:
+                    raise AssertionError(f"{label} ({mode}): chunk record "
+                                         f"{c}")
+        out["runs"][mode] = {
+            "ticks-per-s": res["perf"]["ticks-per-sec"], "wall-s": wall,
+            "device": dev,
+            "chunks": [{"chunk": c["chunk"], "device-s": c.get("device-s"),
+                        "phase-sum-ms": (round(sum(c["device-ms"].values()),
+                                               4)
+                                         if c.get("device-ms") else None),
+                        "issue-s": s}
+                       for c, s in zip(chunks, res["perf"]["phases"][
+                           "pipeline"]["chunk-issue-s"])]}
+        out["launches"][f"phase 14 {mode}"] = launches
+        if mode == "on":
+            out["run_dir"] = res["store-dir"]
+    # the profile report of the "on" run, as a user runs it
+    repo = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run([sys.executable, "-m", "maelstrom_tpu_torch",
+                        "profile", out["run_dir"]], cwd=repo,
+                       env=_child_env(), capture_output=True, text=True,
+                       timeout=120)
+    if p.returncode != 0 or "hot scope:" not in p.stdout:
+        raise AssertionError(f"{label}: profile exited {p.returncode}: "
+                             f"{p.stdout[-500:]} {p.stderr[-500:]}")
+    out["report"] = p.stdout.strip().splitlines()
+    # a torch.profiler session over a short run
+    trace_dir = os.path.join(root, "profile-trace")
+    res, _, launches, wall = _profiled_run(
+        model, dict(base, time_limit=opts["trace_ticks"] / 1000.0,
+                    device_profile="off", profile_dir=trace_dir),
+        dev_name, root, "profile-dir")
+    traces = glob.glob(os.path.join(trace_dir, "trace-*.json"))
+    if "profile-error" in res["perf"]["phases"] or len(traces) != 1:
+        raise AssertionError(f"{label}: profile_dir: "
+                             f"{res['perf']['phases'].get('profile-error')}"
+                             f", traces {traces}")
+    out["trace"] = {"bytes": os.path.getsize(traces[0]), "wall-s": wall,
+                    "ticks": res["perf"]["ticks"]}
+    out["launches"]["phase 14 profile_dir run"] = launches
+    # the bench module, as a user runs it (no card: it must refuse)
+    t_b = time.monotonic()
+    p = subprocess.run([sys.executable, "-m", "maelstrom_tpu_torch.bench"],
+                       cwd=repo, capture_output=True, text=True,
+                       timeout=600, env=dict(
+                           _child_env(),
+                           BENCH_SIM_SECONDS=str(opts["bench_seconds"])))
+    if not on_card:
+        if p.returncode == 0 or "needs a CUDA card" not in p.stderr:
+            raise AssertionError(f"{label}: the bench ran without a card")
+        out["bench"] = None
+        return out
+    line = json.loads(p.stdout.strip().splitlines()[-1]) \
+        if p.returncode == 0 else {}
+    keys = ("metric", "value", "unit", "vs_baseline", "platform", "engine",
+            "config", "inbox_k", "pool_slots", "instances", "sim_ticks",
+            "delivered", "delivered_timed", "sent", "dropped_overflow",
+            "wall_s", "msg_lanes", "bytes_per_msg_row", "fault_fuzz",
+            "device_profile", "device_ms_per_tick",
+            "device_phase_ms_per_tick")
+    missing = [k for k in keys if k not in line]
+    if missing or not line.get("value", 0) > 0 \
+            or line["metric"] != "simulated_msgs_per_sec":
+        raise AssertionError(f"{label}: bench exited {p.returncode}, "
+                             f"missing {missing}: {p.stdout[-800:]} "
+                             f"{p.stderr[-800:]}")
+    out["bench"] = (line, time.monotonic() - t_b)
+    return out
+
+
+def log_profile_phase(dev, profile_ref):
+    """Phase 14's results, logged in the main process: the delivery
+    launches of its runs."""
+    from maelstrom_tpu_torch.kernels.devtime import card_line
+    label = "phase 14 (device profile)"
+    m, t_prof = profile_ref.result()
+    card = card_line() if dev.type == "cuda" else "no card (rehearsal)"
+    runs = m["runs"]
+    log(f"{label}: off, auto and on end with the same carry (every leaf), "
+        f"counters and verdict; ticks/s "
+        + ", ".join(f"{mode} {r['ticks-per-s']:.3f}"
+                    for mode, r in runs.items()) + f" ({card})")
+    for mode, r in runs.items():
+        dev_rec = r["device"]
+        if dev_rec:
+            per = dev_rec["per-phase-ms-per-tick"]
+            log(f"{label}: {mode}: {dev_rec['captured-chunks']} captured "
+                f"chunks, source {dev_rec['source']}, device "
+                f"{dev_rec['ms-per-tick']} ms/tick; per phase "
+                f"{json.dumps(per)} (sum {sum(per.values()):.5f})")
+        for c in r["chunks"]:
+            log(f"{label}: {mode} chunk {c['chunk']}: issue "
+                f"{c['issue-s']} s, device wall "
+                + (f"{c['device-s']} s, phase sum {c['phase-sum-ms']} ms"
+                   if c["device-s"] is not None else "not captured"))
+    for line in m["report"]:
+        log(f"{label}: profile | {line}")
+    t = m["trace"]
+    log(f"{label}: profile_dir: a {t['ticks']}-tick run wrote a "
+        f"{t['bytes']} B Chrome trace; the run took {t['wall-s']:.1f} s")
+    if m["bench"] is not None:
+        line, t_b = m["bench"]
+        log(f"{label}: bench module ({t_b:.1f} s): {json.dumps(line)}")
+    log(f"{label}: launches {json.dumps(m['launches'])}; the worker's "
+        f"phase 14 took {t_prof:.1f} s")
+    return m["launches"]
+
+
 def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
     """A fleet's options cut to a small input: partitions every
     ``interval`` s, healed 0.05 s before the end."""
@@ -1371,6 +1603,11 @@ def main(argv) -> int:
         o["time_limit"] = 0.4
     for _, o in txn_paths.values():
         o["time_limit"] = 0.5
+    for o in ([opts, bopts, hunt_opts, sweep_opts]
+              + [o for _, o in paths.values()]
+              + [o for _, o in txn_paths.values()]):
+        o.update(NO_PROFILE)
+    profile_opts = dict(PROFILE, fleet=dict(fleets.FLAGSHIP))
     if rehearse:
         # small ops: one thread is as fast, and spares a loaded host
         torch.set_num_threads(1)
@@ -1400,6 +1637,8 @@ def main(argv) -> int:
                                        chunk_ticks=50), 100, campaign[2])
         mesh_opts = dict(mesh_opts, n_global=32, time_limit=0.2, chunk=50,
                          ckpt_tick=100, fleet=small(fleets.FLAGSHIP))
+        profile_opts = dict(profile_opts, time_limit=0.15, chunk=50,
+                            trace_ticks=20, fleet=small(fleets.FLAGSHIP, 16))
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -1438,11 +1677,14 @@ def main(argv) -> int:
             submit(shards, small_mesh_checkpoint, str(dev), root,
                    SMALL_MESH),
             submit(refs, small_mesh_checkpoint, "cpu", root, SMALL_MESH))
+        # phase 14's card work: behind phase 13, in its card worker
+        profile_ref = submit(shards, profile_phase, str(dev), root,
+                             profile_opts)
         return drive_paths(dev, full, rehearse, record, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
                            lanes_opts, sweep_model, sweep_opts, campaign,
-                           mesh_refs)
+                           mesh_refs, profile_ref)
     finally:
         for pool in (shards, side, refs):
             pool.shutdown(wait=True, cancel_futures=True)
@@ -1528,7 +1770,7 @@ def phase3_runs(opts, bopts, paths):
 def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
                 flagship, bopts, bmodel, paths, txn_paths, hunt_model,
                 hunt_opts, lanes_spec, lanes_opts, sweep_model,
-                sweep_opts, campaign, mesh_refs) -> int:
+                sweep_opts, campaign, mesh_refs, profile_ref) -> int:
     """Phases 3-12 and the result lines. Phase 10's fuzz run and card
     shrink, then phase 3's card runs, then phase 12's card work go to
     the side card worker ``side``, and the CPU halves of phases 3, 10,
@@ -1704,12 +1946,16 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     mark("phase 12 (its card work in the side worker)")
     by_path.update(log_mesh_phase(dev, *mesh_refs))
     mark("phase 13 (its card work in a card worker of its own)")
+    by_path.update(log_profile_phase(dev, profile_ref))
+    mark("phase 14 (its card work behind phase 13, in its card worker)")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     record["launches_not_counted"] = {
         "phase 12 campaign run child": "SIGKILLed mid-run: its launch "
         "count dies with the process; the resumed suffix and the "
-        "uninterrupted run of the same item are counted"}
+        "uninterrupted run of the same item are counted",
+        "phase 14 bench module": "a child process of its own; its "
+        "launches are the ticks it runs"}
     # the journaled bug hunt's rows: its shape's launches on the path
     record["shapes"]["bug-hunt-netid"]["launches"] = (
         h_launches["deliver"] + f_launches["triage"])

@@ -8,7 +8,14 @@ mutants) through :func:`harness.run_torch_test` and prints a JSON
 summary (verdict, invariants, network counters, throughput, the verdict
 stage's record, device, and the check, fail-fast, availability, funnel
 and fault blocks where the run has them). Unset flags take the harness defaults
-(``harness.TORCH_DEFAULTS``). Exit code 0 when the run is valid, 1 when
+(``harness.TORCH_DEFAULTS``). ``--device-profile`` and
+``--profile-dir`` are the device profiler's (``telemetry/profiler.py``)
+and a ``torch.profiler`` trace's. The flags the JAX CLI's device runtime
+notes and ignores (``--txn``, ``--crash-clients`` off kafka,
+``--log-stderr``, ``--log-net-send``, ``--log-net-recv``) print its note
+and the run goes on without them; ``--max-txn-length``,
+``--max-writes-per-key``, ``--compile-cache`` and ``--aot-store`` are
+taken and not used, as there. Exit code 0 when the run is valid, 1 when
 it is not, 2 for a bad or missing schedule file.
 
 The forensics commands work on a stored run's directory, with the JAX
@@ -29,6 +36,20 @@ CLI's flags, messages and exit codes:
 ``triage`` and ``shrink`` replay on ``--device`` (``cuda`` by default),
 with the run's own options from its heartbeat (``check_mode`` and
 ``check_workers`` included).
+
+The store commands read a stored run's directory and touch no device,
+with the JAX CLI's flags, output and exit codes:
+
+- ``profile RUN_DIR`` renders the per-phase device time of a profiled
+  run and names the hot scope (2 when the run has none);
+- ``check RUN_DIR`` re-runs the checkers of the workload (the model
+  registry's, a mutant's base workload's) on each recorded history (0
+  valid, 1 invalid, 2 unknown or unusable);
+- ``export RUN_DIR`` writes the histories as Jepsen EDN, one vector per
+  file (``--maps``: line-delimited op maps; ``-o`` a file, a directory
+  or ``-`` for standard output);
+- ``fleet-stats RUN_DIR`` renders ``fleet-metrics.json`` as text and
+  re-renders its SVG dashboards (``--no-svg``: text only).
 
 ``campaign submit|run|status|resume|report`` is the durable campaign
 control plane (``campaign/``), with the JAX CLI's arguments and exit
@@ -168,7 +189,19 @@ def _parser() -> argparse.ArgumentParser:
                    help="the model Elle checks the txn workloads against "
                         "(default strict-serializable)")
     p.add_argument("--txn", action="store_true",
-                   help="kafka transactions: not ported (refused)")
+                   help="kafka transactions: a process and native-runtime "
+                        "feature; noted and ignored, as the JAX device "
+                        "runtime does")
+    p.add_argument("--max-txn-length", type=int,
+                   help="process-runtime generator knob: accepted and "
+                        "ignored, as the JAX device runtime does")
+    p.add_argument("--max-writes-per-key", type=int,
+                   help="process-runtime generator knob: accepted and "
+                        "ignored, as the JAX device runtime does")
+    for flag in ("--log-stderr", "--log-net-send", "--log-net-recv"):
+        p.add_argument(flag, action="store_true",
+                       help="node-process logging: noted and ignored "
+                            "(no node processes)")
     p.add_argument("--availability",
                    help="'total' or a fraction like 0.9 of client ops "
                         "that must complete ok")
@@ -201,6 +234,29 @@ def _parser() -> argparse.ArgumentParser:
                         "instance was device-flagged. Flagged verdicts "
                         "are byte-identical across modes")
     p.add_argument("--no-telemetry", action="store_true")
+    p.add_argument("--telemetry-stride", type=int,
+                   help="ticks per fleet-series window (0 = auto, <= 256 "
+                        "windows)")
+    p.add_argument("--event-capacity", type=_nonnegative_int,
+                   help="compacted event rows per chunk (0 = auto from "
+                        "the client rate; overflow is flagged in "
+                        "results.perf.phases.pipeline)")
+    p.add_argument("--device-profile", choices=("auto", "on", "off"),
+                   help="per-chunk device time by phase (telemetry/"
+                        "profiler.py): auto (default) captures the first "
+                        "chunks then every 8th, on every chunk, off none. "
+                        "Captured chunks gain the heartbeat's device-ms "
+                        "lane and feed results.perf.phases.device and "
+                        "`profile`; trajectories are the same either way")
+    p.add_argument("--profile-dir",
+                   help="a torch.profiler session over the run, its "
+                        "Chrome trace written into this directory")
+    p.add_argument("--compile-cache",
+                   help="the JAX CLI's compile cache: accepted and not "
+                        "used (the port compiles nothing per run)")
+    p.add_argument("--aot-store",
+                   help="the JAX CLI's executable store: accepted and "
+                        "not used")
     p.add_argument("--no-heartbeat", action="store_true",
                    help="do not stream heartbeat.jsonl into the run dir")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
@@ -216,6 +272,54 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--store", default="store")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
+
+    p_check = sub.add_parser(
+        "check", help="re-run checkers offline on a stored history")
+    p_check.add_argument("path", help="a store run dir (e.g. store/"
+                                      "lin-kv-torch/latest) or a "
+                                      "history.jsonl file")
+    p_check.add_argument("-w", "--workload", default=None,
+                         help="workload name (inferred from a store dir"
+                              " path)")
+    p_check.add_argument("--availability", default=None)
+    p_check.add_argument("--consistency-models", default=None,
+                         choices=["read-uncommitted", "read-committed",
+                                  "read-atomic", "snapshot-isolation",
+                                  "serializable", "strict-serializable"])
+
+    p_export = sub.add_parser(
+        "export", help="export a stored history as Jepsen-compatible "
+                       "EDN for stock Elle/Knossos")
+    p_export.add_argument("path", help="a store run dir or a "
+                                       "history.jsonl file")
+    p_export.add_argument("-w", "--workload", default=None,
+                          help="workload name (inferred from a store "
+                               "dir path)")
+    p_export.add_argument("-o", "--out", default=None,
+                          help="output .edn file, directory, or '-' "
+                               "for stdout (default: next to the input)")
+    p_export.add_argument("--maps", action="store_true",
+                          help="emit line-delimited op maps instead of "
+                               "one EDN vector (history.edn shape)")
+
+    p_fleet = sub.add_parser(
+        "fleet-stats", help="render a stored run's fleet telemetry "
+                            "report and its SVG dashboards")
+    p_fleet.add_argument("path", help="a store run dir or a "
+                                      "fleet-metrics.json file")
+    p_fleet.add_argument("-o", "--out", default=None,
+                         help="directory for the SVG dashboards "
+                              "(default: the run dir)")
+    p_fleet.add_argument("--no-svg", action="store_true",
+                         help="text report only")
+
+    p_profile = sub.add_parser(
+        "profile", help="render a stored run's per-phase device-time "
+                        "table and name the hot scope")
+    p_profile.add_argument("path", help="a store run dir with heartbeat "
+                                        "device-ms lanes and/or a "
+                                        "results.json perf.phases.device "
+                                        "roll-up")
 
     p_watch = sub.add_parser(
         "watch", help="render a run's streaming heartbeat.jsonl")
@@ -336,6 +440,219 @@ def _parser() -> argparse.ArgumentParser:
                                "(null in the port: no static cost "
                                "model)")
     return ap
+
+
+# --- the store commands (no device) -----------------------------------------
+
+
+def _resolve_history_paths(path: str, workload_arg, verb: str):
+    """A store run dir (or a bare history file) as ``(paths,
+    workload_name, device_store)``; raises ValueError with the message
+    for the user. A run dir's parent names the workload: the port's
+    ``<workload>-torch``, the JAX package's ``<workload>-tpu`` and
+    ``<workload>-native`` (the mutant suffix is kept; callers strip it
+    where they need the base workload)."""
+    import glob
+
+    path = os.path.realpath(path)
+    device_store = False
+    if os.path.isdir(path):
+        paths = sorted(glob.glob(os.path.join(path, "history*.jsonl")))
+        if not paths:
+            raise ValueError(f"no history*.jsonl under {path}")
+        inferred = os.path.basename(os.path.dirname(path))
+        for suffix in ("-torch", "-tpu", "-native"):
+            if inferred.endswith(suffix):
+                # one history per recorded instance, no node logs
+                inferred, device_store = inferred[:-len(suffix)], True
+                break
+    else:
+        paths, inferred = [path], None
+    workload_name = workload_arg or inferred
+    if not workload_name:
+        raise ValueError(f"pass -w/--workload when {verb} a bare "
+                         f"history file")
+    return paths, workload_name, device_store
+
+
+def _load_history_records(p: str):
+    """One history.jsonl, its torn tail (a run killed mid-write)
+    skipped with a warning."""
+    records, bad = [], 0
+    with open(p) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                bad += 1
+    if bad:
+        print(f"warning: {p}: skipped {bad} unparseable line(s)",
+              file=sys.stderr)
+    return records
+
+
+def cmd_check(args) -> int:
+    """Re-run the checkers on a stored run's histories: per recorded
+    history the workload's checker (the model registry's), over their
+    union the fleet stats and availability, as the live harness
+    composes them."""
+    from .checkers import check_history, checker_failure, compose_valid
+    from .checkers.availability import availability_checker
+    from .checkers.perf import stats_checker
+    from .models import get_model
+
+    try:
+        paths, workload_name, device_store = _resolve_history_paths(
+            args.path, args.workload, "checking")
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # a mutant checks with its base workload's checker
+    workload_name = workload_name.split("-bug-")[0]
+    try:
+        checker = get_model(workload_name, 3).checker()
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    opts = {"availability": _availability(args.availability)}
+    if args.consistency_models:
+        opts["consistency_models"] = args.consistency_models
+
+    histories = [_load_history_records(p) for p in paths]
+
+    if len(histories) == 1 and not device_store:
+        results = check_history(histories[0], opts, checker,
+                                name=f"{workload_name}-checker")
+    else:
+        # one verdict per recorded instance; stats and availability over
+        # the union (informational stats: a recorded instance with no
+        # ok op under a hostile schedule is not a safety failure)
+        per_history = []
+        for h in histories:
+            try:
+                per_history.append(checker(h, opts))
+            except Exception as e:
+                per_history.append(checker_failure(
+                    e, checker=f"{workload_name}-checker",
+                    instance=len(per_history)))
+        union = [r for h in histories for r in h]
+        stats = stats_checker(union)
+        stats.pop("valid?", None)
+        results = {
+            "instances": {os.path.basename(p): r
+                          for p, r in zip(paths, per_history)},
+            "stats": stats,
+            "availability": availability_checker(
+                union, opts["availability"]),
+        }
+        results["valid?"] = compose_valid(
+            [r.get("valid?", True) for r in per_history]
+            + [results["availability"].get("valid?", True)])
+    results["workload-name"] = workload_name
+    print(json.dumps(results, indent=2, default=repr))
+    verdict = results["valid?"]
+    if verdict is True:
+        return 0
+    return 2 if verdict == "unknown" else 1
+
+
+def cmd_export(args) -> int:
+    """A stored run's histories as Jepsen EDN op maps, for stock Elle or
+    Knossos: by default one EDN vector per history (Jepsen's
+    ``history.edn``), with ``--maps`` line-delimited maps."""
+    from .utils.edn import (history_to_edn_lines,
+                            history_to_edn_vector_lines)
+
+    to_lines = (history_to_edn_lines if args.maps
+                else history_to_edn_vector_lines)
+    try:
+        paths, workload, _ = _resolve_history_paths(
+            args.path, args.workload, "exporting")
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.out and args.out.endswith(".edn") and len(paths) > 1:
+        print(f"error: -o {args.out} names one file but the run has "
+              f"{len(paths)} history shards; pass a directory",
+              file=sys.stderr)
+        return 2
+    if args.out == "-" and len(paths) > 1 and not args.maps:
+        # concatenated vectors are not one readable EDN form
+        print(f"error: the run has {len(paths)} history shards, which "
+              f"cannot share stdout as EDN vectors; pass a directory "
+              f"(one vector per file) or --maps", file=sys.stderr)
+        return 2
+
+    for p in paths:
+        records = _load_history_records(p)
+        if args.out == "-":
+            for line in to_lines(records, workload):
+                print(line)
+        else:
+            base = os.path.basename(p).replace(".jsonl", ".edn")
+            dest = (args.out if args.out and args.out.endswith(".edn")
+                    else os.path.join(args.out or os.path.dirname(p),
+                                      base))
+            os.makedirs(os.path.dirname(dest) or ".", exist_ok=True)
+            with open(dest, "w") as f:
+                for line in to_lines(records, workload):
+                    f.write(line + "\n")
+            print(f"wrote {dest} ({len(records)} ops)", file=sys.stderr)
+    return 0
+
+
+def cmd_fleet_stats(args) -> int:
+    """A stored run's fleet telemetry: the text report on standard
+    output and the rate, drop and latency SVG dashboards re-rendered
+    from ``fleet-metrics.json``."""
+    from .telemetry.fleet import (FLEET_METRICS_FILE, load_fleet_metrics,
+                                  render_report, write_fleet_svgs)
+
+    path = os.path.realpath(args.path)
+    try:
+        metrics = load_fleet_metrics(path)
+    except OSError as e:
+        print(f"error: no {FLEET_METRICS_FILE} at {args.path} ({e}); "
+              f"fleet metrics are written by TPU-runtime runs unless "
+              f"--no-telemetry was passed", file=sys.stderr)
+        return 2
+    except json.JSONDecodeError as e:
+        print(f"error: unparseable fleet metrics at {args.path}: {e}",
+              file=sys.stderr)
+        return 2
+    run_dir = path if os.path.isdir(path) else os.path.dirname(path)
+    phases = None
+    try:
+        with open(os.path.join(run_dir, "results.json")) as f:
+            phases = json.load(f).get("perf", {}).get("phases")
+    except (OSError, json.JSONDecodeError):
+        pass
+    print(render_report(metrics, phases=phases))
+    if not args.no_svg:
+        out_dir = args.out or run_dir
+        os.makedirs(out_dir, exist_ok=True)
+        for p in write_fleet_svgs(metrics, out_dir):
+            print(f"wrote {p}", file=sys.stderr)
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """A stored run's per-phase device-time table and its hot scope
+    (``telemetry/profiler.py``); 2 when the run has no device time."""
+    from .telemetry.profiler import render_profile_report
+
+    path = os.path.realpath(args.path)
+    report = render_profile_report(path)
+    if report is None:
+        print(f"error: no device-time records at {args.path} — "
+              f"device time is captured by chunked TPU-runtime runs "
+              f"unless --device-profile off was passed (old run dirs "
+              f"predate the lane)", file=sys.stderr)
+        return 2
+    print(report)
+    return 0
 
 
 def _watch_campaign(args) -> int:
@@ -536,8 +853,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd != "test":
         return {"watch": cmd_watch, "triage": cmd_triage,
-                "shrink": cmd_shrink,
-                "campaign": cmd_campaign}[args.cmd](args)
+                "shrink": cmd_shrink, "campaign": cmd_campaign,
+                "check": cmd_check, "export": cmd_export,
+                "fleet-stats": cmd_fleet_stats,
+                "profile": cmd_profile}[args.cmd](args)
     from .harness import run_torch_test
     from .models import get_model
 
@@ -553,7 +872,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "rpc_timeout", "p_loss", "n_instances", "record_instances",
                  "inbox_k", "pool_slots", "ms_per_tick", "pipeline",
                  "chunk_ticks", "fault_snapshot_every", "scan_top_k",
-                 "journal_instances", "checkpoint_every", "seed"):
+                 "journal_instances", "checkpoint_every", "seed",
+                 "telemetry_stride", "event_capacity", "device_profile",
+                 "profile_dir", "compile_cache", "aot_store"):
         v = getattr(args, flag)
         if v is not None:
             opts[flag] = v
@@ -593,10 +914,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     if raft_kw and not args.workload.startswith("lin-kv"):
         raise ValueError("--log-cap and --heartbeat-ticks are options of "
                          "lin-kv only (and its mutants)")
+    # the JAX device runtime's notes, word for word: the run goes on
+    # without the flag
+    for flag, name in ((args.log_stderr, "--log-stderr"),
+                       (args.log_net_send, "--log-net-send"),
+                       (args.log_net_recv, "--log-net-recv")):
+        if flag:
+            print(f"note: {name} has no effect on the TPU runtime "
+                  f"(no node processes / host wire log)",
+                  file=sys.stderr)
+    if args.crash_clients and not args.workload.startswith("kafka"):
+        print("note: --crash-clients has no effect on the TPU "
+              f"{args.workload} runtime (kafka-only)", file=sys.stderr)
+        args.crash_clients = False
     if args.txn:
-        raise ValueError("--txn (kafka transactions) is a process and "
-                         "native-runtime feature of the JAX package; "
-                         "maelstrom_tpu_torch does not port it")
+        print("note: --txn has no effect on the TPU runtime yet "
+              "(kafka transactions are process/native-runtime "
+              "features; use --runtime native)", file=sys.stderr)
     model_opts = {k: True for k in ("crash_clients", "txn_dirty_apply")
                   if getattr(args, k)}
     opts.update(model_opts)

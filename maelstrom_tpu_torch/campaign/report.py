@@ -1,12 +1,11 @@
 """Campaign status + the multi-run trend store.
 
 Counterpart of ``maelstrom_tpu/campaign/report.py``, with the same
-tables and ``summary.json``. Two of the JAX report's columns rest on
-JAX tooling the port lacks (ROADMAP A.6): ``ir-bytes-est`` (the static
-cost of each model config, an abstract JAX trace) is written ``null``,
-and the device-time columns (the JAX device profiler's
-``perf.phases.device`` and the heartbeat's ``device-ms`` lane) are
-``null`` or left out: the port records no device profile.
+tables and ``summary.json``, the device-time columns included (each
+item's ``perf.phases.device`` roll-up and its heartbeat's ``device-ms``
+lane, ``telemetry/profiler.py``). One column rests on JAX tooling the
+port lacks: ``ir-bytes-est`` (the static cost of each model config, an
+abstract JAX trace) is written ``null``.
 
 ``campaign status`` merges every item's streaming heartbeat into one
 live table — which items are queued/running/done, each running item's
@@ -23,6 +22,7 @@ disconnected runs.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -56,6 +56,19 @@ def _heartbeat_live(run_dir: Optional[str]) -> Dict[str, Any]:
                                 for r in hb["chunks"])
         if last.get("net"):
             out["net"] = last["net"]
+        # the device-time lane: the hot scope of the latest captured
+        # chunk (heartbeats without it simply lack the key)
+        for rec in reversed(hb["chunks"]):
+            dev = rec.get("device-ms")
+            if dev:
+                from ..telemetry.profiler import hot_scope
+                hot = hot_scope(dev)
+                if hot:
+                    out["device-hot"] = {
+                        "scope": hot[0],
+                        "ms-per-tick": round(
+                            hot[1] / max(rec.get("ticks", 1), 1), 4)}
+                break
     v = first_violation_of(hb)
     if v:
         out["first-violation"] = v
@@ -110,6 +123,11 @@ def render_status(status: Dict[str, Any]) -> str:
         net = live.get("net") or {}
         if net:
             progress += f"  delivered {net.get('delivered', 0)}"
+        hot = live.get("device-hot")
+        if hot:
+            # the device-ms hot-scope column
+            progress += (f"  dev[{hot.get('scope', '?')} "
+                         f"{hot.get('ms-per-tick', 0):.2f}/tick]")
         if live.get("resumes"):
             progress += f"  resumes {live['resumes']}"
         verdict = ("" if r.get("valid?") is None
@@ -127,6 +145,21 @@ def render_status(status: Dict[str, Any]) -> str:
             f"{r['status']:<9} attempts {r['attempts']}"
             f"{retrying}{verdict}{progress}")
     return "\n".join(lines)
+
+
+def _device_phases(run_dir: Optional[str]) -> Optional[Dict[str, Any]]:
+    """A completed item's device-time roll-up from its results.json
+    (``perf.phases.device``); None when the run was not profiled or
+    cannot be read."""
+    if not run_dir:
+        return None
+    try:
+        with open(os.path.join(run_dir, "results.json")) as fh:
+            dev = (json.load(fh).get("perf", {}).get("phases", {})
+                   .get("device"))
+        return dev if isinstance(dev, dict) else None
+    except Exception:
+        return None
 
 
 def campaign_report(cdir: str, static_cost: bool = True,
@@ -157,6 +190,10 @@ def campaign_report(cdir: str, static_cost: bool = True,
             row["error"] = item.get("error")
         if static_cost and item.get("workload"):
             row["ir-bytes-est"] = None
+        dev = _device_phases(item.get("run-dir"))
+        if dev:
+            row["device-ms-per-tick"] = dev.get("ms-per-tick")
+            row["device-phases"] = dev.get("per-phase-ms-per-tick")
         rows.append(row)
     # per-workload trend rows: the cross-item aggregation the Pulsar
     # methodology tracks per configuration
@@ -165,7 +202,12 @@ def campaign_report(cdir: str, static_cost: bool = True,
         wl = row.get("workload") or "?"
         t = trends.setdefault(wl, {
             "runs": 0, "done": 0, "failed": 0, "valid": 0, "invalid": 0,
-            "violating-instances": 0, "msgs-per-sec": []})
+            "violating-instances": 0, "msgs-per-sec": [],
+            "_dev_mpt": [], "_dev_phases": []})
+        if row.get("device-ms-per-tick") is not None:
+            t["_dev_mpt"].append(row["device-ms-per-tick"])
+        if row.get("device-phases"):
+            t["_dev_phases"].append(row["device-phases"])
         t["runs"] += 1
         if row["status"] == q.DONE:
             t["done"] += 1
@@ -184,10 +226,24 @@ def campaign_report(cdir: str, static_cost: bool = True,
         t["msgs-per-sec-mean"] = (round(sum(rates) / len(rates), 1)
                                   if rates else None)
         t["msgs-per-sec-max"] = max(rates) if rates else None
-        # no static cost model and no device profile in the port
+        # no static cost model in the port
         t["ir-bytes-est"] = None
-        t["device-ms-per-tick-mean"] = None
-        t["device-phases-mean"] = None
+        # per-phase device-time trend rows: mean ms/tick over the
+        # workload's profiled items
+        mpt = t.pop("_dev_mpt")
+        devp = t.pop("_dev_phases")
+        t["device-ms-per-tick-mean"] = (
+            round(sum(mpt) / len(mpt), 5) if mpt else None)
+        if devp:
+            acc: Dict[str, float] = {}
+            for d in devp:
+                for ph, ms in d.items():
+                    acc[ph] = acc.get(ph, 0.0) + float(ms)
+            t["device-phases-mean"] = {
+                ph: round(ms / len(devp), 5)
+                for ph, ms in sorted(acc.items())}
+        else:
+            t["device-phases-mean"] = None
     done = [r for r in rows if r["status"] == q.DONE]
     summary = {
         "name": meta.get("name"),
@@ -236,4 +292,13 @@ def render_report(summary: Dict[str, Any]) -> str:
             f"msgs/s mean {t['msgs-per-sec-mean']} "
             f"max {t['msgs-per-sec-max']} "
             f"ir-bytes {t.get('ir-bytes-est')}")
+        devp = t.get("device-phases-mean")
+        if devp:
+            # the per-phase device-time trend row
+            lines.append(
+                f"  {'':<18} device ms/tick "
+                f"{t.get('device-ms-per-tick-mean')} — " + " ".join(
+                    f"{ph} {ms:.4f}"
+                    for ph, ms in sorted(devp.items(),
+                                         key=lambda kv: -kv[1])))
     return "\n".join(lines)

@@ -1,9 +1,11 @@
-"""Latency and throughput plots of a history for the store.
+"""Performance and stats checkers over a history, and its plots.
 
-Copy of ``plot_perf`` (and its ``_quantiles``) from
-``maelstrom_tpu/checkers/perf.py``: ``latency-raw.svg``,
+Copy of ``maelstrom_tpu/checkers/perf.py``: ``stats_checker`` (jepsen's
+checker/stats: ok/fail/info counts overall and per ``:f``, valid iff
+every ``:f`` has an ok), ``perf_checker`` (latency quantiles and
+throughput), and ``plot_perf`` (``latency-raw.svg``,
 ``latency-quantiles.svg`` and ``rate.svg``, rendered from the first
-recorded instance's history.
+recorded instance's history).
 """
 
 from __future__ import annotations
@@ -25,6 +27,65 @@ def _quantiles(xs: List[float], qs=(0.5, 0.95, 0.99, 1.0)) -> Dict[str, float]:
         i = min(len(xs) - 1, int(q * len(xs)))
         out[str(q)] = xs[i]
     return out
+
+
+_TYPE_COLOR = {"ok": "#33aa33", "fail": "#dd2222", "info": "#ff9900"}
+
+
+def stats_checker(history) -> dict:
+    counts = defaultdict(lambda: defaultdict(int))
+    totals = defaultdict(int)
+    for r in history:
+        if r.get("process") == "nemesis":
+            continue
+        t = r["type"]
+        if t in ("ok", "fail", "info", "invoke"):
+            counts[r["f"]][t] += 1
+            totals[t] += 1
+    by_f = {}
+    for f, c in counts.items():
+        # crash ops never complete ok by design (crash-client mode);
+        # exempt them, like the reference's kafka stats-checker wrapper
+        # (jepsen.tests.kafka stats-checker over kafka.clj:296)
+        by_f[f] = {"count": c["invoke"], "ok-count": c["ok"],
+                   "fail-count": c["fail"], "info-count": c["info"],
+                   "valid?": (c["ok"] > 0) or f == "crash"}
+    return {"valid?": all(v["valid?"] for v in by_f.values()) if by_f
+            else True,
+            "count": totals["invoke"], "ok-count": totals["ok"],
+            "fail-count": totals["fail"], "info-count": totals["info"],
+            "by-f": by_f}
+
+
+def perf_checker(history) -> dict:
+    lat_by_f = defaultdict(list)
+    all_lat = []
+    t_min, t_max = None, None
+    ok_count = 0
+    for p in pairs(history):
+        inv, comp = p["invoke"], p["complete"]
+        if inv.get("process") == "nemesis":
+            continue
+        t = inv["time"]
+        t_min = t if t_min is None else min(t_min, t)
+        t_max = t if t_max is None else max(t_max, t)
+        if comp is None:
+            continue
+        lat_ms = (comp["time"] - inv["time"]) / 1e6
+        lat_by_f[inv["f"]].append(lat_ms)
+        all_lat.append(lat_ms)
+        if comp["type"] == "ok":
+            ok_count += 1
+    duration_s = ((t_max - t_min) / 1e9) if (t_min is not None
+                                             and t_max > t_min) else 0.0
+    return {
+        "valid?": True,
+        "latency-ms": _quantiles(all_lat),
+        "latency-ms-by-f": {f: _quantiles(v) for f, v in lat_by_f.items()},
+        "duration-s": duration_s,
+        "ok-throughput-ops-per-s": (ok_count / duration_s
+                                    if duration_s > 0 else 0.0),
+    }
 
 
 _TYPE_COLOR = {"ok": "#33aa33", "fail": "#dd2222", "info": "#ff9900"}

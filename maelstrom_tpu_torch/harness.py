@@ -74,6 +74,15 @@ TORCH_DEFAULTS = dict(
     telemetry=True,
     telemetry_stride=0,      # 0 = auto (<= 256 windows)
     telemetry_hist_buckets=16,
+    profile_dir=None,        # a torch.profiler session over the run,
+                             # its Chrome trace written into this dir
+    device_profile="auto",   # per-chunk device time by phase (telemetry/
+                             # profiler.py): "auto" the first chunks and
+                             # then every 8th, "on" every chunk, "off"
+                             # none; captured chunks gain the heartbeat's
+                             # device-ms lane and feed results.perf.
+                             # phases.device; trajectories are the same
+                             # at every setting
     pipeline="auto",         # chunked executor when the horizon spans
                              # several chunks
     chunk_ticks=100,
@@ -116,9 +125,9 @@ CHECK_MODES = ("farm", "device", "both")
 
 # options of the JAX harness that change neither the trajectory nor the
 # verdict and have no counterpart here, accepted and not used: the
-# device profiler (not ported; ROADMAP A.6), the executable store and
-# the compilation cache (the port compiles nothing per run)
-LIFECYCLE_OPTS = ("device_profile", "aot_store", "compile_cache")
+# executable store and the compilation cache (the port compiles nothing
+# per run)
+LIFECYCLE_OPTS = ("aot_store", "compile_cache")
 # model-selection flags (models.get_model builds the model from them; the
 # harness holds the model to them) and the Elle checker's model names
 MODEL_OPTS = ("crash_clients", "txn_dirty_apply", "consistency_models")
@@ -328,6 +337,41 @@ def prepare_store_dir(name: str, store_root: str,
         except OSError:
             pass
     return d
+
+
+def _start_trace(profile_dir: Optional[str], dev: torch.device,
+                 phases: Dict[str, Any]):
+    """A ``torch.profiler`` session over the run (the card's kernels
+    too on a card), or None; a session that cannot start is recorded
+    under ``phases["profile-error"]`` and the run goes on."""
+    if not profile_dir:
+        return None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        os.makedirs(profile_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        session = profile(activities=acts)
+        session.__enter__()
+        return session
+    except Exception as e:
+        phases["profile-error"] = repr(e)[:160]
+        return None
+
+
+def _stop_trace(session, profile_dir: str, dev: torch.device,
+                phases: Dict[str, Any]) -> None:
+    """End the session and write its Chrome trace into
+    ``profile_dir`` (``trace-<pid>-<timestamp>.json``)."""
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        session.__exit__(None, None, None)
+        session.export_chrome_trace(os.path.join(
+            profile_dir, f"trace-{os.getpid()}-"
+                         f"{time.strftime('%Y%m%d-%H%M%S')}.json"))
+    except Exception as e:
+        phases["profile-error"] = repr(e)[:160]
 
 
 def write_store(run_dir: str, results: Dict[str, Any], histories,
@@ -582,7 +626,15 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
         # the live suffix, so the histories cover the whole horizon
         for rows, count in resume.compact:
             verdict.feed_chunk(np.asarray(rows), int(count), 0, 0)
+    # per-chunk device time (telemetry/profiler.py) on the chunked
+    # executor; "off" builds no profiler and pays for no weight pass
+    prof = None
+    mode = str(opts.get("device_profile") or "auto")
+    if use_pipe and mode != "off":
+        from .telemetry.profiler import DeviceProfiler
+        prof = DeviceProfiler(mode, model=model, sim=sim, device=dev)
     events = None
+    session = _start_trace(opts.get("profile_dir"), dev, phases)
     t0 = time.monotonic()
     try:
         if use_pipe:
@@ -597,11 +649,14 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                 check_mode=opts.get("check_mode"),
                 checkpoint_cb=checkpoint_cb,
                 checkpoint_every=int(opts.get("checkpoint_every") or 0),
-                resume=resume)
+                resume=resume, profiler=prof)
             carry = pipe_res.carry
             journal_sends = pipe_res.journal_sends
             journal_recvs = pipe_res.journal_recvs
             phases["pipeline"] = pipe_res.perf
+            if prof is not None and prof.records:
+                # device ms/tick by phase, next to the host timers
+                phases["device"] = prof.summary()
         else:
             carry, ys = run_sim(model, sim, int(opts["seed"]), dev)
             events = (ys.events.cpu().numpy() if ys.events is not None
@@ -616,9 +671,16 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
             # no run-end record: the heartbeat's prefix marks a dead run
             hb.close()
         raise
+    finally:
+        trace_s = 0.0
+        if session is not None:
+            t_tr = time.monotonic()
+            _stop_trace(session, opts["profile_dir"], dev, phases)
+            trace_s = time.monotonic() - t_tr
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    wall = time.monotonic() - t0
+    # the trace's export is not the run's
+    wall = time.monotonic() - t0 - trace_s
     fleet = None
     if carry.telemetry is not None:
         tel = carry.telemetry

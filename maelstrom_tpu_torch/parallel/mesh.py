@@ -454,11 +454,12 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
     continues such a cut. ``perf`` (a dict) receives the executor's
     counts and times: per-shard issue seconds, merge seconds, saves.
 
-    ``profiler`` and ``aot_store`` are the JAX executor's device
-    profiler and executable store, which the port does not have yet."""
-    if profiler is not None:
-        raise ValueError("profiler: the port has no device profiler yet "
-                         "(telemetry/profiler.py is not ported)")
+    ``profiler`` (a ``telemetry.profiler.DeviceProfiler``) captures the
+    chunks its ``should_capture`` picks, by absolute chunk index: a
+    captured chunk spans every shard's issue, its heartbeat record gains
+    ``device-s``, ``device-ms`` and ``device-source``, and ``perf`` the
+    roll-up under ``device``. ``aot_store`` is the JAX executor's
+    executable store, which the port does not have."""
     if aot_store is not None:
         raise ValueError("aot_store: the port has no executable store "
                          "(tpu/aot_store.py is not ported)")
@@ -513,7 +514,10 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
         stats["issue-s"][s] += time.monotonic() - t_i
         return fetch
 
-    def consume(fetches, t0: int, length: int) -> bool:
+    def issue_all(t0: int, length: int):
+        return [issue(s, t0, length) for s in range(S)]
+
+    def consume(fetches, t0: int, length: int, prof_rec=None) -> bool:
         t_m = time.monotonic()
         hosts = [[x.numpy() for x in finish_fetch(f)] for f in fetches]
         if R > 0:
@@ -537,11 +541,18 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
                 extra["check"] = {"mode": check_mode,
                                   "flagged": int(scan_np[0, 0]),
                                   "of": I * S}
+            if prof_rec is not None:
+                extra = dict(extra or {})
+                extra["device-ms"] = prof_rec["per-phase-ms"]
+                extra["device-source"] = prof_rec["source"]
             heartbeat.record_chunk(
                 chunk=chunk_idx[0], t0=t0, ticks=length,
                 net=stats_vec_to_net(svec.sum(axis=0)),
                 violation=scan_to_violation(scan_np),
-                violations=scan_to_violations(scan_np), extra=extra)
+                violations=scan_to_violations(scan_np),
+                device_s=(prof_rec["device-s"] if prof_rec is not None
+                          else None),
+                extra=extra)
         chunk_idx[0] += 1
         stats["merge-s"] += time.monotonic() - t_m
         return int(scan_np[0, 0]) > 0
@@ -555,12 +566,19 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
     ticks_dispatched = resume.ticks if resume is not None else 0
     stopped = False
     t_run = time.monotonic()
+    dispatch_idx = resume.chunks if resume is not None else 0
     for i, (t0, length) in enumerate(plans):
-        fetches = [issue(s, t0, length) for s in range(S)]
+        prof_rec = None
+        if profiler is not None and profiler.should_capture(dispatch_idx):
+            fetches, prof_rec = profiler.capture(
+                issue_all, (t0, length), length, devices=mesh.devices)
+        else:
+            fetches = issue_all(t0, length)
+        dispatch_idx += 1
         ticks_dispatched = t0 + length
         # chunk k's copies are read once chunk k+1 is issued
         tripped = consume(*pending) if pending is not None else False
-        pending = (fetches, t0, length)
+        pending = (fetches, t0, length, prof_rec)
         issued += 1
         if shard_meta is not None and issued % checkpoint_every == 0 \
                 and i + 1 < len(plans):
@@ -597,6 +615,8 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
             perf["resumed-from-ticks"] = resume.ticks
         if stopped:
             perf["stopped-early"] = True
+        if profiler is not None and profiler.records:
+            perf["device"] = profiler.summary()
 
     # the per-shard NetStats slots summed with int32 wrap; int adds
     # commute, so the total is invariant to how a reshard regrouped them

@@ -254,8 +254,8 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                       heartbeat=None, fuzz_windows=None, event_sink=None,
                       check_mode: Optional[str] = None,
                       checkpoint_cb=None, checkpoint_every: int = 0,
-                      resume: Optional[ResumeState] = None
-                      ) -> PipelineResult:
+                      resume: Optional[ResumeState] = None,
+                      profiler=None) -> PipelineResult:
     """Run the horizon chunk by chunk; returns the final carry, each
     chunk's compacted event rows, executor stats, the violation scan
     of the last consumed chunk and the journaled instances' sent rows
@@ -292,7 +292,14 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     the next one is issued only after the callback returns, so the carry
     the callback reads is the one the accumulators cover. ``resume``
     continues a checkpointed run from its tick frontier; the returned
-    compact chunks and journal then cover the whole horizon."""
+    compact chunks and journal then cover the whole horizon.
+
+    ``profiler`` (a :class:`.telemetry.profiler.DeviceProfiler`) issues
+    the chunks its ``should_capture`` picks, by absolute chunk index,
+    under device-time measurement: their heartbeat records gain
+    ``device-s``, ``device-ms`` and ``device-source``, and ``perf`` the
+    roll-up under ``device``. The other chunks are issued as without
+    it; the trajectory is the same either way."""
     if instance_ids is None:
         instance_ids = default_instance_ids(sim, device)
     R, J, V = sim.record_instances, sim.journal_instances, model.ev_vals
@@ -318,7 +325,7 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
              "checkpoint-s": []}
     last_scan: List[Optional[np.ndarray]] = [None]
 
-    def consume(fetch, k: int, t0: int, length: int):
+    def consume(fetch, k: int, t0: int, length: int, prof_rec=None):
         t_f = time.monotonic()
         host = list(finish_fetch(fetch))
         ovf = False
@@ -345,14 +352,42 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                 extra["check"] = {"mode": check_mode,
                                   "flagged": int(last_scan[0][0, 0]),
                                   "of": sim.n_instances}
+            if prof_rec is not None:
+                # the device-time lane: this chunk's ms per phase
+                extra = dict(extra or {})
+                extra["device-ms"] = prof_rec["per-phase-ms"]
+                extra["device-source"] = prof_rec["source"]
             heartbeat.record_chunk(
                 chunk=k, t0=t0, ticks=length,
                 net=stats_vec_to_net(host.pop().numpy()),
                 violation=scan_to_violation(last_scan[0]),
                 violations=scan_to_violations(last_scan[0]),
-                overflowed=ovf, extra=extra)
+                overflowed=ovf,
+                device_s=(prof_rec["device-s"] if prof_rec is not None
+                          else None),
+                extra=extra)
         stats["fetch-s"] += time.monotonic() - t_f
         return int(last_scan[0][0, 0]) > 0
+
+    def issue(carry, t0: int, length: int):
+        """One chunk's ticks, compacted events, journal rows and
+        violation scan, queued on the device."""
+        buf = new_buffer(cap, V, device) if R > 0 else None
+        sends, recvs = [], []
+        for t in range(t0, t0 + length):
+            carry, ys = tick(carry, t)
+            if buf is not None:
+                buf = compact_tick(buf, t, ys.events, V)
+            if J > 0:
+                sends.append(ys.journal_sends)
+                recvs.append(ys.journal_recvs)
+        scan = violation_scan(scan_source(carry), carry.telemetry,
+                              instance_ids, k=scan_k)
+        out = ((buf.rows, buf.count) if buf is not None else ()) + (
+            (torch.stack(sends), torch.stack(recvs)) if J > 0 else ())
+        if heartbeat is not None:
+            out += (torch.stack(list(carry.stats)),)
+        return carry, out + (scan,)
 
     pending = None
     issued = 0
@@ -362,22 +397,14 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     with torch.no_grad():
         for i, (t0, length) in enumerate(plans):
             t_i = time.monotonic()
-            buf = new_buffer(cap, V, device) if R > 0 else None
-            sends, recvs = [], []
-            for t in range(t0, t0 + length):
-                carry, ys = tick(carry, t)
-                if buf is not None:
-                    buf = compact_tick(buf, t, ys.events, V)
-                if J > 0:
-                    sends.append(ys.journal_sends)
-                    recvs.append(ys.journal_recvs)
-            scan = violation_scan(scan_source(carry), carry.telemetry,
-                                  instance_ids, k=scan_k)
-            out = ((buf.rows, buf.count) if buf is not None else ()) + (
-                (torch.stack(sends), torch.stack(recvs)) if J > 0 else ())
-            if heartbeat is not None:
-                out += (torch.stack(list(carry.stats)),)
-            fetch = start_fetch(*out, scan)
+            prof_rec = None
+            if profiler is not None and profiler.should_capture(chunks):
+                (carry, out), prof_rec = profiler.capture(
+                    issue, (carry, t0, length), length,
+                    devices=[instance_ids.device])
+            else:
+                carry, out = issue(carry, t0, length)
+            fetch = start_fetch(*out)
             ticks_dispatched = t0 + length
             dt = time.monotonic() - t_i
             stats["chunk-issue-s"].append(round(dt, 4))
@@ -385,7 +412,7 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
             # chunk k's copy is read once chunk k+1 is queued behind it
             tripped = (consume(*pending) if pending is not None
                        else False)
-            pending = (fetch, chunks, t0, length)
+            pending = (fetch, chunks, t0, length, prof_rec)
             chunks += 1
             issued += 1
             if checkpoint_cb is not None and checkpoint_every > 0 \
@@ -420,6 +447,8 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
         perf["checkpoint-save-s"] = stats["checkpoint-s"]
     if resume is not None:
         perf["resumed-from-ticks"] = resume.ticks
+    if profiler is not None and profiler.records:
+        perf["device"] = profiler.summary()
     if stopped:
         perf["stopped-early"] = True
     j_sends = j_recvs = None

@@ -32,7 +32,6 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import netsim, rng, wire, xla_math
 from .checkers import device_summary
@@ -42,6 +41,7 @@ from .faults.engine import NO_PLANES, FaultConfig
 from .kernels import delivery
 from .netsim import NetConfig, NetStats, sum_i32
 from .telemetry import recorder as flight
+from .telemetry.profiler import phase
 from .telemetry.recorder import TelemetryConfig
 from .tree import tree_leaves, tree_map
 
@@ -662,18 +662,18 @@ def make_tick_fn(model: Model, sim: SimConfig,
             return faults_engine.tick_planes(fx, tables, t, I)
         return NO_PLANES
 
-    # the phases are torch.profiler ranges (the JAX runtime's named
-    # scopes); they record nothing unless a profiler runs
+    # the phases (the JAX runtime's named scopes) are torch.profiler
+    # ranges, and the device profiler's marks while a capture is armed
     def tick_fn(carry: Carry, t: int):
         key = carry.key
-        with record_function("nemesis"):
+        with phase("nemesis"):
             keys = tick_keys(key, instance_ids, t, restart=wipes)
             nem_keys, node_keys, client_keys, enq_keys = keys[:4]
             partitions = partition_matrix(sim.nemesis, cfg, t, nem_keys)
 
         node_state = carry.node_state
         m_bits = park = None
-        with record_function("faults"):
+        with phase("faults"):
             planes = fault_planes(carry, t)
             if planes.member is not None:
                 m_bits = faults_engine.member_bits(planes.member)
@@ -696,22 +696,22 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 # edge blocks and crashed or parked receivers
                 partitions = partitions | planes.block
 
-        with record_function("deliver"):
+        with phase("deliver"):
             pool, inbox, n_del, n_dropp = delivery.deliver(
                 carry.pool, partitions, t, cfg)
 
-        with record_function("node_phase"):
+        with phase("node_phase"):
             node_state, node_outs = node_phase(
                 model, node_state, inbox[:, :N], t, node_keys, cfg,
                 t_nodes=planes.t_nodes, m_bits=m_bits, params=params)
 
         invoked_prev = carry.client_state.invoked
-        with record_function("client_step"):
+        with phase("client_step"):
             client_state, reqs, events = client_step(
                 model, carry.client_state, inbox[:, N:], t, client_keys,
                 cfg, ccfg, params)
 
-        with record_function("enqueue"):
+        with phase("enqueue"):
             sends = None if planes.crash is None else ~planes.crash
             if planes.member is not None:
                 sends = (planes.member if sends is None
@@ -734,7 +734,7 @@ def make_tick_fn(model: Model, sim: SimConfig,
 
         snapshots = carry.snapshots
         if snapshots is not None:
-            with record_function("faults"):
+            with phase("faults"):
                 # held nodes never overwrite their slab row: it keeps the
                 # state the next restart or join restores
                 hold = planes.crash
@@ -744,7 +744,7 @@ def make_tick_fn(model: Model, sim: SimConfig,
                     model, node_state, snapshots, hold, t,
                     fx.snapshot_every)
 
-        with record_function("telemetry"):
+        with phase("telemetry"):
             s = carry.stats
             stats = NetStats(
                 sent=s.sent + sum_i32(n_sent),
@@ -753,12 +753,12 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 dropped_loss=s.dropped_loss + sum_i32(n_lost),
                 dropped_overflow=s.dropped_overflow + sum_i32(n_ovf))
             violated = model.invariants(node_state, cfg, params)
-        with record_function("check_summary"):
+        with phase("check_summary"):
             # the full fleet's events, before the [:R] slice below
             summ = device_summary.update_summary(
                 model, carry.check_summary, node_state, events, n_sent,
                 n_del, cfg, params)
-        with record_function("telemetry"):
+        with phase("telemetry"):
             tel = _update_telemetry(
                 carry.telemetry, sim, t, events, invoked_prev,
                 netsim.pool_occupancy(pool), inbox,

@@ -1,9 +1,10 @@
 """Host-side fleet aggregation: reduce the flight recorder across the
-instance axis into fleet metrics, and write ``fleet-metrics.json`` and
-the SVG dashboards.
+instance axis into fleet metrics, write ``fleet-metrics.json`` and the
+SVG dashboards, and render the ``fleet-stats`` report.
 
-Copy of ``fleet_summary``, ``write_fleet_metrics``, ``write_fleet_svgs``
-and their helpers from ``maelstrom_tpu/telemetry/fleet.py``, reading the
+Copy of ``fleet_summary``, ``write_fleet_metrics``,
+``load_fleet_metrics``, ``write_fleet_svgs``, ``render_report`` and
+their helpers from ``maelstrom_tpu/telemetry/fleet.py``, reading the
 port's recorder lanes. Everything here is numpy and JSON on the
 telemetry already copied to the host. Quantiles come from the device's
 log-bucket histograms: a quantile is reported as the (inclusive) upper
@@ -157,6 +158,14 @@ def write_fleet_metrics(metrics: Dict, store_dir: str) -> str:
     return path
 
 
+def load_fleet_metrics(path: str) -> Dict:
+    """Load fleet metrics from a run dir or a direct JSON path."""
+    if os.path.isdir(path):
+        path = os.path.join(path, FLEET_METRICS_FILE)
+    with open(path) as f:
+        return json.load(f)
+
+
 def write_fleet_svgs(metrics: Dict, store_dir: str) -> List[str]:
     """Render the rate / drop / latency dashboards from a fleet-metrics
     dict."""
@@ -214,3 +223,61 @@ def write_fleet_svgs(metrics: Dict, store_dir: str) -> List[str]:
                   ylabel="completions", path=p)
     out.append(p)
     return out
+
+
+# --- the fleet-stats text report ------------------------------------------
+
+def render_report(metrics: Dict, phases: Optional[Dict] = None) -> str:
+    t = metrics["totals"]
+    r = metrics["rates"]
+    q = metrics["latency-ticks"]
+    hw = metrics["high-water"]
+    nem = metrics["nemesis"]
+    inv = metrics["invariants"]
+    mpt = metrics.get("ms-per-tick", 1.0)
+
+    def pct(x):
+        return f"{100.0 * x:.2f}%"
+
+    def qf(key):
+        v = q.get(key)
+        return "n/a" if v is None else f"<={v}"
+
+    lines = [
+        f"fleet: {metrics['instances']} instances x "
+        f"{metrics['ticks']} ticks ({mpt:g} ms/tick)",
+        f"messages: sent {t['sent']}, delivered {t['delivered']} "
+        f"({pct(r['delivery'])}); dropped: partition "
+        f"{t['dropped-partition']} ({pct(r['drop-partition'])}), loss "
+        f"{t['dropped-loss']} ({pct(r['drop-loss'])}), overflow "
+        f"{t['dropped-overflow']} ({pct(r['drop-overflow'])})",
+        f"client ops: {t['invokes']} invokes, {t['acks']} acks "
+        f"({pct(metrics['acks-per-invoke'])}); server msgs/op "
+        f"{metrics['msgs-per-op']:.2f}",
+        f"ticks-to-ack: p50 {qf('0.5')}, p95 {qf('0.95')}, "
+        f"p99 {qf('0.99')}, max {qf('1.0')}",
+        f"high-water: {hw['inbox-deliveries-per-tick']} deliveries/tick, "
+        f"pool {hw['pool-occupancy']}/{hw['pool-slots']} slots",
+        f"nemesis: up to {nem['epochs-max']} partition epochs; mean "
+        f"{nem['partition-ticks-mean']:.0f} partitioned ticks/instance",
+        f"invariants: {inv['tripped-instances']} tripped instance(s)"
+        + (f", earliest at tick {inv['first-violation-tick-min']}"
+           if inv["first-violation-tick-min"] is not None else ""),
+    ]
+    if phases:
+        lines.append("phases: " + ", ".join(
+            f"{k.replace('-s', '')} {v:.2f}s"
+            for k, v in phases.items() if isinstance(v, (int, float))))
+        # the device-time roll-up (telemetry/profiler.py), when the run
+        # was profiled — old results.json files simply lack the key
+        dev = phases.get("device")
+        if isinstance(dev, dict) and dev.get("per-phase-ms-per-tick"):
+            per = dev["per-phase-ms-per-tick"]
+            lines.append(
+                f"device time ({dev.get('source', '?')}, "
+                f"{dev.get('captured-chunks', '?')} chunks): "
+                f"{dev.get('ms-per-tick', 0):.4f} ms/tick — " + ", ".join(
+                    f"{ph} {ms:.4f}"
+                    for ph, ms in sorted(per.items(),
+                                         key=lambda kv: -kv[1])))
+    return "\n".join(lines)

@@ -18,7 +18,9 @@ Records (one JSON object per line):
   "net": {...}, "first-violation": {...}|null, "violations": [...],
   "events-overflowed": bool}``, plus ``fault`` (the plan's epoch over
   the chunk, ``faults.engine.span_summary``) on fault-plan runs or
-  ``fault-fuzz`` (``faults.fuzz.span_counters``) on fuzz runs;
+  ``fault-fuzz`` (``faults.fuzz.span_counters``) on fuzz runs, and
+  ``device-s``, ``device-ms`` and ``device-source`` on chunks the
+  device profiler captured (``telemetry/profiler.py``);
 - ``{"type": "resume", "from-ticks": t, ...}``: a seam, written when a
   killed run is resumed from its checkpoint (``campaign resume``);
   chunk records go on after it;
@@ -159,12 +161,15 @@ class HeartbeatWriter:
                      violation: Optional[Dict[str, int]] = None,
                      violations: Optional[List[Dict[str, int]]] = None,
                      overflowed: bool = False,
+                     device_s: Optional[float] = None,
                      extra: Optional[Dict[str, Any]] = None) -> None:
         rec: Dict[str, Any] = {
             "type": "chunk", "chunk": int(chunk), "t0": int(t0),
             "ticks": int(ticks),
             "wall-s": round(time.monotonic() - self._t0, 4),
         }
+        if device_s is not None:
+            rec["device-s"] = round(device_s, 4)
         if net is not None:
             rec["net"] = net
         rec["first-violation"] = violation
@@ -323,6 +328,16 @@ def render_chunk_line(rec: Dict[str, Any]) -> str:
                 else str(of))
         parts.append(f"check[{chk.get('mode', '?')} flagged "
                      f"{chk.get('flagged', 0)}/{of_s}]")
+    dev = rec.get("device-ms")
+    if dev:
+        # the device-time lane (telemetry/profiler.py): the top phases
+        # by ms/tick this chunk, `dev[node 0.41 net 0.22 /tick]`
+        from .profiler import PHASE_LABELS
+        ticks = rec.get("ticks") or 1
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:3]
+        bits = [f"{PHASE_LABELS.get(ph, ph)} {ms / ticks:.2f}"
+                for ph, ms in top]
+        parts.append("dev[" + " ".join(bits) + " /tick]")
     parts.append("OVERFLOW" if rec.get("events-overflowed") else "")
     n_lanes = len(rec.get("violations") or ())
     more = f", +{n_lanes - 1} more named" if v and n_lanes > 1 else ""

@@ -24,6 +24,7 @@ import pytest
 
 from maelstrom_tpu.tpu.harness import run_tpu_test
 from maelstrom_tpu_torch import harness
+from maelstrom_tpu_torch.models import get_model
 
 from torch_txn_cases import (JAX_RUN, KAFKA_CASES,
                              carry_matches_jax_every_tick, client_step_pair,
@@ -176,16 +177,62 @@ def test_cli_runs_kafka(flags, tmp_path, capsys):
     assert {"send", "poll"} <= fs
 
 
-@pytest.mark.parametrize("argv,err", [
-    (["-w", "kafka", "--txn"], "kafka transactions"),
-    (["-w", "lin-kv", "--crash-clients"], "kafka option"),
-    (["-w", "kafka", "--node-count", "1", "--concurrency", "9"],
-     "MAX_CLIENTS=8"),
-])
-def test_cli_refuses(argv, err):
+# a small run both CLIs take with the same options
+CLI_RUN = ["--concurrency", "4", "--n-instances", "2",
+           "--record-instances", "2", "--time-limit", "0.15", "--rate",
+           "100", "--latency", "5", "--rpc-timeout", "0.25",
+           "--nemesis-interval", "0.5", "--recovery-time", "0.05",
+           "--seed", "3", "--no-heartbeat"]
+
+
+def cli_matches_jax(argv, note, tmp_path, capsys):
+    """``test ARGV`` on the port's CLI and on the JAX CLI's device
+    runtime: both print ``note`` to standard error, run, and exit 0 with
+    the same verdict and network counters."""
+    from maelstrom_tpu.cli import main as jmain
     from maelstrom_tpu_torch.__main__ import main
-    with pytest.raises(ValueError, match=err):
-        main(["test", *argv, "--device", "cpu"])
+    rc = main(["test", *argv, *CLI_RUN, "--store", str(tmp_path / "t"),
+               "--device", "cpu"])
+    cap = capsys.readouterr()
+    jrc = jmain(["test", "--runtime", "tpu", *argv, *CLI_RUN,
+                 "--device-profile", "off", "--store",
+                 str(tmp_path / "j")])
+    jcap = capsys.readouterr()
+    assert note in cap.err and note in jcap.err
+    out = json.loads(cap.out)
+    jout = json.loads(jcap.out.split("\n\n")[0])
+    assert rc == jrc == 0
+    assert out["valid?"] is jout["valid?"] is True
+    assert out["net"] == jout["net"] and out["net"]["delivered"] > 0
+
+
+@pytest.mark.parametrize("argv,err", [
+    pytest.param(["-w", "kafka", "--node-count", "1", "--txn"],
+                 "note: --txn has no effect on the TPU runtime yet "
+                 "(kafka transactions are process/native-runtime "
+                 "features; use --runtime native)",
+                 id="argv0-kafka transactions"),
+    pytest.param(["-w", "lin-kv", "--node-count", "3", "--crash-clients"],
+                 "note: --crash-clients has no effect on the TPU lin-kv "
+                 "runtime (kafka-only)", id="argv1-kafka option"),
+    pytest.param(["-w", "kafka", "--node-count", "1", "--concurrency", "9"],
+                 "MAX_CLIENTS=8", id="argv2-MAX_CLIENTS=8"),
+])
+def test_cli_refuses(argv, err, tmp_path, capsys):
+    """What the JAX package refuses the port refuses (nine kafka
+    clients); a flag the JAX device runtime notes and ignores (kafka's
+    ``--txn``, ``--crash-clients`` on lin-kv) gets JAX's note, and the
+    run goes on without it and exits as the JAX CLI does."""
+    from maelstrom_tpu_torch.__main__ import main
+    if not err.startswith("note:"):
+        with pytest.raises(ValueError, match=err):
+            main(["test", *argv, "--device", "cpu"])
+        return
+    cli_matches_jax(argv, err, tmp_path, capsys)
+    with pytest.raises(ValueError, match="kafka option"):
+        # the harness keeps its refusal: the CLI drops the flag first
+        harness.run_torch_test(get_model("lin-kv", 3),
+                               {"crash_clients": True}, device="cpu")
 
 
 # --- slow: the mutants caught, at the JAX tests' sizes ----------------------

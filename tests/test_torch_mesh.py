@@ -33,6 +33,7 @@ from maelstrom_tpu_torch.models import MUTANTS, WORKLOADS, get_model
 from maelstrom_tpu_torch.models.raft import RaftModel
 from maelstrom_tpu_torch.parallel import mesh, multihost
 from maelstrom_tpu_torch.telemetry import stream
+from maelstrom_tpu_torch.telemetry.profiler import DeviceProfiler
 
 from test_campaign import BUGGY_OPTS, ECHO_OPTS
 from test_torch_fuzz import FOUR_LANE_DIST
@@ -322,9 +323,10 @@ def test_hybrid_mesh_single_process_degenerate():
 
 
 def test_refusals(monkeypatch):
-    """``journal_instances`` is refused as JAX refuses it, the profiler
-    and the executable store by name, and ``make_mesh()`` without a card
-    unless CPU devices are passed."""
+    """``journal_instances`` is refused as JAX refuses it, the
+    executable store by name (the device profiler, ported since, is
+    taken), and ``make_mesh()`` without a card unless CPU devices are
+    passed."""
     jm, tm = _models("raft")
     opts = dict(RAFT_OPTS, journal_instances=1, time_limit=0.05)
     jsim, tsim = _sims(jm, tm, opts)
@@ -334,11 +336,13 @@ def test_refusals(monkeypatch):
         with pytest.raises(ValueError, match="journal_instances"):
             run(tm, tsim, 9, mesh=cpu_mesh(2))
     tsim = harness.make_sim_config(tm, dict(opts, journal_instances=0))
-    for kw, word in ((dict(profiler=object()), "profiler"),
-                     (dict(aot_store="x"), "aot_store")):
-        with pytest.raises(ValueError, match=word):
-            mesh.run_sim_sharded_chunked(tm, tsim, 9, mesh=cpu_mesh(2),
-                                         **kw)
+    with pytest.raises(ValueError, match="aot_store"):
+        mesh.run_sim_sharded_chunked(tm, tsim, 9, mesh=cpu_mesh(2),
+                                     aot_store="x")
+    perf = {}
+    mesh.run_sim_sharded_chunked(tm, tsim, 9, mesh=cpu_mesh(2), perf=perf,
+                                 profiler=DeviceProfiler("on"))
+    assert perf["device"]["captured-chunks"] == perf["chunks"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mesh.make_mesh()

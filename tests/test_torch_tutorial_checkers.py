@@ -104,12 +104,23 @@ def test_cli_main_runs_each_workload(workload, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["-w", "lin-kv-lint-fixture-traced-hazards"], "not ported"),
-    (["-w", "kafka", "--txn"], "kafka transactions"),
-    (["-w", "g-set", "--log-cap", "32"], "lin-kv only"),
+    pytest.param(["-w", "lin-kv-lint-fixture-traced-hazards"], "not ported",
+                 id="argv0-not ported"),
+    pytest.param(["-w", "kafka", "--node-count", "1", "--txn"],
+                 "note: --txn has no effect on the TPU runtime yet",
+                 id="argv1-kafka transactions"),
+    pytest.param(["-w", "g-set", "--log-cap", "32"], "lin-kv only",
+                 id="argv2-lin-kv only"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, err):
+def test_cli_refuses_what_is_not_ported(argv, err, tmp_path, capsys):
+    """A workload or flag the JAX package refuses too raises; kafka's
+    ``--txn``, which the JAX device runtime notes and ignores, gets
+    JAX's note and runs as the JAX CLI does."""
     from maelstrom_tpu_torch.__main__ import main
+    if err.startswith("note:"):
+        from test_torch_kafka import cli_matches_jax
+        cli_matches_jax(argv, err, tmp_path, capsys)
+        return
     with pytest.raises(ValueError, match=err):
         main(["test", *argv, "--device", "cpu"])
 

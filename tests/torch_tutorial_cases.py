@@ -43,8 +43,8 @@ CASES = {
     "pn-counter-crash-links": ("pn-counter", "grid",
                                dict(BASE, fault_plan=CRASH_LINKS_PLAN)),
 }
-# run_tpu_test's lifecycle options, off (the port accepts and ignores
-# all but the heartbeat, which it writes as JAX does)
+# run_tpu_test's lifecycle options, off (the port writes the heartbeat
+# and profiles chunks as JAX does, and accepts and ignores the rest)
 JAX_RUN = dict(check_workers=0, heartbeat=False, device_profile="off",
                aot_store="off")
 

@@ -139,7 +139,7 @@ Phases (any failure exits non-zero and prints no result line):
 13. instance sharding (``maelstrom_tpu_torch/parallel/mesh.py``), in a
     card worker of its own from phase 2 on: the flagship
     (``fleets.FLAGSHIP`` with its model, 4 recorded instances in all) at
-    8,192 global instances for 500 ticks in 100-tick chunks, once at one
+    8,192 global instances for 300 ticks in 100-tick chunks, once at one
     shard (the reference; its recorded instances checked valid), once
     at two shards (on the first two cards, or both on ``cuda:0``) with a
     checkpoint at tick 200, and that checkpoint resumed at four shards
@@ -314,11 +314,12 @@ FIGURE8_SMALL = dict(node_count=5, concurrency=4, n_instances=24,
                      nemesis_kind="scripted", recovery_time=0.05, seed=11,
                      telemetry=True, layout="lead")
 # phase 13: the flagship (fleets.FLAGSHIP with its model) at 8,192 global
-# instances, 500 ticks in 100-tick chunks: one shard, two shards (a
-# checkpoint at tick 200), and the tick-200 checkpoint resumed at four
-# shards. 4 recorded instances in all (4, 2, 1 a shard), so that every
-# shard count records the same global ids 0-3
-MESH = dict(n_global=8192, time_limit=0.5, chunk=100, ckpt_tick=200,
+# instances, 300 ticks in 100-tick chunks (cut from 500 when phase 14
+# joined its worker): one shard, two shards (a checkpoint at tick 200),
+# and the tick-200 checkpoint resumed at four shards. 4 recorded
+# instances in all (4, 2, 1 a shard), so that every shard count records
+# the same global ids 0-3
+MESH = dict(n_global=8192, time_limit=0.3, chunk=100, ckpt_tick=200,
             recorded=4, reshard=4)
 # the small sharded run held card against CPU (state.npz): 24 instances a
 # shard, two shards, 150 ticks in 50-tick chunks, a save every 2 chunks

@@ -171,6 +171,29 @@ Phases (any failure exits non-zero and prints no result line):
     chunk's phase sum against its device wall and issue time, the
     ``profile`` table, the bench line and the launches.
 
+15. runs over several processes (``parallel/multihost.py``), behind
+    phase 14 in its card worker: two spawned processes (the ``spawn``
+    start method, a gloo group on localhost), both on ``cuda:0`` on a
+    one-card host, run phase 13's two-shard flagship (8,192 global
+    instances, 300 ticks in 100-tick chunks, a checkpoint at tick 200)
+    on the ``(2, 1)`` hybrid mesh, one shard each: both ranks' outputs
+    equal phase 13's one-shard reference (stats, violations, events,
+    every merged telemetry leaf); rank 0's checkpoint equals phase 13's
+    one-process two-shard checkpoint array by array, and resumed in one
+    process at one shard equals the reference; the delivery kernel
+    launches once per tick in each process. It prints the two-process
+    ticks/s beside phase 13's one- and two-shard runs of the same call,
+    every shard's issue seconds and each process's gather seconds,
+    beside the card's name and power limit.
+
+16. the lint (``analysis/``) on the card's toolchain, in a reference
+    worker (no card visible to it): ``python -m maelstrom_tpu_torch lint
+    --strict --json`` as a child process must exit 0 with the trace,
+    contract and schema passes run, no error finding and no stale
+    baseline entry, having loaded no kernel library and initialised no
+    CUDA, and no module of the port may be the one that imports
+    ``triton`` (torch's own compiler stack may).
+
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
 txn-list-append (bare, and under a crash and links plan, whose slab
@@ -185,8 +208,9 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-14 at a tiny size with the
-plain versions (no card, no nvcc) to check the script's own logic; it
+``--rehearse-on-cpu`` runs phases 2 and 4-16 at a tiny size with the
+plain versions (no card, no nvcc) to check the script's own logic
+(phase 15 with two CPU processes); it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
 its phase 10 compares the CPU with itself; its phase 14 profiles with
 the timed source and checks that the bench module refuses to run).
@@ -324,6 +348,50 @@ MESH = dict(n_global=8192, time_limit=0.3, chunk=100, ckpt_tick=200,
 # the small sharded run held card against CPU (state.npz): 24 instances a
 # shard, two shards, 150 ticks in 50-tick chunks, a save every 2 chunks
 SMALL_MESH = dict(n_instances=24, time_limit=0.15, chunk=50, every=2)
+# phase 15: phase 13's two-shard run (and its tick-200 checkpoint) over two
+# processes, one shard each; it runs behind phase 14 in phase 13's card
+# worker, which otherwise idles while the main process drives phases
+# 4-12. The spawned processes are joined within PROCS_TIMEOUT_S or the
+# phase fails
+PROCS_TIMEOUT_S = 600.0
+# where phase 13 leaves its one-shard reference and its two-shard
+# checkpoint for phase 15 (under the script's temporary root)
+MESH_REF = "mesh-ref.pkl"
+MESH_CKPT = "mesh-checkpoint"
+# phase 16: `python -m maelstrom_tpu_torch lint --strict --json`, run
+# through runpy so that the child can report, after the lint, which file
+# imported triton first (torch's own compiler stack may; the port must
+# not), which kernel libraries it loaded and whether CUDA was initialised
+LINT_CHILD = """
+import json, runpy, sys
+class TritonImporter:
+    file = None
+    def find_spec(self, name, path=None, target=None):
+        if name == "triton" and TritonImporter.file is None:
+            f = sys._getframe(1)
+            while f is not None and ("importlib" in f.f_code.co_filename
+                                     or f.f_code.co_filename.startswith(
+                                         "<frozen")):
+                f = f.f_back
+            TritonImporter.file = f.f_code.co_filename if f else "?"
+        return None
+sys.meta_path.insert(0, TritonImporter())
+sys.argv = ["maelstrom_tpu_torch", "lint", "--strict", "--json"]
+try:
+    runpy.run_module("maelstrom_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code or 0
+import torch
+from maelstrom_tpu_torch.kernels import build
+print(json.dumps({"triton-imported": "triton" in sys.modules,
+                  "triton-importer": TritonImporter.file,
+                  "kernel-libraries": sorted(build._loaded),
+                  "cuda-initialized": torch.cuda.is_initialized()}),
+      file=sys.stderr)
+sys.exit(rc)
+"""
 # phases 4-13 run without the device profiler (whose default is auto), so
 # their ticks/s stay comparable with earlier calls; phase 14 prices it
 NO_PROFILE = dict(device_profile="off")
@@ -1243,6 +1311,7 @@ def mesh_phase(dev_name, root, opts):
     from maelstrom_tpu_torch.checkers.pool import check_instances
     from maelstrom_tpu_torch.parallel import mesh
     from maelstrom_tpu_torch.pipeline import ResumeState
+    import pickle
     label = "phase 13 (shards)"
     on_card = dev_name != "cpu"
     model, _ = fleets.fleet("lin-kv")
@@ -1272,11 +1341,13 @@ def mesh_phase(dev_name, root, opts):
     if out["valid"] != [True] * opts["recorded"]:
         raise AssertionError(f"{label}: the reference's recorded instances "
                              f"are not all valid: {out['valid']}")
+    with open(os.path.join(root, MESH_REF), "wb") as f:
+        pickle.dump(ref, f)
     # two shards, a checkpoint at ckpt_tick
     sim2 = mesh_sim(model, opts, 2)
     devs2 = mesh_devices(dev_name, 2)
     out["devices"] = [str(d) for d in devs2]
-    ck_dir = os.path.join(root, "mesh-checkpoint")
+    ck_dir = os.path.join(root, MESH_CKPT)
     sink = ckpt.make_checkpoint_cb(ck_dir, kind=ckpt.KIND_SHARDED)
     saves = []
 
@@ -1343,6 +1414,139 @@ def small_mesh_checkpoint(dev_name, root, opts):
         chunk=opts["chunk"], checkpoint_every=opts["every"],
         checkpoint_cb=ckpt.make_checkpoint_cb(d, kind=ckpt.KIND_SHARDED))
     return ckpt.checkpoint_path(d)
+
+
+def multiproc_rank(dev_name, root, opts):
+    """One rank of phase 15, in a spawned process joined to the
+    two-process group: a warm-up, then phase 13's two-shard run with
+    this process's shard (its own card, ``cuda:0`` on a one-card host),
+    rank 0 writing the tick-``ckpt_tick`` checkpoint; the launch counts
+    set to 0 just before and read just after."""
+    import os
+    from maelstrom_tpu_torch import fleets
+    from maelstrom_tpu_torch.campaign import checkpoint as ckpt
+    from maelstrom_tpu_torch.kernels import delivery
+    from maelstrom_tpu_torch.parallel import mesh, multihost
+    rank = multihost.process_index()
+    model, _ = fleets.fleet("lin-kv")
+    seed = int(opts["fleet"]["seed"])
+    chunk = opts["chunk"]
+    device = (torch.device("cpu") if dev_name == "cpu" else
+              torch.device("cuda", rank % torch.cuda.device_count()))
+    m = multihost.make_hybrid_mesh(devices=[device])
+    # a process's first run pays for the CUDA context: not timed
+    mesh.run_sim_sharded_chunked(
+        model, mesh_sim(model, dict(opts, n_global=opts["recorded"],
+                                    time_limit=0.01), 2),
+        seed, mesh=m, chunk=chunk)
+    sim = mesh_sim(model, opts, 2)
+    ck_dir = os.path.join(root, "procs-checkpoint")
+    sink = ckpt.make_checkpoint_cb(ck_dir, kind=ckpt.KIND_SHARDED)
+    saves = []
+
+    def at_ckpt_tick(state, t, host):
+        if t == opts["ckpt_tick"]:
+            t_s = time.monotonic()
+            sink(state, t, host)
+            saves.append(time.monotonic() - t_s)
+
+    perf = {}
+    delivery.reset_launches()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    torch.distributed.barrier()
+    t0 = time.monotonic()
+    out = mesh.run_sim_sharded_chunked(
+        model, sim, seed, mesh=m, chunk=chunk, perf=perf,
+        return_telemetry=True, checkpoint_cb=at_ckpt_tick,
+        checkpoint_every=opts["ckpt_tick"] // chunk)
+    wall = time.monotonic() - t0
+    return {"rank": rank, "device": str(device), "out": out, "wall": wall,
+            "perf": perf, "saves": saves, "ck_dir": ck_dir,
+            "launches": dict(delivery.deliver.launches_by_device)}
+
+
+def multiproc_phase(dev_name, root, opts):
+    """Phase 15 in phase 13's card worker, behind phase 14: the two
+    ranks spawned and joined, each held equal to phase 13's one-shard
+    reference, rank 0's checkpoint held equal to phase 13's one-process
+    two-shard checkpoint and resumed here at one shard. Returns what the
+    main process logs."""
+    import os
+    import pickle
+    from maelstrom_tpu_torch import fleets
+    from maelstrom_tpu_torch.campaign import checkpoint as ckpt
+    from maelstrom_tpu_torch.parallel import mesh, multihost
+    from maelstrom_tpu_torch.pipeline import ResumeState
+    label = "phase 15 (two processes)"
+    on_card = dev_name != "cpu"
+    model, _ = fleets.fleet("lin-kv")
+    seed = int(opts["fleet"]["seed"])
+    with open(os.path.join(root, MESH_REF), "rb") as f:
+        ref = pickle.load(f)
+    t0 = time.monotonic()
+    ranks = multihost.spawn(multiproc_rank, (dev_name, root, opts),
+                            nprocs=2, timeout=PROCS_TIMEOUT_S, threads=1)
+    out = {"spawn_s": time.monotonic() - t0, "launches": {},
+           "devices": [r["device"] for r in ranks],
+           "walls": [r["wall"] for r in ranks]}
+    ticks = mesh_sim(model, opts, 2).n_ticks
+    for r in ranks:
+        name = f"rank {r['rank']}"
+        same_mesh_outputs(ref, r["out"], f"{label}: {name}")
+        expect_launches(r["launches"], [torch.device(r["device"])], ticks,
+                        f"{label}: {name}", on_card)
+        out["launches"][f"{name} on {r['device']}"] = r["launches"]
+    r0 = ranks[0]
+    if len(r0["saves"]) != 1 or ranks[1]["saves"]:
+        raise AssertionError(f"{label}: rank 0 saved {len(r0['saves'])} "
+                             f"checkpoints, rank 1 {len(ranks[1]['saves'])}"
+                             f"; expected one at tick {opts['ckpt_tick']} "
+                             f"by rank 0 alone")
+    out["npz"] = same_npz(
+        ckpt.checkpoint_path(os.path.join(root, MESH_CKPT)),
+        ckpt.checkpoint_path(r0["ck_dir"]),
+        f"{label}: rank 0's checkpoint against phase 13's one-process "
+        f"two-shard checkpoint")
+    # rank 0's checkpoint resumed in this one process at one shard
+    sim1 = mesh_sim(model, opts, 1)
+    devs1 = mesh_devices(dev_name, 1)
+    ck = ckpt.load_checkpoint(r0["ck_dir"])
+    wire = ckpt.restore_carry(
+        mesh.wire_template(model, sim1, mesh.make_mesh(devices=devs1)),
+        ck["carry"], shard=ck["meta"]["shard"])
+    resume = ResumeState(carry=wire, ticks=ck["ticks"], chunks=ck["chunks"],
+                         events=tuple(ck["events"]))
+    got, _, wall, by_dev = mesh_run(model, sim1, seed, devs1, opts["chunk"],
+                                    resume=resume)
+    same_mesh_outputs(ref, got, f"{label}: resumed in one process at 1 "
+                                f"shard")
+    expect_launches(by_dev, devs1, ticks - ck["ticks"],
+                    f"{label}: resumed at 1 shard", on_card)
+    out["launches"]["resumed in one process at 1 shard, suffix"] = by_dev
+    out["resumed"] = (ck["ticks"], (ticks - ck["ticks"]) / wall)
+    perf = r0["perf"]
+    # the save's own time is not the shards' (as phase 13's two shards)
+    run_s = r0["wall"] - sum(perf.get("checkpoint-save-s", []))
+    out["rate"] = (ticks / run_s, int(r0["out"][0].delivered) / run_s,
+                   perf)
+    out["checkpoint_s"] = r0["saves"][0]
+    return out
+
+
+def lint_phase():
+    """Phase 16 in a reference worker (no card visible): the lint as a
+    child process; its exit code, report and what it imported."""
+    import os
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", LINT_CHILD], cwd=repo,
+                          env=_child_env(), capture_output=True, text=True,
+                          timeout=900)
+    tail = proc.stderr.strip().splitlines()
+    return {"rc": proc.returncode, "stdout": proc.stdout,
+            "stderr": proc.stderr[-3000:],
+            "loaded": json.loads(tail[-1]) if tail else None}
 
 
 def _profiled_run(model, opts, dev_name, root, name):
@@ -1681,11 +1885,16 @@ def main(argv) -> int:
         # phase 14's card work: behind phase 13, in its card worker
         profile_ref = submit(shards, profile_phase, str(dev), root,
                              profile_opts)
+        # phase 15: behind phase 14, in the same card worker; phase 16 in
+        # a reference worker
+        late_refs = (submit(shards, multiproc_phase, str(dev), root,
+                            mesh_opts),
+                     submit(refs, lint_phase))
         return drive_paths(dev, full, rehearse, record, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
                            lanes_opts, sweep_model, sweep_opts, campaign,
-                           mesh_refs, profile_ref)
+                           mesh_refs, profile_ref, late_refs)
     finally:
         for pool in (shards, side, refs):
             pool.shutdown(wait=True, cancel_futures=True)
@@ -1730,6 +1939,69 @@ def log_mesh_phase(dev, mesh_ref, card_npz_ref, cpu_npz_ref):
     return {f"phase 13 {k}": v for k, v in m["launches"].items()}
 
 
+def log_multiproc_phase(dev, procs_ref, mesh_ref):
+    """Phase 15's results, logged in the main process beside phase 13's
+    rates of the same call: the delivery launches of each process."""
+    from maelstrom_tpu_torch.kernels.devtime import card_line
+    label = "phase 15 (two processes)"
+    m, t_procs = procs_ref.result()
+    g = mesh_ref.result()[0]["rates"]
+    card = card_line() if dev.type == "cuda" else "no card (rehearsal)"
+    n_arrays, header = m["npz"]
+    log(f"{label}: two spawned processes (gloo) on {m['devices']}, one "
+        f"shard each: both ranks equal phase 13's 1-shard reference "
+        f"(stats, violations, events, every merged telemetry leaf); rank "
+        f"0's checkpoint at tick {header['ticks']} equals phase 13's "
+        f"one-process 2-shard checkpoint array by array ({n_arrays} "
+        f"arrays, header included), and resumed in one process at 1 shard "
+        f"from tick {m['resumed'][0]} equals the reference "
+        f"({m['resumed'][1]:.3f} ticks/s); checkpoint-s "
+        f"{m['checkpoint_s']:.4f} ({card})")
+    tps, mps, perf = m["rate"]
+    log(f"{label}: 2 processes x 1 shard: {tps:.3f} ticks/s, {mps:.0f} "
+        f"simulated msgs/s; shard-issue-s {perf['shard-issue-s']} (rank 0, "
+        f"rank 1), process-gather-s {perf['process-gather-s']}, merge-s "
+        f"{perf['merge-s']}, init-s {perf['init-s']}, wall by rank "
+        f"{[round(w, 3) for w in m['walls']]} s ({card})")
+    log(f"{label}: in the same call, phase 13's 1 process: S=1 "
+        f"{g['S=1'][0]:.3f} ticks/s, S=2 {g['S=2'][0]:.3f} ticks/s; two "
+        f"processes / S=1 {tps / g['S=1'][0]:.3f}x, / S=2 "
+        f"{tps / g['S=2'][0]:.3f}x ({card})")
+    log(f"{label}: the spawn, runs and join took {m['spawn_s']:.1f} s; the "
+        f"worker's phase 15 took {t_procs:.1f} s")
+    return {f"phase 15 {k}": v for k, v in m["launches"].items()}
+
+
+def log_lint_phase(lint_ref):
+    """Phase 16's result, checked in the main process."""
+    label = "phase 16 (lint)"
+    r, t_lint = lint_ref.result()
+    if r["rc"] != 0:
+        raise AssertionError(f"{label}: `lint --strict --json` exited "
+                             f"{r['rc']}:\n{r['stdout'][-3000:]}\n"
+                             f"{r['stderr']}")
+    rep = json.loads(r["stdout"])
+    loaded = r["loaded"]
+    if rep["passes"] != ["trace", "contract", "schema"] \
+            or rep["summary"]["errors"] or rep["stale-baseline-entries"]:
+        raise AssertionError(f"{label}: passes {rep['passes']}, summary "
+                             f"{rep['summary']}")
+    importer = loaded["triton-importer"] or ""
+    if "maelstrom_tpu_torch" in importer or loaded["kernel-libraries"] \
+            or loaded["cuda-initialized"]:
+        raise AssertionError(f"{label}: the lint imported or touched the "
+                             f"card's toolchain: {loaded}")
+    exp = sum(1 for f in rep["suppressed"]
+              if f["baseline-status"] == "expected")
+    log(f"{label}: `python -m maelstrom_tpu_torch lint --strict --json` "
+        f"exit 0 in {t_lint:.1f} s in a reference worker (no card "
+        f"visible): passes {', '.join(rep['passes'])}; "
+        f"{json.dumps(rep['summary'])} ({exp} expected-fixture); "
+        f"{rep['files-scanned']} files; no kernel library, no CUDA "
+        f"context; triton imported: {loaded['triton-imported']} (first "
+        f"asked for by {importer or 'nothing'}, not by the port)")
+
+
 def phase3_runs(opts, bopts, paths):
     """Phase 3's small card-against-CPU runs: ``(label, model spec,
     options)``."""
@@ -1771,14 +2043,16 @@ def phase3_runs(opts, bopts, paths):
 def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
                 flagship, bopts, bmodel, paths, txn_paths, hunt_model,
                 hunt_opts, lanes_spec, lanes_opts, sweep_model,
-                sweep_opts, campaign, mesh_refs, profile_ref) -> int:
+                sweep_opts, campaign, mesh_refs, profile_ref,
+                late_refs) -> int:
     """Phases 3-12 and the result lines. Phase 10's fuzz run and card
     shrink, then phase 3's card runs, then phase 12's card work go to
     the side card worker ``side``, and the CPU halves of phases 3, 10,
     11 (a) and 12 to the reference workers ``refs``, while this process
     drives phases 4-9; phase 3 is checked after phase 9, phase 12 after
     phase 11. ``campaign`` is phase 12's ``(item options, kill tick,
-    small checkpointed run's options)``."""
+    small checkpointed run's options)``; ``late_refs`` phases 15 and
+    16's futures."""
     import os
     from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
     dev_name = str(dev)
@@ -1949,6 +2223,10 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     mark("phase 13 (its card work in a card worker of its own)")
     by_path.update(log_profile_phase(dev, profile_ref))
     mark("phase 14 (its card work behind phase 13, in its card worker)")
+    by_path.update(log_multiproc_phase(dev, late_refs[0], mesh_refs[0]))
+    mark("phase 15 (two processes, behind phase 14 in its card worker)")
+    log_lint_phase(late_refs[1])
+    mark("phase 16 (lint, in a reference worker)")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     record["launches_not_counted"] = {

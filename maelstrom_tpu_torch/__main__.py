@@ -60,6 +60,16 @@ dead worker's items and drains them, each resumed from its checkpoint,
 or finishes one killed run dir in place; ``status`` and ``report``
 render the live table and the trend summary. A spec, queue or
 checkpoint that cannot be used exits 2.
+
+``lint`` runs the static passes (``analysis/``) with the JAX CLI's
+flags: the trace-hygiene, contract and wire-schema passes by default,
+``--pass`` to pick, file ``paths`` for the trace pass alone, the port's
+``analysis/baseline.json`` unless ``--baseline``/``--no-baseline``;
+``--strict`` exits 1 on an unsuppressed error finding, else 0. The JAX
+CLI's jaxpr passes (``--ir``, ``--cost``, ``--lanes``, ``--ranges``,
+``--shard``, ``--aot`` and their manifest flags) lower the JAX tick to
+its IR, which the eager port has no counterpart for: they exit 2. It
+touches no device.
 """
 
 from __future__ import annotations
@@ -71,9 +81,30 @@ import sys
 import time
 from typing import List, Optional
 
+from .analysis.runner import ALL_PASSES
 from .faults.spec import FAULT_KINDS
 from .runtime import NEMESIS_KINDS, scripted_isolate_groups
 from .topology import TOPOLOGIES
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the JAX CLI's opt-in passes, which lower the JAX tick to a jaxpr (and
+# compile it with XLA); the eager port has no counterpart IR
+JAXPR_PASSES = ("ir", "cost", "lanes", "ranges", "shard", "aot")
+_JAXPR_FLAGS = (("ir", "--ir"), ("cost", "--cost"),
+                ("update_baseline", "--update-baseline"),
+                ("cost_baseline", "--cost-baseline"), ("lanes", "--lanes"),
+                ("update_manifest", "--update-manifest"),
+                ("lane_manifest", "--lane-manifest"),
+                ("ranges", "--ranges"), ("update_ranges", "--update-ranges"),
+                ("range_manifest", "--range-manifest"),
+                ("ranges_horizon_log2", "--ranges-horizon-log2"),
+                ("shard", "--shard"),
+                ("update_shard_manifest", "--update-shard-manifest"),
+                ("shard_manifest", "--shard-manifest"), ("aot", "--aot"),
+                ("update_aot", "--update-aot"),
+                ("aot_manifest", "--aot-manifest"),
+                ("aot_store", "--aot-store"))
 
 
 def _positive_int(v: str) -> int:
@@ -439,7 +470,76 @@ def _parser() -> argparse.ArgumentParser:
                           help="leave out the ir-bytes-est column "
                                "(null in the port: no static cost "
                                "model)")
+
+    p_lint = sub.add_parser(
+        "lint", help="static analysis: the trace-hygiene, contract and "
+                     "wire-schema passes (the JAX CLI's jaxpr passes "
+                     "are refused)")
+    p_lint.add_argument("paths", nargs="*",
+                        help="restrict the trace-hygiene pass to these "
+                             "files (other passes then run only when "
+                             "named with --pass)")
+    p_lint.add_argument("--strict", action="store_true",
+                        help="exit 1 on any unsuppressed error-severity "
+                             "finding")
+    p_lint.add_argument("--json", action="store_true",
+                        help="machine-readable findings on stdout")
+    p_lint.add_argument("--pass", dest="passes", action="append",
+                        choices=list(ALL_PASSES) + list(JAXPR_PASSES),
+                        help="run only the named pass(es); default "
+                             "trace+contract+schema")
+    for flag in ("--ir", "--cost", "--update-baseline", "--lanes",
+                 "--update-manifest", "--ranges", "--update-ranges",
+                 "--shard", "--update-shard-manifest", "--aot",
+                 "--update-aot"):
+        p_lint.add_argument(flag, action="store_true",
+                            help="a jaxpr pass of the JAX CLI: refused")
+    for flag in ("--cost-baseline", "--lane-manifest", "--range-manifest",
+                 "--shard-manifest", "--aot-manifest", "--aot-store"):
+        p_lint.add_argument(flag, default=None,
+                            help="a jaxpr pass's file: refused")
+    p_lint.add_argument("--ranges-horizon-log2", type=int, default=None,
+                        help="a jaxpr pass's option: refused")
+    p_lint.add_argument("--baseline", default=None,
+                        help="baseline file (default "
+                             "maelstrom_tpu_torch/analysis/baseline.json)")
+    p_lint.add_argument("--no-baseline", action="store_true",
+                        help="ignore the baseline: report and gate on "
+                             "every finding, including expected fixtures")
+    p_lint.add_argument("--root", default=REPO,
+                        help="repo root to lint (default: this checkout)")
     return ap
+
+
+def cmd_lint(args) -> int:
+    """Run the analysis passes; --strict turns error findings into a
+    nonzero exit. The jaxpr passes exit 2."""
+    from .analysis import render_text, run_lint
+    from .analysis.findings import DEFAULT_BASELINE
+
+    refused = [flag for attr, flag in _JAXPR_FLAGS
+               if getattr(args, attr) not in (None, False)]
+    refused += [f"--pass {p}" for p in (args.passes or ())
+                if p in JAXPR_PASSES]
+    if refused:
+        print(f"error: {', '.join(refused)}: the JAX CLI's jaxpr passes "
+              f"lower the JAX tick to its IR (a jaxpr, compiled by XLA); "
+              f"the eager PyTorch port has no counterpart IR (ROADMAP "
+              f"A.9). The port runs the {', '.join(ALL_PASSES)} passes.",
+              file=sys.stderr)
+        return 2
+    baseline = None if args.no_baseline else (args.baseline
+                                              or DEFAULT_BASELINE)
+    report = run_lint(repo_root=args.root,
+                      passes=tuple(dict.fromkeys(args.passes or ())) or None,
+                      paths=args.paths or None, baseline_path=baseline)
+    if args.json:
+        print(json.dumps(report.to_json(), indent=2))
+    else:
+        print(render_text(report))
+    if args.strict and report.errors():
+        return 1
+    return 0
 
 
 # --- the store commands (no device) -----------------------------------------
@@ -856,7 +956,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "shrink": cmd_shrink, "campaign": cmd_campaign,
                 "check": cmd_check, "export": cmd_export,
                 "fleet-stats": cmd_fleet_stats,
-                "profile": cmd_profile}[args.cmd](args)
+                "profile": cmd_profile, "lint": cmd_lint}[args.cmd](args)
     from .harness import run_torch_test
     from .models import get_model
 

@@ -109,6 +109,8 @@ class GossipSetModel(_GossipModel):
     n_values = 64              # element domain (2 x int32 bitmask words)
     body_lanes = 2
     add_f_name = "add"
+    # schema-conformance map (SCH305): registry RPC name -> wire TYPE
+    WIRE_TYPES = {"add": T_ADD, "read": T_READ}
 
     def __init__(self, topology: str = "grid"):
         self.topology = topology
@@ -217,6 +219,9 @@ class BroadcastModel(GossipSetModel):
     """Broadcast-workload face of the gossip set (messages == elements)."""
     name = "broadcast"
     add_f_name = "broadcast"
+    # `topology` is config-only on the device: the adjacency matrix
+    # arrives via make_params, never on the wire (None = lane-free)
+    WIRE_TYPES = {"broadcast": T_ADD, "read": T_READ, "topology": None}
 
 
 class PNCounterModel(_GossipModel):
@@ -228,6 +233,7 @@ class PNCounterModel(_GossipModel):
     name = "pn-counter"
     checker_name = "pn-counter"
     allow_negative = True
+    WIRE_TYPES = {"add": T_ADD, "read": T_READ}
     add_abs_max = 5
     counter_abs_max = 1 << 27
 

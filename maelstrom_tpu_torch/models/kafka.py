@@ -66,6 +66,13 @@ class KafkaModel(Model):
     checker_name = "kafka"
     max_out = 1
     idempotent_fs = (F_POLL, F_LIST)
+    # schema-conformance map (SCH305): registry RPC name -> wire TYPE.
+    # `txn` is None: kafka transactions belong to the host runtimes —
+    # the device model never encodes them (the CLI notes --txn)
+    WIRE_TYPES = {"send": T_SEND, "poll": T_POLL,
+                  "commit_offsets": T_COMMIT,
+                  "list_committed_offsets": T_LIST,
+                  "txn": None}
 
     # bug switches (see KafkaOffsetReuse / KafkaCommitRegression)
     reuse_offsets = False     # non-atomic offset assignment

@@ -28,6 +28,8 @@ that catches each one.
 
 from __future__ import annotations
 
+import torch
+
 from .raft import RaftModel
 
 
@@ -106,3 +108,43 @@ BUGGY_MODELS = {
     "single-quorum-reconfig": RaftSingleQuorumReconfig,
     "votes-before-catchup": RaftVotesBeforeCatchup,
 }
+
+
+# --- trace-hygiene lint fixtures -------------------------------------------
+#
+# The mutants above are PROTOCOL bugs: shape-correct torch that encodes a
+# wrong algorithm — the checkers' prey. The class below is the OTHER bug
+# family, the one `lint` (analysis/trace_lint.py) exists to catch before
+# a card run: host syncs and Python control flow on device values, hidden
+# mutable state, data-dependent shapes and draws from a global generator
+# inside the tick, one per TRC rule. It is NOT in BUGGY_MODELS and must
+# never be registered; tests/test_torch_lint.py asserts the linter flags
+# every hazard, and analysis/baseline.json carries the findings as
+# status="expected" (visible, never silently baselined).
+
+_GOSSIP_LOG = []    # module state the tick must not touch
+
+
+class RaftTracedHazards(RaftModel):
+    """LINT FIXTURE (do not register): every TRC-rule hazard in one tick."""
+    name = "lin-kv-lint-fixture-traced-hazards"
+    # STATICALLY-LINTED-ONLY: the raft family speaks the fused protocol,
+    # so a run never calls this legacy tick hook; fused_node=False keeps
+    # the override on the linter's surface, as in the JAX fixture.
+    fused_node = False
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        if (row.term > 0).any():                       # TRC101 branch
+            row = row._replace(
+                term=row.term + int(row.commit_idx[0]))   # TRC104 host sync
+        while row.log_len.max() > 0:                   # TRC102 while
+            break
+        assert (row.commit_idx >= 0).all()             # TRC103 assert
+        _GOSSIP_LOG.append(t)                          # TRC105 capture
+        jitter = torch.randint(0, 3, (1,))             # TRC107 global rng
+        hot = torch.nonzero(row.match_idx)             # TRC106 data-dep
+        del jitter, hot
+        return super().tick(row, node_idx, t, keys, cfg, params)
+
+
+LINT_FIXTURE_MODELS = {"traced-hazards": RaftTracedHazards}

@@ -30,6 +30,7 @@ class UniqueIdsModel(Model):
     tick_out = 0
     idempotent_fs = ()
     flake_counter_bits = 25
+    WIRE_TYPES = {"generate": TYPE_GEN}
 
     def init_state(self, n_nodes, keys):
         # the per-node counter

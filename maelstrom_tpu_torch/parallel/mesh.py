@@ -27,6 +27,14 @@ shard s's kernels run. (One issuing thread per shard was slower on the
 card: the threads hand the interpreter lock to each other at every op;
 ``PERF.md``.)
 
+Over several processes (``multihost``) each process issues the shards
+of its own mesh row, with their global shard indices and global ids, and
+the places where the shards are joined all-gather every process's
+partials in rank order first (:func:`_all_rows`): the chunk snapshots
+and scans, the events, and the final wire. Every rank returns the same
+global outputs as a one-process run at the same S; rank 0 alone writes
+the heartbeat, calls ``checkpoint_cb`` and fills ``perf``.
+
 The wire carry — what a checkpoint holds — is the JAX executor's: every
 leaf of a shard's carry leads with a shard-divisible axis (the NetStats
 slots ``[1]``, the key ``[1, 2]``, the telemetry series ``[1, ...]``),
@@ -66,10 +74,17 @@ class Mesh:
     """Devices in row-major order over named axes. A device may repeat:
     ``[cpu] * 4`` or ``[cuda:0] * 2`` puts several shards on one device,
     the counterpart of JAX's virtual CPU mesh. Shard ``s`` runs on
-    ``devices[s]``; its flat index is row-major over the axes."""
+    ``devices[s]``; its flat index is row-major over the axes.
+
+    A mesh over ``process_count`` processes (``multihost.
+    make_hybrid_mesh``) has one row per process: this process issues the
+    shards of row ``process_index`` (:attr:`local_shards`), and the
+    other rows name the other processes' devices. ``size`` is the global
+    shard count either way."""
 
     def __init__(self, devices: Sequence, axis_names=(AXIS,),
-                 shape: Optional[Sequence[int]] = None):
+                 shape: Optional[Sequence[int]] = None,
+                 process_index: int = 0, process_count: int = 1):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis_names = tuple(axis_names)
         self.shape = (tuple(int(n) for n in shape) if shape is not None
@@ -80,10 +95,23 @@ class Mesh:
             raise ValueError(f"mesh of shape {self.shape} over axes "
                              f"{self.axis_names} cannot hold "
                              f"{len(self.devices)} devices")
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
+        if self.process_count > 1 and self.shape[0] != self.process_count:
+            raise ValueError(f"a mesh over {self.process_count} processes "
+                             f"needs one row per process, not shape "
+                             f"{self.shape}")
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def local_shards(self) -> range:
+        """The global indices of the shards this process issues."""
+        per = self.size // self.process_count
+        return range(self.process_index * per,
+                     (self.process_index + 1) * per)
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -193,6 +221,48 @@ def _sum_i32(xs) -> int:
     return int(np.int64(sum(int(x) for x in xs)).astype(np.int32))
 
 
+# --- the exchange between the processes of a mesh ---------------------------
+
+
+def _check_group(mesh: Mesh) -> None:
+    """A mesh over several processes needs the process group it names."""
+    if mesh.process_count == 1:
+        return
+    import torch.distributed as dist
+    if not dist.is_initialized() \
+            or dist.get_world_size() != mesh.process_count \
+            or dist.get_rank() != mesh.process_index:
+        raise RuntimeError(
+            f"a mesh over {mesh.process_count} processes (this one rank "
+            f"{mesh.process_index}) needs the matching process group: "
+            f"multihost.init() before multihost.make_hybrid_mesh()")
+
+
+def _all_rows(mesh: Mesh, obj) -> list:
+    """``obj`` from every process of the mesh, in rank (row) order, on
+    every rank; ``[obj]`` in one process."""
+    if mesh.process_count == 1:
+        return [obj]
+    import torch.distributed as dist
+    rows = [None] * mesh.process_count
+    dist.all_gather_object(rows, obj)
+    return rows
+
+
+def _root_rows(mesh: Mesh, obj) -> Optional[list]:
+    """:func:`_all_rows` gathered on rank 0 only (None elsewhere)."""
+    if mesh.process_count == 1:
+        return [obj]
+    import torch.distributed as dist
+    rows = [None] * mesh.process_count if mesh.process_index == 0 else None
+    dist.gather_object(obj, rows, dst=0)
+    return rows
+
+
+def _flat(rows) -> list:
+    return [x for row in rows for x in row]
+
+
 def _prepare(sim: SimConfig, seed: int, params) -> int:
     """The sharded runners' shared preamble: the refusals, and the one
     master seed (per-shard decorrelation comes from the global instance
@@ -270,29 +340,36 @@ def run_sim_sharded(model: Model, sim: SimConfig, seed: int, params=None,
     from ..runtime import run_sim
     seed32 = _prepare(sim, seed, params)
     mesh = mesh or make_mesh()
+    _check_group(mesh)
     S = mesh.size
     all_ids = shard_instance_ids(sim.n_instances, S)
 
     runs = []
-    for s, dev in enumerate(mesh.devices):
+    for s in mesh.local_shards:
+        dev = mesh.devices[s]
         with _on(dev):
             runs.append(run_sim(model, sim, seed32, dev,
                                 torch.from_numpy(all_ids[s]).to(dev)))
-    # every shard is issued before the first copy to the host waits
-    carries = [convert.carry_to_numpy(c) for c, _ in runs]
-    stats = NetStats(*(_sum_i32(xs) for xs in zip(*(c.stats
-                                                    for c in carries))))
+    # every local shard is issued before the first copy to the host waits
+    parts = []
+    for c, ys in runs:
+        c = convert.carry_to_numpy(c)
+        parts.append((tuple(c.stats), c.violations,
+                      _np(ys.events) if ys.events is not None
+                      else _empty_events(model, sim),
+                      None if c.telemetry is None else tuple(c.telemetry)))
+    # every shard's parts, in global shard order
+    parts = _flat(_all_rows(mesh, parts))
+    stats = NetStats(*(_sum_i32(xs) for xs in zip(*(p[0] for p in parts))))
     violations = deinterleave(
-        np.concatenate([c.violations for c in carries], axis=0), S)
-    events = deinterleave(np.concatenate(
-        [_np(ys.events) if ys.events is not None
-         else _empty_events(model, sim) for _, ys in runs], axis=1), S,
-        axis=1)
+        np.concatenate([p[1] for p in parts], axis=0), S)
+    events = deinterleave(np.concatenate([p[2] for p in parts], axis=1),
+                          S, axis=1)
     if not return_telemetry:
         return stats, violations, events
     tel = None
-    if carries[0].telemetry is not None:
-        merged = merge_unsharded_telemetry([c.telemetry for c in carries])
+    if parts[0][3] is not None:
+        merged = merge_unsharded_telemetry([p[3] for p in parts])
         tel = _deinterleave_telemetry(merged, merged.series, S)
     return stats, violations, events, tel
 
@@ -373,17 +450,36 @@ def _row_type(carry: Carry):
 
 
 def _gather_wire(carries: List[Carry]) -> Carry:
-    """The global wire (numpy leaves, key uint32) of the shards' carries:
-    each leaf joined shard-major. Copies each shard to the host."""
+    """The wire (numpy leaves, key uint32) of the shards' carries: each
+    leaf joined shard-major. Copies each shard to the host."""
     wires = [convert.carry_to_numpy(_carry_to_wire(c)) for c in carries]
     leaves = [np.concatenate(xs, axis=0) for xs in zip(*(
         [a for _, a in convert.carry_leaves(w)] for w in wires))]
     return convert.carry_with_leaves(wires[0], leaves)
 
 
-def _split_wire(wire: Carry, mesh: Mesh, n_instances: int) -> List[Carry]:
-    """A global wire (numpy or tensor leaves) into one carry per shard,
-    each on its shard's device."""
+def _exchange_wire(mesh: Mesh, carries: List[Carry],
+                   root_only: bool = False) -> Optional[Carry]:
+    """The GLOBAL wire of the mesh: this process's shards joined, then
+    every process's rows joined in rank order (a process's shards are
+    consecutive global shards). With ``root_only`` only rank 0 gets it
+    (None elsewhere)."""
+    local = _gather_wire(carries)
+    if mesh.process_count == 1:
+        return local
+    leaves = [a for _, a in convert.carry_leaves(local)]
+    rows = (_root_rows if root_only else _all_rows)(mesh, leaves)
+    if rows is None:
+        return None
+    return convert.carry_with_leaves(
+        local, [np.concatenate(xs, axis=0) for xs in zip(*rows)])
+
+
+def _split_wire(wire: Carry, mesh: Mesh, n_instances: int,
+                shards: Optional[Sequence[int]] = None) -> List[Carry]:
+    """A global wire (numpy or tensor leaves) into one carry per shard of
+    ``shards`` (global indices; default all), each on its shard's
+    device."""
     if isinstance(wire.pool, torch.Tensor):
         wire = convert.carry_to_numpy(wire)
     S = mesh.size
@@ -399,7 +495,7 @@ def _split_wire(wire: Carry, mesh: Mesh, n_instances: int) -> List[Carry]:
                 f"with campaign.checkpoint.restore_carry(wire_template("
                 f"...), leaves, shard=meta['shard'])")
     out = []
-    for s in range(S):
+    for s in (range(S) if shards is None else shards):
         leaves = [a[s * (a.shape[0] // S):(s + 1) * (a.shape[0] // S)]
                   for _, a in named]
         part = convert.carry_with_leaves(wire, leaves)
@@ -459,29 +555,44 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
     captured chunk spans every shard's issue, its heartbeat record gains
     ``device-s``, ``device-ms`` and ``device-source``, and ``perf`` the
     roll-up under ``device``. ``aot_store`` is the JAX executor's
-    executable store, which the port does not have."""
+    executable store, which the port does not have.
+
+    On a mesh over several processes every rank calls this with the
+    same arguments and issues its own row's shards. Each chunk's
+    snapshots, scans and events are all-gathered before they are
+    merged, so every rank takes the same ``fail_fast`` decision and
+    returns the same outputs; with ``checkpoint_every`` every rank
+    stops at the same cuts. Rank 0 alone writes ``heartbeat``, calls
+    ``checkpoint_cb`` (with the global wire) and fills ``perf`` (every
+    shard's issue seconds, and each process's seconds in the exchange,
+    ``process-gather-s``); its ``profiler`` captures its own shards."""
     if aot_store is not None:
         raise ValueError("aot_store: the port has no executable store "
                          "(tpu/aot_store.py is not ported)")
     seed32 = _prepare(sim, seed, params)
     mesh = mesh or make_mesh()
+    _check_group(mesh)
     S = mesh.size
+    local = list(mesh.local_shards)
+    root = mesh.process_index == 0
+    if not root:
+        heartbeat = None
     I, R = sim.n_instances, sim.record_instances
     if scan_k is None:
         scan_k = DEFAULT_SCAN_TOP_K
     plans = resume_plans(sim.n_ticks, chunk, resume)
     all_ids = shard_instance_ids(I, S)
 
+    # this process's shards: j local, local[j] global
     t_init = time.monotonic()
-    ids = [torch.from_numpy(all_ids[s]).to(mesh.devices[s])
-           for s in range(S)]
-    ticks = [make_tick_fn(model, sim, ids[s], mesh.devices[s])
-             for s in range(S)]
+    devs = [mesh.devices[s] for s in local]
+    ids = [torch.from_numpy(all_ids[s]).to(d) for s, d in zip(local, devs)]
+    ticks = [make_tick_fn(model, sim, i, d) for i, d in zip(ids, devs)]
     if resume is not None:
-        carries = _split_wire(resume.carry, mesh, I)
+        carries = _split_wire(resume.carry, mesh, I, local)
     else:
-        carries = [init_carry(model, sim, seed32, mesh.devices[s], ids[s])
-                   for s in range(S)]
+        carries = [init_carry(model, sim, seed32, d, i)
+                   for i, d in zip(ids, devs)]
     init_s = time.monotonic() - t_init
 
     events_chunks = ([np.asarray(e) for e in resume.events]
@@ -493,33 +604,38 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
         fuzz_windows = faults_fuzz.fleet_windows(
             sim.faults, sim.net.n_nodes, seed32,
             np.arange(I * S, dtype=np.int32))
-    stats = {"issue-s": [0.0] * S, "merge-s": 0.0, "checkpoint-s": []}
+    stats = {"issue-s": [0.0] * len(local), "merge-s": 0.0,
+             "gather-s": 0.0, "checkpoint-s": []}
 
-    def issue(s: int, t0: int, length: int):
-        """Shard ``s``'s chunk: the ticks, then the snapshots and the
-        queued copies."""
+    def issue(j: int, t0: int, length: int):
+        """Local shard ``j``'s chunk: the ticks, then the snapshots and
+        the queued copies."""
         t_i = time.monotonic()
-        with _on(mesh.devices[s]):
-            carry, evs = carries[s], []
+        with _on(devs[j]):
+            carry, evs = carries[j], []
             for t in range(t0, t0 + length):
-                carry, ys = ticks[s](carry, t)
+                carry, ys = ticks[j](carry, t)
                 if R > 0:
                     evs.append(ys.events)
-            carries[s] = carry
+            carries[j] = carry
             svec = torch.stack(list(carry.stats)).reshape(1, -1)
             scan = violation_scan(scan_source(carry), carry.telemetry,
-                                  ids[s], k=scan_k)[None]
+                                  ids[j], k=scan_k)[None]
             fetch = start_fetch(*((torch.stack(evs),) if R > 0 else ()),
                                 svec, scan)
-        stats["issue-s"][s] += time.monotonic() - t_i
+        stats["issue-s"][j] += time.monotonic() - t_i
         return fetch
 
     def issue_all(t0: int, length: int):
-        return [issue(s, t0, length) for s in range(S)]
+        return [issue(j, t0, length) for j in range(len(local))]
 
     def consume(fetches, t0: int, length: int, prof_rec=None) -> bool:
         t_m = time.monotonic()
         hosts = [[x.numpy() for x in finish_fetch(f)] for f in fetches]
+        # every shard's copies, in global shard order
+        t_g = time.monotonic()
+        hosts = _flat(_all_rows(mesh, hosts))
+        stats["gather-s"] += time.monotonic() - t_g
         if R > 0:
             events = deinterleave(np.concatenate(
                 [h[0] for h in hosts], axis=1), S, axis=1)
@@ -557,10 +673,13 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
         stats["merge-s"] += time.monotonic() - t_m
         return int(scan_np[0, 0]) > 0
 
+    # over several processes every rank cuts at the same chunks, whether
+    # or not it was given the callback (rank 0 calls it)
     shard_meta = {"n-shards": S, "instances-per-shard": I,
                   "interleaved": True,
                   "leaf-kinds": wire_leaf_kinds(model, sim)} \
-        if checkpoint_cb is not None and checkpoint_every > 0 else None
+        if checkpoint_every > 0 and (checkpoint_cb is not None
+                                     or mesh.process_count > 1) else None
     pending = None
     issued = 0
     ticks_dispatched = resume.ticks if resume is not None else 0
@@ -571,7 +690,7 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
         prof_rec = None
         if profiler is not None and profiler.should_capture(dispatch_idx):
             fetches, prof_rec = profiler.capture(
-                issue_all, (t0, length), length, devices=mesh.devices)
+                issue_all, (t0, length), length, devices=devs)
         else:
             fetches = issue_all(t0, length)
         dispatch_idx += 1
@@ -587,26 +706,33 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
             tripped = consume(*pending) or tripped
             pending = None
             t_c = time.monotonic()
-            checkpoint_cb(_gather_wire(carries), ticks_dispatched,
-                          {"events": list(events_chunks),
-                           "chunks": chunk_idx[0], "shard": shard_meta})
+            wire = _exchange_wire(mesh, carries, root_only=True)
+            if wire is not None and checkpoint_cb is not None:
+                checkpoint_cb(wire, ticks_dispatched,
+                              {"events": list(events_chunks),
+                               "chunks": chunk_idx[0], "shard": shard_meta})
             stats["checkpoint-s"].append(round(time.monotonic() - t_c, 4))
         if fail_fast and tripped:
             stopped = True
             break
     if pending is not None:
         consume(*pending)
-    wire = _gather_wire(carries)
-    if perf is not None:
+    wire = _exchange_wire(mesh, carries)
+    rows = _all_rows(mesh, (stats["issue-s"], round(stats["gather-s"], 4)))
+    if perf is not None and root:
         perf.update({
             "chunks": issued, "chunk-ticks": plan_chunks(sim.n_ticks,
                                                          chunk)[0][1],
             "shards": S,
             "init-s": round(init_s, 4),
             "run-s": round(time.monotonic() - t_run, 4),
-            "shard-issue-s": [round(x, 4) for x in stats["issue-s"]],
+            "shard-issue-s": [round(x, 4) for x in _flat(r[0]
+                                                          for r in rows)],
             "merge-s": round(stats["merge-s"], 4),
             "ticks-dispatched": ticks_dispatched})
+        if mesh.process_count > 1:
+            perf["processes"] = mesh.process_count
+            perf["process-gather-s"] = [r[1] for r in rows]
         if stats["checkpoint-s"]:
             perf["checkpoints"] = len(stats["checkpoint-s"])
             perf["checkpoint-s"] = round(sum(stats["checkpoint-s"]), 4)

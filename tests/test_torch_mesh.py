@@ -300,10 +300,11 @@ def test_combine_shard_scans_top_k_merge():
                               jstream.combine_shard_scans(sc, None, k=5))
 
 
-def test_hybrid_mesh_single_process_degenerate():
+def test_hybrid_mesh_single_process_degenerate(monkeypatch):
     """``make_hybrid_mesh`` in its one-process form: a ``(1, n)`` mesh
     named ``("dcn", "ici")`` whose run equals JAX's on its ``(1, 8)``
-    hybrid mesh; ``init`` raises when several processes are asked for."""
+    hybrid mesh; ``init`` does nothing for one process and raises when
+    several are asked for without a coordinator address."""
     m = multihost.make_hybrid_mesh(devices=[CPU] * 8)
     jm_ = jmultihost.make_hybrid_mesh()
     assert m.shape == jm_.devices.shape == (1, 8)
@@ -317,8 +318,11 @@ def test_hybrid_mesh_single_process_degenerate():
     got = mesh.run_sim_sharded(tmod, tsim, 4, mesh=m)
     _same_outputs(want, got)
     assert got[1].shape == (16,) and got[2].shape[1] == 8
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
     multihost.init()
-    with pytest.raises(RuntimeError, match="2 processes"):
+    assert multihost.process_count() == 1
+    with pytest.raises(ValueError, match="coordinator address"):
         multihost.init(num_processes=2)
 
 

@@ -169,7 +169,19 @@ Phases (any failure exits non-zero and prints no result line):
     seconds prints the metric line with ``value`` > 0. It prints the
     ticks/s of off, auto and on, the per-phase ms/tick, each captured
     chunk's phase sum against its device wall and issue time, the
-    ``profile`` table, the bench line and the launches.
+    ``profile`` table, the bench line and the launches. The bench line
+    also carries its five static fields (``ir_eqns``,
+    ``ir_bytes_est``, ``lanes_live``, ``lanes_dead``,
+    ``lanes_dead_bytes``), and the worker steps the same fleet to tick
+    480 and counts, with ``torch.profiler`` as ``profile_tick.py``
+    does, the kernels the card launches per tick by phase over ticks
+    220-239 (a heal stretch) and 460-479 (inside the first partition
+    phase), beside the static operator count of the same tick variant
+    (``analysis/cost_model.py``, a trace on ``meta`` tensors): every
+    phase with launches has static operators and the reverse, and the
+    per-tick total outside ``deliver`` lies within 0.75-1.33x of the
+    static count (``deliver`` is the plain version's operators on
+    ``meta`` against the one kernel launch, reported as a pair).
 
 15. runs over several processes (``parallel/multihost.py``), behind
     phase 14 in its card worker: two spawned processes (the ``spawn``
@@ -188,11 +200,13 @@ Phases (any failure exits non-zero and prints no result line):
 
 16. the lint (``analysis/``) on the card's toolchain, in a reference
     worker (no card visible to it): ``python -m maelstrom_tpu_torch lint
-    --strict --json`` as a child process must exit 0 with the trace,
-    contract and schema passes run, no error finding and no stale
-    baseline entry, having loaded no kernel library and initialised no
-    CUDA, and no module of the port may be the one that imports
-    ``triton`` (torch's own compiler stack may).
+    --strict --json --pass trace --pass contract --pass schema --ir
+    --cost --lanes`` as a child process must exit 0 with the trace,
+    contract and schema passes and the IR-hazard, cost and lane
+    passes over the aten graph of every model's tick run, no
+    error finding and no stale baseline entry, having loaded no kernel
+    library and initialised no CUDA, and no module of the port may be
+    the one that imports ``triton`` (torch's own compiler stack may).
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
@@ -358,8 +372,10 @@ PROCS_TIMEOUT_S = 600.0
 # checkpoint for phase 15 (under the script's temporary root)
 MESH_REF = "mesh-ref.pkl"
 MESH_CKPT = "mesh-checkpoint"
-# phase 16: `python -m maelstrom_tpu_torch lint --strict --json`, run
-# through runpy so that the child can report, after the lint, which file
+# phase 16: `python -m maelstrom_tpu_torch lint --strict --json` with every
+# pass named (the default three and the ir, cost and lanes passes over the
+# aten graph of the tick), run through runpy so that the child can report,
+# after the lint, which file
 # imported triton first (torch's own compiler stack may; the port must
 # not), which kernel libraries it loaded and whether CUDA was initialised
 LINT_CHILD = """
@@ -376,7 +392,9 @@ class TritonImporter:
             TritonImporter.file = f.f_code.co_filename if f else "?"
         return None
 sys.meta_path.insert(0, TritonImporter())
-sys.argv = ["maelstrom_tpu_torch", "lint", "--strict", "--json"]
+sys.argv = ["maelstrom_tpu_torch", "lint", "--strict", "--json", "--pass",
+            "trace", "--pass", "contract", "--pass", "schema", "--ir",
+            "--cost", "--lanes"]
 try:
     runpy.run_module("maelstrom_tpu_torch", run_name="__main__",
                      alter_sys=True)
@@ -399,9 +417,16 @@ NO_PROFILE = dict(device_profile="off")
 # BENCH_FUZZ_DIST, as phase 4 runs it, for 300 ticks in 100-tick chunks
 # with device_profile off, auto and on in turns; a 50-tick run under a
 # torch.profiler session (profile_dir); the bench module for 0.3
-# simulated seconds
+# simulated seconds; the kernels launched per tick by phase over two
+# 20-tick stretches, each after 20 ticks timed on the host clock (a heal
+# stretch, and one inside the first partition phase, ticks 400-799),
+# against the static operator count of the same tick variant
 PROFILE = dict(time_limit=0.3, chunk=100, trace_ticks=50,
-               bench_seconds=0.3, modes=("off", "auto", "on"))
+               bench_seconds=0.3, modes=("off", "auto", "on"),
+               stretches=(220, 460), stretch_ticks=20)
+# the static count outside `deliver` predicts the launches outside it
+# within this ratio (launched / static)
+STATIC_RATIO = (0.75, 1.33)
 
 
 def log(msg: str) -> None:
@@ -1683,6 +1708,7 @@ def profile_phase(dev_name, root, opts):
     out["trace"] = {"bytes": os.path.getsize(traces[0]), "wall-s": wall,
                     "ticks": res["perf"]["ticks"]}
     out["launches"]["phase 14 profile_dir run"] = launches
+    out["static"] = static_vs_launched(dev_name, opts)
     # the bench module, as a user runs it (no card: it must refuse)
     t_b = time.monotonic()
     p = subprocess.run([sys.executable, "-m", "maelstrom_tpu_torch.bench"],
@@ -1702,14 +1728,83 @@ def profile_phase(dev_name, root, opts):
             "delivered", "delivered_timed", "sent", "dropped_overflow",
             "wall_s", "msg_lanes", "bytes_per_msg_row", "fault_fuzz",
             "device_profile", "device_ms_per_tick",
-            "device_phase_ms_per_tick")
+            "device_phase_ms_per_tick") + STATIC_FIELDS
     missing = [k for k in keys if k not in line]
     if missing or not line.get("value", 0) > 0 \
-            or line["metric"] != "simulated_msgs_per_sec":
+            or line["metric"] != "simulated_msgs_per_sec" \
+            or not all(isinstance(line[k], int) for k in STATIC_FIELDS):
         raise AssertionError(f"{label}: bench exited {p.returncode}, "
                              f"missing {missing}: {p.stdout[-800:]} "
                              f"{p.stderr[-800:]}")
     out["bench"] = (line, time.monotonic() - t_b)
+    return out
+
+
+# the bench line's static fields (analysis/cost_model.py, lane_liveness.py)
+STATIC_FIELDS = ("ir_eqns", "ir_bytes_est", "lanes_live", "lanes_dead",
+                 "lanes_dead_bytes")
+
+
+def static_vs_launched(dev_name, opts):
+    """Phase 14's check of the static cost model: the flagship under
+    ``BENCH_FUZZ_DIST`` stepped on the card to the end of the last
+    stretch; per stretch, 20 ticks timed on the host clock, then 20
+    profiled (``profile_tick._breakdown``: the kernels by phase per
+    tick), beside the static operators of the same tick variant
+    (``profile_tick.static_ops``). Without a card it counts the static
+    side only."""
+    from maelstrom_tpu_torch import fleets, profile_tick
+    from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
+    from maelstrom_tpu_torch.kernels import delivery
+    label = "phase 14 (static against launched)"
+    on_card = dev_name != "cpu"
+    model, _ = fleets.fleet("lin-kv")
+    n = opts["stretch_ticks"]
+    fleet_opts = dict(opts["fleet"], fault_fuzz=BENCH_FUZZ_DIST)
+    fleet = profile_tick._Fleet(model, fleet_opts, torch.device(dev_name))
+    out = {}
+    t0 = time.monotonic()
+    with torch.no_grad():
+        for start in opts["stretches"]:
+            fleet.run(start - n - fleet.t)
+            if on_card:
+                wall = fleet.wall_ms(n)
+                b = profile_tick._breakdown(fleet, n, wall,
+                                            delivery.KERNEL_NAME)
+                launched = {ph: d["device_kernels_per_tick"]
+                            for ph, d in b["phases"].items()}
+                total = b["device_kernels_per_tick"]
+            else:
+                fleet.run(2 * n)
+                launched, total, wall = None, None, None
+            t_s = fleet.t - n
+            st = profile_tick.static_ops(model, fleet.sim, t_s)
+            rec = {"from_tick": t_s, "variant": st["variant"],
+                   "static": st["phases"], "static_total": st["ops_per_tick"],
+                   "launched": launched, "launched_total": total,
+                   "wall_ms_per_tick": wall}
+            if on_card:
+                busy = {ph for ph, k in launched.items() if k > 0}
+                static = {ph for ph, k in st["phases"].items()
+                          if k > 0 and ph != "other"}
+                if busy != static:
+                    raise AssertionError(f"{label}: ticks {t_s}-"
+                                         f"{t_s + n - 1}: phases with "
+                                         f"launches {sorted(busy)}, with "
+                                         f"static operators "
+                                         f"{sorted(static)}")
+                s_ex = st["ops_per_tick"] - st["phases"]["deliver"]
+                l_ex = total - launched["deliver"]
+                rec["ratio_ex_deliver"] = l_ex / s_ex
+                lo, hi = STATIC_RATIO
+                if not lo <= l_ex / s_ex <= hi:
+                    raise AssertionError(f"{label}: ticks {t_s}-"
+                                         f"{t_s + n - 1}: {l_ex:.1f} "
+                                         f"kernels a tick outside deliver "
+                                         f"against {s_ex} static "
+                                         f"operators ({l_ex / s_ex:.3f}x)")
+            out[st["variant"]] = rec
+    out["wall-s"] = time.monotonic() - t0
     return out
 
 
@@ -1743,6 +1838,29 @@ def log_profile_phase(dev, profile_ref):
     t = m["trace"]
     log(f"{label}: profile_dir: a {t['ticks']}-tick run wrote a "
         f"{t['bytes']} B Chrome trace; the run took {t['wall-s']:.1f} s")
+    st = m["static"]
+    for variant, r in st.items():
+        if variant == "wall-s":
+            continue
+        span = f"ticks {r['from_tick']}-{r['from_tick'] + 19} ({variant})"
+        if r["launched"] is None:
+            log(f"{label}: {span}: static operators per tick "
+                f"{r['static_total']} {json.dumps(r['static'])} (no card: "
+                f"no launches counted)")
+            continue
+        log(f"{label}: {span}: kernels launched per tick "
+            f"{r['launched_total']:.2f} against {r['static_total']} static "
+            f"operators; outside deliver {r['ratio_ex_deliver']:.4f}x; "
+            f"deliver {r['launched']['deliver']:.2f} launch(es) against "
+            f"{r['static']['deliver']} plain operators on meta; host "
+            f"{r['wall_ms_per_tick']:.3f} ms/tick ({card})")
+        other = r["launched_total"] - sum(r["launched"].values())
+        log(f"{label}: {span}: by phase, launched / static: "
+            + ", ".join(f"{ph} {r['launched'][ph]:.2f} / {r['static'][ph]}"
+                        for ph in r["launched"])
+            + f", other {other:.2f} / {r['static']['other']}")
+    log(f"{label}: the fleet to tick 480 and its profiles took "
+        f"{st['wall-s']:.1f} s in the worker")
     if m["bench"] is not None:
         line, t_b = m["bench"]
         log(f"{label}: bench module ({t_b:.1f} s): {json.dumps(line)}")
@@ -1843,7 +1961,8 @@ def main(argv) -> int:
         mesh_opts = dict(mesh_opts, n_global=32, time_limit=0.2, chunk=50,
                          ckpt_tick=100, fleet=small(fleets.FLAGSHIP))
         profile_opts = dict(profile_opts, time_limit=0.15, chunk=50,
-                            trace_ticks=20, fleet=small(fleets.FLAGSHIP, 16))
+                            trace_ticks=20, fleet=small(fleets.FLAGSHIP, 16),
+                            stretches=(20, 120))
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -1977,12 +2096,13 @@ def log_lint_phase(lint_ref):
     label = "phase 16 (lint)"
     r, t_lint = lint_ref.result()
     if r["rc"] != 0:
-        raise AssertionError(f"{label}: `lint --strict --json` exited "
+        raise AssertionError(f"{label}: `lint --strict --json ...` exited "
                              f"{r['rc']}:\n{r['stdout'][-3000:]}\n"
                              f"{r['stderr']}")
     rep = json.loads(r["stdout"])
     loaded = r["loaded"]
-    if rep["passes"] != ["trace", "contract", "schema"] \
+    if rep["passes"] != ["trace", "contract", "schema", "ir", "cost",
+                         "lanes"] \
             or rep["summary"]["errors"] or rep["stale-baseline-entries"]:
         raise AssertionError(f"{label}: passes {rep['passes']}, summary "
                              f"{rep['summary']}")
@@ -1993,7 +2113,11 @@ def log_lint_phase(lint_ref):
                              f"card's toolchain: {loaded}")
     exp = sum(1 for f in rep["suppressed"]
               if f["baseline-status"] == "expected")
-    log(f"{label}: `python -m maelstrom_tpu_torch lint --strict --json` "
+    warn = [f"{f['rule']} {f['message'][:200]}" for f in rep["findings"]]
+    for w in warn:
+        log(f"{label}: warning {w}")
+    log(f"{label}: `python -m maelstrom_tpu_torch lint --strict --json "
+        f"--pass trace --pass contract --pass schema --ir --cost --lanes` "
         f"exit 0 in {t_lint:.1f} s in a reference worker (no card "
         f"visible): passes {', '.join(rep['passes'])}; "
         f"{json.dumps(rep['summary'])} ({exp} expected-fixture); "

@@ -65,11 +65,13 @@ checkpoint that cannot be used exits 2.
 flags: the trace-hygiene, contract and wire-schema passes by default,
 ``--pass`` to pick, file ``paths`` for the trace pass alone, the port's
 ``analysis/baseline.json`` unless ``--baseline``/``--no-baseline``;
-``--strict`` exits 1 on an unsuppressed error finding, else 0. The JAX
-CLI's jaxpr passes (``--ir``, ``--cost``, ``--lanes``, ``--ranges``,
-``--shard``, ``--aot`` and their manifest flags) lower the JAX tick to
-its IR, which the eager port has no counterpart for: they exit 2. It
-touches no device.
+``--strict`` exits 1 on an unsuppressed error finding, else 0. The
+opt-in passes over the aten graph of the tick run when named: ``--ir``
+(JXP4xx), ``--cost`` with ``--update-baseline`` / ``--cost-baseline``
+(COST5xx) and ``--lanes`` with ``--update-manifest`` /
+``--lane-manifest`` (LNE6xx), or ``--pass ir|cost|lanes``. The JAX
+CLI's ``--ranges``, ``--shard`` and ``--aot`` passes and their flags
+are not ported yet and exit 2. It touches no device.
 """
 
 from __future__ import annotations
@@ -81,30 +83,29 @@ import sys
 import time
 from typing import List, Optional
 
-from .analysis.runner import ALL_PASSES
+from .analysis.runner import ALL_PASSES, EXTRA_PASSES
 from .faults.spec import FAULT_KINDS
 from .runtime import NEMESIS_KINDS, scripted_isolate_groups
 from .topology import TOPOLOGIES
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the JAX CLI's opt-in passes, which lower the JAX tick to a jaxpr (and
-# compile it with XLA); the eager port has no counterpart IR
-JAXPR_PASSES = ("ir", "cost", "lanes", "ranges", "shard", "aot")
-_JAXPR_FLAGS = (("ir", "--ir"), ("cost", "--cost"),
-                ("update_baseline", "--update-baseline"),
-                ("cost_baseline", "--cost-baseline"), ("lanes", "--lanes"),
-                ("update_manifest", "--update-manifest"),
-                ("lane_manifest", "--lane-manifest"),
-                ("ranges", "--ranges"), ("update_ranges", "--update-ranges"),
-                ("range_manifest", "--range-manifest"),
-                ("ranges_horizon_log2", "--ranges-horizon-log2"),
-                ("shard", "--shard"),
-                ("update_shard_manifest", "--update-shard-manifest"),
-                ("shard_manifest", "--shard-manifest"), ("aot", "--aot"),
-                ("update_aot", "--update-aot"),
-                ("aot_manifest", "--aot-manifest"),
-                ("aot_store", "--aot-store"))
+# the JAX CLI's passes the port has not ported yet, each with the
+# ROADMAP queue item it waits in, and their flags
+UNPORTED_PASSES = {"ranges": "A.11", "shard": "A.12", "aot": "A.12"}
+_UNPORTED_FLAGS = (("ranges", "--ranges", "ranges"),
+                   ("update_ranges", "--update-ranges", "ranges"),
+                   ("range_manifest", "--range-manifest", "ranges"),
+                   ("ranges_horizon_log2", "--ranges-horizon-log2",
+                    "ranges"),
+                   ("shard", "--shard", "shard"),
+                   ("update_shard_manifest", "--update-shard-manifest",
+                    "shard"),
+                   ("shard_manifest", "--shard-manifest", "shard"),
+                   ("aot", "--aot", "aot"), ("update_aot", "--update-aot",
+                                             "aot"),
+                   ("aot_manifest", "--aot-manifest", "aot"),
+                   ("aot_store", "--aot-store", "aot"))
 
 
 def _positive_int(v: str) -> int:
@@ -468,13 +469,13 @@ def _parser() -> argparse.ArgumentParser:
     c_report.add_argument("path", help="campaign dir")
     c_report.add_argument("--no-static-cost", action="store_true",
                           help="leave out the ir-bytes-est column "
-                               "(null in the port: no static cost "
-                               "model)")
+                               "(the static cost of each item's config, "
+                               "analysis/cost_model.py)")
 
     p_lint = sub.add_parser(
         "lint", help="static analysis: the trace-hygiene, contract and "
-                     "wire-schema passes (the JAX CLI's jaxpr passes "
-                     "are refused)")
+                     "wire-schema passes, and the opt-in passes over the "
+                     "aten graph of the tick (ir, cost, lanes)")
     p_lint.add_argument("paths", nargs="*",
                         help="restrict the trace-hygiene pass to these "
                              "files (other passes then run only when "
@@ -485,21 +486,51 @@ def _parser() -> argparse.ArgumentParser:
     p_lint.add_argument("--json", action="store_true",
                         help="machine-readable findings on stdout")
     p_lint.add_argument("--pass", dest="passes", action="append",
-                        choices=list(ALL_PASSES) + list(JAXPR_PASSES),
+                        choices=(list(ALL_PASSES) + list(EXTRA_PASSES)
+                                 + list(UNPORTED_PASSES)),
                         help="run only the named pass(es); default "
-                             "trace+contract+schema")
-    for flag in ("--ir", "--cost", "--update-baseline", "--lanes",
-                 "--update-manifest", "--ranges", "--update-ranges",
-                 "--shard", "--update-shard-manifest", "--aot",
-                 "--update-aot"):
+                             "trace+contract+schema (ir/cost/lanes are "
+                             "opt-in: they trace every registered model)")
+    p_lint.add_argument("--ir", action="store_true",
+                        help="run the IR hazard pass (JXP4xx) over the "
+                             "aten graph of every registered model's tick")
+    p_lint.add_argument("--cost", action="store_true",
+                        help="run the cost-budget gate (COST5xx): the "
+                             "static tick cost of every registered model "
+                             "vs analysis/cost_baseline.json; >10%% "
+                             "regression is an error")
+    p_lint.add_argument("--update-baseline", action="store_true",
+                        help="re-record analysis/cost_baseline.json from "
+                             "the current tree (implies --cost)")
+    p_lint.add_argument("--cost-baseline", default=None,
+                        help="cost-baseline file (default "
+                             "maelstrom_tpu_torch/analysis/"
+                             "cost_baseline.json)")
+    p_lint.add_argument("--lanes", action="store_true",
+                        help="run the lane-liveness pass (LNE6xx): the "
+                             "backward slice of every registered model's "
+                             "tick, gated against "
+                             "analysis/lane_manifest.json")
+    p_lint.add_argument("--update-manifest", action="store_true",
+                        help="re-record analysis/lane_manifest.json from "
+                             "the current tree (implies --lanes)")
+    p_lint.add_argument("--lane-manifest", default=None,
+                        help="lane-manifest file (default "
+                             "maelstrom_tpu_torch/analysis/"
+                             "lane_manifest.json)")
+    for flag in ("--ranges", "--update-ranges", "--shard",
+                 "--update-shard-manifest", "--aot", "--update-aot"):
         p_lint.add_argument(flag, action="store_true",
-                            help="a jaxpr pass of the JAX CLI: refused")
-    for flag in ("--cost-baseline", "--lane-manifest", "--range-manifest",
-                 "--shard-manifest", "--aot-manifest", "--aot-store"):
+                            help="a pass of the JAX CLI not ported yet: "
+                                 "refused")
+    for flag in ("--range-manifest", "--shard-manifest", "--aot-manifest",
+                 "--aot-store"):
         p_lint.add_argument(flag, default=None,
-                            help="a jaxpr pass's file: refused")
+                            help="a file of a pass not ported yet: "
+                                 "refused")
     p_lint.add_argument("--ranges-horizon-log2", type=int, default=None,
-                        help="a jaxpr pass's option: refused")
+                        help="an option of a pass not ported yet: "
+                             "refused")
     p_lint.add_argument("--baseline", default=None,
                         help="baseline file (default "
                              "maelstrom_tpu_torch/analysis/baseline.json)")
@@ -513,26 +544,43 @@ def _parser() -> argparse.ArgumentParser:
 
 def cmd_lint(args) -> int:
     """Run the analysis passes; --strict turns error findings into a
-    nonzero exit. The jaxpr passes exit 2."""
+    nonzero exit. The passes not ported yet exit 2."""
     from .analysis import render_text, run_lint
     from .analysis.findings import DEFAULT_BASELINE
 
-    refused = [flag for attr, flag in _JAXPR_FLAGS
+    refused = [(flag, name) for attr, flag, name in _UNPORTED_FLAGS
                if getattr(args, attr) not in (None, False)]
-    refused += [f"--pass {p}" for p in (args.passes or ())
-                if p in JAXPR_PASSES]
+    refused += [(f"--pass {p}", p) for p in (args.passes or ())
+                if p in UNPORTED_PASSES]
     if refused:
-        print(f"error: {', '.join(refused)}: the JAX CLI's jaxpr passes "
-              f"lower the JAX tick to its IR (a jaxpr, compiled by XLA); "
-              f"the eager PyTorch port has no counterpart IR (ROADMAP "
-              f"A.9). The port runs the {', '.join(ALL_PASSES)} passes.",
+        names = list(dict.fromkeys(name for _, name in refused))
+        print(f"error: {', '.join(flag for flag, _ in refused)}: the "
+              f"{', '.join(names)} pass{'es are' if len(names) > 1 else ' is'}"
+              f" not ported yet (ROADMAP "
+              f"{', '.join(sorted({UNPORTED_PASSES[n] for n in names}))}"
+              f"). The port runs the "
+              f"{', '.join(ALL_PASSES + EXTRA_PASSES)} passes.",
               file=sys.stderr)
         return 2
+    # None = runner default (the default passes; trace-only when paths
+    # restrict). --ir / --cost / --lanes name the opt-in passes
+    # (--update-baseline implies --cost, --update-manifest --lanes)
+    passes = list(args.passes) if args.passes else []
+    if args.ir:
+        passes.append("ir")
+    if args.cost or args.update_baseline:
+        passes.append("cost")
+    if args.lanes or args.update_manifest:
+        passes.append("lanes")
     baseline = None if args.no_baseline else (args.baseline
                                               or DEFAULT_BASELINE)
     report = run_lint(repo_root=args.root,
-                      passes=tuple(dict.fromkeys(args.passes or ())) or None,
-                      paths=args.paths or None, baseline_path=baseline)
+                      passes=tuple(dict.fromkeys(passes)) or None,
+                      paths=args.paths or None, baseline_path=baseline,
+                      cost_baseline_path=args.cost_baseline,
+                      update_cost_baseline=args.update_baseline,
+                      lane_manifest_path=args.lane_manifest,
+                      update_lane_manifest=args.update_manifest)
     if args.json:
         print(json.dumps(report.to_json(), indent=2))
     else:

@@ -1,0 +1,629 @@
+"""Static per-tick cost model over an aten graph of the port's tick.
+
+Counterpart of ``maelstrom_tpu/analysis/cost_model.py``. The eager
+port launches about one kernel per non-view aten operator it
+dispatches, so the quantity to budget is the **operator graph of one
+tick**: how many operators it dispatches, how they split across the
+phases the runtime marks (``telemetry/profiler.phase``: nemesis /
+faults / deliver / node_phase / client_step / enqueue / check_summary /
+telemetry), and how many intermediate bytes they write. This module
+computes those numbers *statically*: the tick runs once on ``meta``
+tensors, which carry shapes and dtypes and no values, under
+``torch.func.functionalize`` and a ``TorchDispatchMode`` that records
+every aten operator with its inputs, outputs and phase
+(:class:`TickGraph`). No device is touched and no value is read.
+
+Where it differs from the JAX model, and why:
+
+- **The graph.** JAX traces the tick with ``jax.make_jaxpr``. The port
+  records the aten operators the tick dispatches on ``meta`` tensors.
+  ``torch.fx``'s ``make_fx`` records the same operators, but its
+  per-node bookkeeping made one trace of the lin-kv audit tick take
+  10.5 s against 1.5 s for the recorder on a CPU, and the lint traces
+  some thirty models. Functionalization makes every in-place write a
+  pure operator, as every equation of a jaxpr is (the lanes pass needs
+  that): a write through a view (``x[..., VALID] = v``) is recorded as
+  the operator (``copy``, ``mul``, ...) plus the ``select_scatter`` /
+  ``slice_scatter`` that puts the result back into its base. On the
+  card that write is one launch, so the cost counts leave those
+  scatters out (the tick calls none itself): the counts then equal the
+  operators the eager tick dispatches (``telemetry/profiler.
+  phase_op_counts`` counts those on its own, and
+  ``tests/test_torch_cost.py`` holds the two equal).
+- **Tick variants.** The tick number ``t`` is a host int, and three
+  host branches on it pick the graph: the nemesis draws a grudge only
+  inside a partition phase and a scripted schedule writes each phase's
+  pairs (``runtime.partition_matrix``), and clients switch to
+  ``sample_final_op`` at ``final_start`` (``runtime.client_step``); a
+  fault plan reads its phase's rows (``faults/engine._phase_of``). One
+  jaxpr holds both arms of each; the port traces one tick per outcome
+  (:func:`tick_variants`) and ``eqns`` is the heaviest variant's count,
+  an upper bound per tick as JAX's is, with the breakdown in
+  ``variants``.
+- **eqns** counts non-view operators (views launch nothing; the view
+  list is ``profile_tick._VIEW_OPS``), ``hbm_bytes`` the bytes their
+  outputs hold, ``max_broadcast_bytes`` the largest output of one that
+  is larger than every tensor it reads (a materialised broadcast), and
+  ``const_bytes`` / ``max_const_bytes`` the tensors the tick reads that
+  no operator of it made (closure constants, the counterpart of a
+  jaxpr's consts).
+- **loops** is always 0: eager Python loops unroll into the graph, so
+  no operator is a loop.
+- The 64-bit census (JAX's ``_dtype_census``) is kept per issuing
+  function: the innermost frame of the port on the stack when the
+  operator was dispatched (``wide_sites``).
+
+The numbers feed the same consumers as in JAX: ``lint --cost``
+(``analysis/ir_lint.py``, gated against ``analysis/cost_baseline.json``
+with a 10% tolerance), the bench line (``ir_eqns``, ``ir_bytes_est``),
+``profile_tick.py``'s static column, the campaign report's
+``ir-bytes-est``, and ``chip_smoke.py``'s check that the static count
+predicts the kernels the card launches.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+# The tick's phase vocabulary (runtime.py's phase marks). Operators
+# outside these count under OTHER_PHASE, as in JAX.
+PHASES = ("nemesis", "deliver", "node_phase", "client_step", "enqueue",
+          "telemetry")
+OTHER_PHASE = "other"
+
+# The full known phase vocabulary: the table above plus the phases that
+# ride specific configs (the fault lanes and the device verdict lanes).
+# An operator outside every one of these counts as unattributed (the
+# COST505 column).
+KNOWN_SCOPES = PHASES + ("faults", "check_summary")
+
+DEFAULT_COST_BASELINE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "cost_baseline.json")
+
+# cost-gate tolerance: a model's tick may drift this fraction above its
+# baseline figures before COST501 fails the gate
+DEFAULT_TOLERANCE = 0.10
+
+# the port runs the batch-leading layout only
+AUDIT_LAYOUTS = ("lead",)
+
+META = torch.device("meta")
+
+X64_DTYPES = ("int64", "uint64", "float64")
+
+# the operators functionalization adds to put an in-place write's result
+# back into its base (the eager tick launches only the write itself)
+WRITE_BACKS = frozenset(("select_scatter", "slice_scatter",
+                         "diagonal_scatter", "as_strided_scatter"))
+
+# small integer tensors (constants, and the lane pass's folded index
+# tensors) keep their values up to this many elements
+CONST_VALUE_MAX_ELEMS = 8192
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ANALYSIS_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO_DIR = os.path.dirname(_PKG_DIR)
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).replace("torch.", "")
+
+
+# --- the recorded graph ------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Ref:
+    """A tensor argument of a :class:`TNode`: the id of its value."""
+    vid: int
+
+
+@dataclass
+class TValue:
+    """One tensor of the graph: an input (carry leaf), a constant, or an
+    operator's output."""
+    vid: int
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    kind: str                         # "input" | "const" | "op"
+    producer: Optional[int] = None    # node index for kind "op"
+    value: Optional[np.ndarray] = None  # a constant's value, when known
+
+    @property
+    def nbytes(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= int(d)
+        return n * self.dtype.itemsize
+
+
+@dataclass
+class TNode:
+    """One aten operator of the tick."""
+    idx: int
+    op: Any                           # the OpOverload
+    name: str                         # its packet name ("select", ...)
+    args: Any                         # args with tensors as Ref
+    kwargs: Dict[str, Any]
+    ins: List[int]                    # tensor inputs, flattened
+    outs: List[int]                   # tensor outputs
+    phase: str
+    site: Optional[Tuple[str, str]] = None   # (path, function) issuing it
+
+    @property
+    def is_view(self) -> bool:
+        from ..profile_tick import _VIEW_OPS
+        return self.name in _VIEW_OPS
+
+
+@dataclass
+class TickGraph:
+    """The aten graph of one tick at one ``t``: nodes in dispatch order,
+    values, the carry's input leaves and the tick's output leaves (the
+    carry's, then :class:`~..runtime.TickOutputs`'), each with its path
+    (``.pool``, ``.node_state.term``, ...)."""
+    t: int
+    nodes: List[TNode] = field(default_factory=list)
+    values: List[TValue] = field(default_factory=list)
+    input_paths: List[str] = field(default_factory=list)
+    inputs: List[int] = field(default_factory=list)
+    output_paths: List[str] = field(default_factory=list)
+    outputs: List[int] = field(default_factory=list)
+    n_carry_out: int = 0
+
+    def ops(self) -> List[TNode]:
+        """The operators that launch: not views, and not the write-backs
+        functionalization adds for in-place writes."""
+        return [n for n in self.nodes
+                if not n.is_view and n.name not in WRITE_BACKS]
+
+    def base_bytes(self, vid: int) -> int:
+        """The bytes behind a value: a view's are its base's (an
+        ``expand`` of a scalar holds 4 bytes, whatever its shape)."""
+        v = self.values[vid]
+        while v.producer is not None and self.nodes[v.producer].is_view:
+            refs = [x for x in self.nodes[v.producer].args
+                    if isinstance(x, Ref)]
+            if not refs:
+                break
+            v = self.values[refs[0].vid]
+        return v.nbytes
+
+
+def flatten_paths(tree, path: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` per leaf of a tree of NamedTuples, dicts and
+    tuples in ``tree.tree_leaves`` order, ``None`` skipped; the paths
+    are JAX's ``keystr`` (``.node_state.term``, ``['k']``, ``[0]``)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [x for k in tree for x in flatten_paths(tree[k],
+                                                       f"{path}[{k!r}]")]
+    names = getattr(tree, "_fields", None)
+    return [x for i, t in enumerate(tree) for x in flatten_paths(
+        t, f"{path}.{names[i]}" if names else f"{path}[{i}]")]
+
+
+def _site() -> Optional[Tuple[str, str]]:
+    """The innermost frame of the port (outside this package) on the
+    stack: ``(repo-relative path, qualified function name)``."""
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if fn.startswith(_PKG_DIR) and not fn.startswith(_ANALYSIS_DIR):
+            return (os.path.relpath(fn, _REPO_DIR),
+                    getattr(f.f_code, "co_qualname", f.f_code.co_name))
+        f = f.f_back
+    return None
+
+
+class _Recorder:
+    """Builds a :class:`TickGraph` from the operators a dispatch mode
+    sees. Every tensor it meets is kept alive, so an ``id`` is never
+    reused during the trace."""
+
+    def __init__(self, graph: TickGraph):
+        self.g = graph
+        self.vid_of: Dict[int, int] = {}
+        self.keep: List[torch.Tensor] = []
+
+    def value(self, x: torch.Tensor, kind: str,
+              producer: Optional[int] = None) -> int:
+        vid = len(self.g.values)
+        val = None
+        if kind == "const" and x.device.type == "cpu" \
+                and x.numel() <= CONST_VALUE_MAX_ELEMS:
+            try:
+                val = x.detach().numpy().copy()
+            except (RuntimeError, TypeError):
+                val = None
+        self.g.values.append(TValue(vid, tuple(x.shape), x.dtype, kind,
+                                    producer, val))
+        self.vid_of[id(x)] = vid
+        self.keep.append(x)
+        return vid
+
+    def ref(self, x: torch.Tensor) -> int:
+        vid = self.vid_of.get(id(x))
+        if vid is None:
+            vid = self.value(x, "const")
+        return vid
+
+    def add(self, func, args, kwargs, out) -> None:
+        ins: List[int] = []
+
+        def to_ref(x):
+            if isinstance(x, torch.Tensor):
+                vid = self.ref(x)
+                ins.append(vid)
+                return Ref(vid)
+            if isinstance(x, (list, tuple)):
+                return type(x)(to_ref(y) for y in x)
+            return x
+
+        rargs = tuple(to_ref(x) for x in args)
+        rkwargs = {k: to_ref(x) for k, x in kwargs.items()}
+        idx = len(self.g.nodes)
+        outs = []
+        for o in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(o, torch.Tensor):
+                vid = self.vid_of.get(id(o))
+                if vid is None or vid in ins:
+                    # a fresh output, or an operator that returns its
+                    # operand (a write back into a carry input): a new
+                    # version of it
+                    vid = self.value(o, "op", idx)
+                outs.append(vid)
+        name = func.overloadpacket.__name__
+        site = None
+        if any(_dtype_name(self.g.values[v].dtype) in X64_DTYPES
+               for v in outs):
+            site = _site()
+        from ..telemetry.profiler import _CURRENT
+        self.g.nodes.append(TNode(idx, func, name, rargs, rkwargs, ins,
+                                  outs, _CURRENT[0], site))
+
+
+def record_tick(model, sim, t: int) -> TickGraph:
+    """Run one tick of ``model`` under ``sim`` at tick ``t`` on ``meta``
+    tensors, functionalized, and record its aten graph: the same
+    ``init_carry`` and ``make_tick_fn`` closure the executors run.
+    Raises what the tick raises (a host read raises on ``meta``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ..runtime import init_carry, make_tick_fn
+
+    g = TickGraph(t=int(t))
+    rec = _Recorder(g)
+
+    class _Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            # the phase ranges' own profiler ops launch nothing
+            if func.namespace != "profiler":
+                rec.add(func, args, kwargs, out)
+            return out
+
+    with torch.no_grad():
+        carry = init_carry(model, sim, 0, META)
+        tick = make_tick_fn(model, sim, None, META)
+        for p, x in flatten_paths(carry):
+            g.input_paths.append(p)
+            g.inputs.append(rec.value(x, "input"))
+        fn = torch.func.functionalize(lambda c: tick(c, int(t)),
+                                      remove="mutations")
+        with _Mode():
+            new_carry, ys = fn(carry)
+    outs = flatten_paths(new_carry)
+    g.n_carry_out = len(outs)
+    outs += flatten_paths(ys, ".ys")
+    for p, x in outs:
+        g.output_paths.append(p)
+        g.outputs.append(rec.ref(x))
+    return g
+
+
+# --- tick variants -----------------------------------------------------------
+
+
+def variant_tick(sim, t: int) -> str:
+    """The variant of tick ``t``: the outcome of the tick's host
+    branches on ``t``, as a name. ``heal`` when every branch takes its
+    default, else the non-default outcomes joined by ``+``:
+    ``partition`` (the nemesis draws a grudge), ``scripted-<i>`` /
+    ``scripted-healed`` (the phase of a scripted schedule), ``plan-<i>``
+    (a fault plan's phase row; ``plan-<P>`` is its healthy row),
+    ``final`` (clients draw final ops)."""
+    import bisect
+    nem, parts = sim.nemesis, []
+    if nem.enabled and t < nem.stop_tick:
+        if nem.kind == "scripted":
+            untils = [u for u, _ in nem.schedule]
+            i = bisect.bisect_right(untils, t)
+            parts.append(f"scripted-{i}" if i < len(untils)
+                         else "scripted-healed")
+        elif (t // nem.interval) % 2 == 1:
+            parts.append("partition")
+    fx = sim.faults
+    if fx.active and not fx.has_fuzz:
+        P = len(fx.untils)
+        i = P if t >= fx.stop_tick else min(
+            bisect.bisect_right(list(fx.untils), t), P)
+        parts.append(f"plan-{i}")
+    if t >= sim.client.final_start:
+        parts.append("final")
+    return "+".join(parts) or "heal"
+
+
+def tick_variants(sim) -> Dict[str, int]:
+    """One representative tick per outcome of the tick's host branches
+    on ``t`` (:func:`variant_tick`), in tick order: the first tick of
+    each outcome among tick 0, the nemesis phase boundaries, the
+    schedule's and the fault plan's phase starts, ``stop_tick`` and
+    ``final_start``."""
+    nem, fx = sim.nemesis, sim.faults
+    cands = {0, nem.stop_tick, sim.client.final_start}
+    if nem.enabled and nem.kind != "scripted":
+        cands.update(k * nem.interval for k in (1, 2))
+    cands.update(u for u, _ in nem.schedule)
+    if fx.active and not fx.has_fuzz:
+        cands.update(fx.untils)
+        cands.add(fx.stop_tick)
+    out: Dict[str, int] = {}
+    for t in sorted(c for c in cands if 0 <= c < sim.n_ticks):
+        out.setdefault(variant_tick(sim, t), int(t))
+    return out
+
+
+def trace_tick(model, sim, t: int = 0, cache=None,
+               variant: Optional[str] = None) -> TickGraph:
+    """The recorded tick at ``t`` (:func:`record_tick`). ``cache`` (a
+    mutable mapping) holds one graph per model and variant, keyed by
+    :func:`entry_key` and ``variant``, so that ``lint --ir --cost
+    --lanes`` traces each model once per variant. The key does not
+    capture the sim config: a cache holds one sim's graphs per model
+    (the lint passes' :func:`audit_sim` sims, or a caller's own)."""
+    key = None
+    if cache is not None:
+        key = (entry_key(_model_name(model), sim.net.n_nodes, "lead")
+               + f"::{variant or t}")
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+    g = record_tick(model, sim, t)
+    if key is not None:
+        cache[key] = g
+    return g
+
+
+def trace_variants(model, sim, cache=None) -> Dict[str, TickGraph]:
+    """One recorded tick per :func:`tick_variants` entry."""
+    return {name: trace_tick(model, sim, t, cache=cache, variant=name)
+            for name, t in tick_variants(sim).items()}
+
+
+def _model_name(model) -> str:
+    return getattr(model, "name", type(model).__name__)
+
+
+# --- the report --------------------------------------------------------------
+
+
+@dataclass
+class CostReport:
+    """Static cost of one tick (one model), the heaviest variant's."""
+    eqns: int                        # non-view operators per tick
+    hbm_bytes: int                   # their output bytes per tick
+    phases: Dict[str, int] = field(default_factory=dict)
+    ops: Dict[str, int] = field(default_factory=dict)
+    const_bytes: int = 0             # bytes of the tick's constants
+    max_const_bytes: int = 0         # the largest constant
+    carry_bytes: int = 0             # carry bytes (audit config)
+    max_broadcast_bytes: int = 0     # largest materialised broadcast
+    loops: int = 0                   # always 0: Python loops unroll
+    scopes: Dict[str, int] = field(default_factory=dict)
+                                     # operators per raw phase name
+                                     # (KNOWN_SCOPES members; those
+                                     # outside every phase under "")
+    unattributed_eqns: int = 0       # operators outside every
+                                     # KNOWN_SCOPES phase: COST505
+    unknown_scopes: Tuple[str, ...] = ()
+    variant: str = "heal"            # the variant the figures are of
+    variants: Dict[str, int] = field(default_factory=dict)
+                                     # eqns per tick variant
+    wide_sites: Dict[Tuple[str, str], int] = field(default_factory=dict)
+                                     # 64-bit outputs per issuing
+                                     # function: the census
+
+    def to_entry(self) -> Dict[str, Any]:
+        """The checked-in baseline representation (stable keys only).
+        ``fusion-breakers`` is 0 for every eager tick; ``variants`` is
+        the port's per-variant breakdown."""
+        return {"eqns": self.eqns,
+                "hbm-bytes-per-tick": self.hbm_bytes,
+                "fusion-breakers": self.loops,
+                "unattributed-eqns": self.unattributed_eqns,
+                "phases": {k: self.phases[k] for k in sorted(self.phases)},
+                "variants": dict(self.variants)}
+
+
+def cost_of_graph(g: TickGraph) -> CostReport:
+    """Walk one recorded tick into a :class:`CostReport`."""
+    phases: Dict[str, int] = {p: 0 for p in PHASES + (OTHER_PHASE,)}
+    ops: Dict[str, int] = {}
+    scopes: Dict[str, int] = {}
+    wide: Dict[Tuple[str, str], int] = {}
+    total = nbytes = max_bcast = 0
+    vals = g.values
+    for n in g.ops():
+        total += 1
+        ph = n.phase if n.phase in PHASES else OTHER_PHASE
+        phases[ph] += 1
+        raw = "" if n.phase == OTHER_PHASE else n.phase
+        scopes[raw] = scopes.get(raw, 0) + 1
+        ops[n.name] = ops.get(n.name, 0) + 1
+        out_b = [vals[v].nbytes for v in n.outs]
+        nbytes += sum(out_b)
+        in_max = max((g.base_bytes(v) for v in n.ins), default=0)
+        for b in out_b:
+            if b > in_max:
+                max_bcast = max(max_bcast, b)
+        if any(_dtype_name(vals[v].dtype) in X64_DTYPES for v in n.outs):
+            site = n.site or ("?", "?")
+            wide[site] = wide.get(site, 0) + 1
+    consts = [v.nbytes for v in vals if v.kind == "const"]
+    carry_bytes = sum(vals[v].nbytes for v in g.inputs)
+    unattributed = sum(c for r, c in scopes.items() if r not in KNOWN_SCOPES)
+    unknown = tuple(sorted(r for r in scopes
+                           if r and r not in KNOWN_SCOPES))
+    return CostReport(
+        eqns=total, hbm_bytes=nbytes,
+        phases={k: v for k, v in phases.items() if v}, ops=ops,
+        const_bytes=sum(consts), max_const_bytes=max(consts, default=0),
+        carry_bytes=carry_bytes, max_broadcast_bytes=max_bcast, loops=0,
+        scopes={k: scopes[k] for k in sorted(scopes)},
+        unattributed_eqns=unattributed, unknown_scopes=unknown,
+        wide_sites=wide)
+
+
+def cost_of_variants(graphs: Dict[str, TickGraph]) -> CostReport:
+    """The heaviest variant's :class:`CostReport` with every variant's
+    operator count in ``variants``. Constants and the 64-bit census
+    are the union over the variants (a site issues in some tick)."""
+    reports = {name: cost_of_graph(g) for name, g in graphs.items()}
+    name = max(reports, key=lambda k: (reports[k].eqns,
+                                       reports[k].hbm_bytes))
+    rep = reports[name]
+    rep.variant = name
+    rep.variants = {k: r.eqns for k, r in reports.items()}
+    wide: Dict[Tuple[str, str], int] = {}
+    for r in reports.values():
+        for site, c in r.wide_sites.items():
+            wide[site] = max(wide.get(site, 0), c)
+        rep.max_const_bytes = max(rep.max_const_bytes, r.max_const_bytes)
+        rep.max_broadcast_bytes = max(rep.max_broadcast_bytes,
+                                      r.max_broadcast_bytes)
+    rep.wide_sites = wide
+    return rep
+
+
+# --- the audited configuration -------------------------------------------
+
+
+def audit_sim(model, node_count: int, layout: str = "lead"):
+    """The small fixed audit config every static analysis shares (the
+    contract audit's opts): cost numbers are comparable only under one
+    config."""
+    from ..harness import make_sim_config
+    from .contract_audit import _audit_opts
+    return make_sim_config(model, {**_audit_opts(node_count),
+                                   "layout": layout})
+
+
+def tick_cost(model, sim, cache=None) -> CostReport:
+    """One-call static cost of ``model``'s tick under ``sim``, over
+    every tick variant: the bench and campaign-report entry point."""
+    return cost_of_variants(trace_variants(model, sim, cache=cache))
+
+
+def tick_lane_stats(model, sim, cost: Optional[CostReport] = None,
+                    cache=None) -> Dict[str, int]:
+    """Lane-liveness stats of ``model``'s tick under ``sim``:
+    ``lanes_live`` / ``lanes_dead`` / ``lanes_dead_bytes``, the figures
+    the bench line and ``profile_tick.py`` print next to
+    ``ir_bytes_est``. ``cost`` and ``cache`` (the :func:`tick_cost` of
+    the same sim and the cache it traced into) skip the duplicate
+    traces. Thin delegation; the analysis lives in
+    :mod:`.lane_liveness`."""
+    from .lane_liveness import lane_stats
+    return lane_stats(model, sim, cost=cost, cache=cache)
+
+
+def cost_specs() -> List[Tuple[str, int]]:
+    """Every registered model: the contract audit's workload table plus
+    the registered mutants (the universe CON2xx audits), in the lead
+    layout (the port has no batch-minor layout)."""
+    from .contract_audit import AUDIT_WORKLOADS, _buggy_workloads
+    return list(AUDIT_WORKLOADS) + _buggy_workloads()
+
+
+def entry_key(workload: str, node_count: int, layout: str) -> str:
+    return f"{workload}/n={node_count}/{layout}"
+
+
+# --- baseline io -------------------------------------------------------------
+
+
+def toolchain() -> str:
+    """The tracing toolchain's version: torch's, without its build tag
+    (a CPU and a CUDA build of one release dispatch the same operators
+    on ``meta`` tensors)."""
+    return torch.__version__.split("+")[0]
+
+
+def toolchain_note(recorded: Optional[str], what: str,
+                   re_record_flag: str = "--update-baseline",
+                   ) -> Optional[str]:
+    """The staleness downgrade: recorded baselines and manifests depend
+    on the torch version (its decompositions pick the operators), so
+    when the recording version differs from the running one, drift
+    downgrades to a warning that says how to re-record. ``None`` when
+    the versions match (or nothing was recorded)."""
+    if recorded is None or recorded == toolchain():
+        return None
+    return (f"recorded under torch {recorded}, this run is torch "
+            f"{toolchain()} — toolchain drift, not necessarily a code "
+            f"regression; re-record {what} with {re_record_flag} and "
+            f"commit the result")
+
+
+def load_cost_baseline(path: Optional[str] = None) -> Dict[str, Any]:
+    path = path or DEFAULT_COST_BASELINE
+    if not os.path.exists(path):
+        return {"version": 1, "tolerance": DEFAULT_TOLERANCE,
+                "entries": {}}
+    with open(path) as f:
+        data = json.load(f)
+    data.setdefault("tolerance", DEFAULT_TOLERANCE)
+    data.setdefault("entries", {})
+    return data
+
+
+def save_cost_baseline(entries: Dict[str, Dict[str, Any]],
+                       path: Optional[str] = None,
+                       tolerance: float = DEFAULT_TOLERANCE) -> str:
+    path = path or DEFAULT_COST_BASELINE
+    payload = {
+        "version": 1,
+        "_comment": (
+            "Per-model static tick-cost baseline for `python -m "
+            "maelstrom_tpu_torch lint --cost`. Keys: <workload>/n=<nodes>"
+            "/<layout>; eqns = non-view aten operators of one tick of "
+            "the heaviest tick variant (variants = the count per "
+            "variant), hbm-bytes-per-tick = their summed output bytes, "
+            "phases = operators per runtime phase, unattributed-eqns = "
+            "operators outside every known phase (the COST505 budget). "
+            "Regenerate after an INTENTIONAL cost change with `lint "
+            "--cost --update-baseline`; a change that regresses any "
+            "entry by more than `tolerance` fails the gate (COST501/"
+            "COST505). torch-version records the tracing toolchain: "
+            "under another torch the gate downgrades drift to a "
+            "re-record warning."),
+        "torch-version": toolchain(),
+        "tolerance": tolerance,
+        "entries": {k: entries[k] for k in sorted(entries)},
+    }
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
+        f.write("\n")
+    return path

@@ -19,7 +19,8 @@ the baseline. Two entry statuses exist:
 - ``accepted`` — justified debt (e.g. a host sync in the eager tick
   that a CUDA graph of the tick would have to remove);
 - ``expected`` — the finding is the *point* (the intentional-bug lint
-  fixture in ``models/raft_buggy.py``); tests assert these fire.
+  fixtures in ``models/raft_buggy.py`` and ``models/ir_hazards.py``);
+  tests assert these fire.
 
 Baseline entries that match nothing are reported as *stale* so the file
 cannot silently rot.
@@ -85,9 +86,10 @@ class BaselineEntry:
 # rule-id prefix -> owning pass; staleness checks are scoped to the
 # passes that actually RAN (a --pass trace run must not call the
 # contract or schema entries stale just because it skipped those
-# passes). The JAX package's jaxpr passes have no counterpart here.
+# passes).
 _RULE_PASS_PREFIXES = (("TRC", "trace"), ("CON", "contract"),
-                       ("SCH", "schema"))
+                       ("SCH", "schema"), ("JXP", "ir"),
+                       ("COST", "cost"), ("LNE", "lanes"))
 
 
 def fingerprint_pass(fingerprint: str) -> Optional[str]:

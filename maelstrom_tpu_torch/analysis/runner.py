@@ -5,9 +5,10 @@ programmatic face of the CLI subcommand: pick passes, collect findings,
 split them into live / baselined / stale, and hand back a
 :class:`~.findings.LintReport`. Exit-code policy lives in
 ``__main__.cmd_lint``: ``--strict`` fails on any unsuppressed
-error-severity finding. The JAX package's opt-in jaxpr passes (``ir``,
-``cost``, ``lanes``, ``ranges``, ``shard``, ``aot``) lower JAX IR, which
-the eager port does not have; the CLI refuses them by name.
+error-severity finding. The opt-in passes over the aten graph of the
+tick (``ir``, ``cost``, ``lanes``) run only when named; the JAX
+package's ``ranges``, ``shard`` and ``aot`` passes are not ported yet,
+and the CLI refuses them by name.
 """
 
 from __future__ import annotations
@@ -20,20 +21,34 @@ from .findings import (Baseline, DEFAULT_BASELINE, Finding, LintReport,
 
 ALL_PASSES = ("trace", "contract", "schema")
 
+# opt-in passes: the IR hazard audit, the cost gate and the lane-liveness
+# slice trace every registered model (tens of seconds to minutes), so
+# they run only when named (`--ir` / `--cost` / `--lanes` / `--pass ir`),
+# never as part of the default sweep
+EXTRA_PASSES = ("ir", "cost", "lanes")
+
 
 def run_lint(repo_root: str = ".",
              passes: Optional[Sequence[str]] = None,
              paths: Optional[List[str]] = None,
              baseline_path: Optional[str] = DEFAULT_BASELINE,
+             cost_baseline_path: Optional[str] = None,
+             update_cost_baseline: bool = False,
+             lane_manifest_path: Optional[str] = None,
+             update_lane_manifest: bool = False,
              ) -> LintReport:
     """Run the requested passes and fold in the baseline.
 
-    ``passes=None`` means every pass (trace/contract/schema) — unless
-    ``paths`` restricts the run to explicit files, in which case only
-    the trace pass runs by default (pointing the linter at a file means
-    "lint this file", not "re-audit the world"). Passes named explicitly
-    always run. ``baseline_path=None`` disables baseline suppression
-    entirely.
+    ``passes=None`` means every default pass (trace/contract/schema;
+    the ir, cost and lanes passes are opt-in) — unless ``paths``
+    restricts the run to explicit files, in which case only the trace
+    pass runs by default (pointing the linter at a file means "lint this
+    file", not "re-audit the world"). Passes named explicitly always
+    run. ``baseline_path=None`` disables baseline suppression entirely.
+    ``cost_baseline_path`` / ``update_cost_baseline`` parameterize the
+    cost pass (``analysis/cost_baseline.json`` by default);
+    ``lane_manifest_path`` / ``update_lane_manifest`` the lanes pass
+    (``analysis/lane_manifest.json``).
     """
     repo_root = os.path.abspath(repo_root)
     findings: List[Finding] = []
@@ -43,10 +58,11 @@ def run_lint(repo_root: str = ".",
         effective = ("trace",)
     else:
         effective = ALL_PASSES
-    unknown = [p for p in effective if p not in ALL_PASSES]
+    unknown = [p for p in effective
+               if p not in ALL_PASSES + EXTRA_PASSES]
     if unknown:
         raise ValueError(f"unknown lint pass(es) {unknown}; the port has "
-                         f"{list(ALL_PASSES)}")
+                         f"{list(ALL_PASSES + EXTRA_PASSES)}")
 
     files_scanned = 0
     if "trace" in effective:
@@ -60,6 +76,25 @@ def run_lint(repo_root: str = ".",
     if "schema" in effective:
         from .schema_lint import run_schema_lint
         findings.extend(run_schema_lint(repo_root))
+    # the ir/cost and lanes passes each trace every registered model; a
+    # shared cache makes the combined gate pay that sweep once
+    trace_cache: dict = {}
+    if "ir" in effective or "cost" in effective:
+        from .ir_lint import run_ir_lint
+        findings.extend(run_ir_lint(
+            repo_root,
+            hazards="ir" in effective,
+            cost="cost" in effective,
+            cost_baseline_path=cost_baseline_path,
+            update_baseline=update_cost_baseline,
+            trace_cache=trace_cache))
+    if "lanes" in effective:
+        from .lane_liveness import run_lane_lint
+        findings.extend(run_lane_lint(
+            repo_root,
+            manifest_path=lane_manifest_path,
+            update_manifest=update_lane_manifest,
+            trace_cache=trace_cache))
 
     baseline = (Baseline.load(baseline_path) if baseline_path
                 else Baseline())
@@ -73,7 +108,10 @@ def run_lint(repo_root: str = ".",
     # staleness is only meaningful for a full-scope run: a partial
     # invocation (--pass / explicit paths) never sees the findings that
     # out-of-scope baseline entries suppress, and reporting those as
-    # stale would tell the user to delete live entries
+    # stale would tell the user to delete live entries. Staleness is
+    # also pass-scoped (findings.fingerprint_pass): a default run must
+    # not report the ir/cost/lanes entries as stale just because those
+    # opt-in passes did not run.
     full_scope = set(ALL_PASSES) <= set(effective) and paths is None
     return LintReport(findings=live, suppressed=suppressed,
                       stale=baseline.stale_entries(set(effective))

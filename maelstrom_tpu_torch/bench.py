@@ -17,14 +17,21 @@ metric line as the last line: ``value`` is the messages delivered in
 the timed window over its wall time, against the reference's 60,000
 msgs/s. With the device profiler on (``auto``, as the harness runs it)
 the line adds ``device_ms_per_tick`` and the per-phase split of the
-captured chunks (``telemetry/profiler.py``).
+captured chunks (``telemetry/profiler.py``). After the timed window it
+adds the static fields of ``bench.py``'s line, from a trace of the same
+sim's tick on ``meta`` tensors (``analysis/cost_model.py``): ``ir_eqns``
+(operators per tick of the heaviest tick variant), ``ir_bytes_est``
+(their output bytes), and ``lanes_live``, ``lanes_dead`` and
+``lanes_dead_bytes`` (``analysis/lane_liveness.py``); a failure to
+trace logs and leaves them ``null``.
 
 Environment knobs, those of ``bench.py`` that mean something here:
 ``BENCH_INSTANCES`` (4096), ``BENCH_SIM_SECONDS`` (4.0),
 ``BENCH_TELEMETRY=0`` (no flight recorder), ``BENCH_FUZZ=0`` (no fault
 distribution), ``BENCH_RECORD_INSTANCES`` (1), ``BENCH_CHECK_MODE``
 (``farm``; ``device`` or ``both`` add the device verdict lanes to the
-tick) and ``BENCH_DEVICE_PROFILE=0`` (no profiler). Needs a CUDA card.
+tick), ``BENCH_DEVICE_PROFILE=0`` (no profiler) and ``BENCH_LANES=0``
+(no lane fields). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +52,38 @@ DISPATCH_BUDGET_S = 8.0
 
 def log(msg: str) -> None:
     print(f"[bench] {msg}", file=sys.stderr, flush=True)
+
+
+def static_fields(model, sim) -> dict:
+    """The bench line's static fields, from a trace of ``sim``'s tick on
+    ``meta`` tensors: the cost model's (``ir_eqns``, ``ir_bytes_est``)
+    and, unless ``BENCH_LANES=0``, the lane pass's (``lanes_live``,
+    ``lanes_dead``, ``lanes_dead_bytes``). A failure logs and leaves its
+    fields ``None``: it never stops the bench."""
+    out = dict(ir_eqns=None, ir_bytes_est=None, lanes_live=None,
+               lanes_dead=None, lanes_dead_bytes=None)
+    from .analysis import cost_model
+    cache: dict = {}
+    cost = None
+    t0 = time.monotonic()
+    try:
+        cost = cost_model.tick_cost(model, sim, cache=cache)
+        out.update(ir_eqns=cost.eqns, ir_bytes_est=cost.hbm_bytes)
+        log(f"static tick: {cost.eqns} operators ({cost.variant} tick; "
+            f"{cost.variants}), ~{cost.hbm_bytes / 1e6:.1f} MB of outputs "
+            f"per tick, traced in {time.monotonic() - t0:.1f} s")
+    except Exception as e:
+        log(f"tick_cost unavailable: {e!r}")
+    if os.environ.get("BENCH_LANES") != "0":
+        try:
+            out.update(cost_model.tick_lane_stats(model, sim, cost=cost,
+                                                  cache=cache))
+            log(f"lane liveness: {out['lanes_live']} live / "
+                f"{out['lanes_dead']} dead lanes, "
+                f"~{out['lanes_dead_bytes'] / 1e3:.0f} kB/tick dead")
+        except Exception as e:
+            log(f"tick_lane_stats unavailable: {e!r}")
+    return out
 
 
 def main() -> int:
@@ -151,6 +190,7 @@ def main() -> int:
 
     delivered_timed = delivered - delivered0
     value = delivered_timed / wall if wall > 0 else 0.0
+    static = static_fields(model, sim)
     rec = {
         "metric": "simulated_msgs_per_sec",
         "value": round(value, 1),
@@ -177,6 +217,7 @@ def main() -> int:
         "check_mode": check_mode,
         "telemetry": bench_telemetry,
         "device_profile": bench_profile,
+        **static,
     }
     if sim.check_summary:
         from .checkers import device_summary

@@ -3,9 +3,9 @@
 Counterpart of ``maelstrom_tpu/campaign/report.py``, with the same
 tables and ``summary.json``, the device-time columns included (each
 item's ``perf.phases.device`` roll-up and its heartbeat's ``device-ms``
-lane, ``telemetry/profiler.py``). One column rests on JAX tooling the
-port lacks: ``ir-bytes-est`` (the static cost of each model config, an
-abstract JAX trace) is written ``null``.
+lane, ``telemetry/profiler.py``) and ``ir-bytes-est``: the static cost
+of each item's model config (``analysis/cost_model.py``, one trace of
+its tick on ``meta`` tensors per distinct config).
 
 ``campaign status`` merges every item's streaming heartbeat into one
 live table — which items are queued/running/done, each running item's
@@ -147,6 +147,32 @@ def render_status(status: Dict[str, Any]) -> str:
     return "\n".join(lines)
 
 
+def _static_cost(workload: str, opts: Dict[str, Any],
+                 cache: Dict[str, Optional[int]]) -> Optional[int]:
+    """``ir_bytes_est`` of one item's model config
+    (``analysis/cost_model.py``): one trace of its tick per distinct
+    config, cached; never allowed to kill the report."""
+    key = json.dumps([workload,
+                      {k: opts.get(k) for k in
+                       ("node_count", "topology", "key_count", "layout",
+                        "n_instances", "concurrency")}],
+                     sort_keys=True, default=repr)
+    if key in cache:
+        return cache[key]
+    est: Optional[int] = None
+    try:
+        from ..analysis.cost_model import tick_cost
+        from ..harness import make_sim_config
+        from .runner import _run_opts, build_model
+        model = build_model(workload, opts)
+        sim = make_sim_config(model, _run_opts(opts))
+        est = int(tick_cost(model, sim).hbm_bytes)
+    except Exception:
+        pass
+    cache[key] = est
+    return est
+
+
 def _device_phases(run_dir: Optional[str]) -> Optional[Dict[str, Any]]:
     """A completed item's device-time roll-up from its results.json
     (``perf.phases.device``); None when the run was not profiled or
@@ -166,9 +192,10 @@ def campaign_report(cdir: str, static_cost: bool = True,
                     write: bool = True) -> Dict[str, Any]:
     """Aggregate completed items into the trend summary (and write it
     to ``<campaign>/summary.json``). ``static_cost`` adds the
-    ``ir-bytes-est`` column, ``null`` in the port (no JAX cost model)."""
+    ``ir-bytes-est`` column."""
     meta = q.load_campaign(cdir)
     items = q.list_items(cdir)
+    cost_cache: Dict[str, Optional[int]] = {}
     rows: List[Dict[str, Any]] = []
     for item in items:
         opts = item.get("opts") or {}
@@ -189,7 +216,8 @@ def campaign_report(cdir: str, static_cost: bool = True,
         if item.get("status") == q.FAILED:
             row["error"] = item.get("error")
         if static_cost and item.get("workload"):
-            row["ir-bytes-est"] = None
+            row["ir-bytes-est"] = _static_cost(item["workload"], opts,
+                                               cost_cache)
         dev = _device_phases(item.get("run-dir"))
         if dev:
             row["device-ms-per-tick"] = dev.get("ms-per-tick")
@@ -203,7 +231,9 @@ def campaign_report(cdir: str, static_cost: bool = True,
         t = trends.setdefault(wl, {
             "runs": 0, "done": 0, "failed": 0, "valid": 0, "invalid": 0,
             "violating-instances": 0, "msgs-per-sec": [],
-            "_dev_mpt": [], "_dev_phases": []})
+            "_ir_bytes": [], "_dev_mpt": [], "_dev_phases": []})
+        if row.get("ir-bytes-est") is not None:
+            t["_ir_bytes"].append(row["ir-bytes-est"])
         if row.get("device-ms-per-tick") is not None:
             t["_dev_mpt"].append(row["device-ms-per-tick"])
         if row.get("device-phases"):
@@ -226,8 +256,13 @@ def campaign_report(cdir: str, static_cost: bool = True,
         t["msgs-per-sec-mean"] = (round(sum(rates) / len(rates), 1)
                                   if rates else None)
         t["msgs-per-sec-max"] = max(rates) if rates else None
-        # no static cost model in the port
-        t["ir-bytes-est"] = None
+        # a matrix can vary node_count within one workload: a single
+        # number would pass one config's cost off as the workload's, so
+        # mixed configs report their spread
+        ib = t.pop("_ir_bytes")
+        t["ir-bytes-est"] = (None if not ib else
+                             ib[0] if len(set(ib)) == 1 else
+                             f"{min(ib)}-{max(ib)}")
         # per-phase device-time trend rows: mean ms/tick over the
         # workload's profiled items
         mpt = t.pop("_dev_mpt")

@@ -1,0 +1,203 @@
+"""Deliberately hazardous models: the IR and lane lint fixtures.
+
+Counterpart of ``maelstrom_tpu/models/ir_hazards.py``'s IR and lane
+fixtures. ``models/raft_buggy.py`` holds the protocol bugs the checkers
+must catch and the Python-surface hazards the trace lint (TRC1xx) must
+catch. The models here have clean Python — they run, they hold the
+contract audit's shape contracts, the trace lint has nothing to say —
+but the aten graph of their tick carries exactly the hazard the IR pass
+(``analysis/ir_lint.py``, JXP4xx) or the lane pass
+(``analysis/lane_liveness.py``, LNE6xx) exists to flag:
+
+- :class:`IrFloatLeak` — a float32 leaf in the carry (JXP401);
+- :class:`IrHostCallback` — a Python table indexed by a device value:
+  the index is read on the host every tick, which the trace lint's
+  TRC104 does not see (JXP402);
+- :class:`IrFusionBreaker` — a broadcast materialised at many times the
+  carry (JXP404; the JAX fixture's while loop has no eager
+  counterpart: a Python loop unrolls);
+- :class:`IrBakedConst` — a large module-level tensor read by the tick
+  (JXP405);
+- :class:`IrDeadLane` — declared body lanes no path reads, and carry
+  leaves that feed nothing (LNE601, LNE602);
+- :class:`IrDeadStore` — a body lane written and never read (LNE603);
+- :class:`IrLaneOverread` — a read one lane past the row's end
+  (LNE604).
+
+Like ``RaftTracedHazards``, none is in any workload registry and none
+may be: ``tests/test_torch_ir.py`` and ``tests/test_torch_lanes.py``
+assert that each trips its rule, and ``analysis/baseline.json`` carries
+the findings as ``expected``. The range and shard fixtures wait for
+their passes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import wire
+from .echo import EchoModel
+
+_I32 = torch.int32
+
+
+class _FloatRow(NamedTuple):
+    seen: torch.Tensor    # int32: the honest part of the row
+    drift: torch.Tensor   # float32: the planted carry leak
+
+
+class IrFloatLeak(EchoModel):
+    """IR FIXTURE (do not register): a float32 leaf in the carry.
+
+    The carry is still a shape and dtype fixed point (float32 in,
+    float32 out), so the contract audit passes; only the IR pass sees
+    that the carry left the integer envelope."""
+    name = "echo-ir-float-leak"
+
+    def init_state(self, n_nodes, keys):
+        shape = keys.shape[:-1]
+        return _FloatRow(seen=torch.zeros(shape, dtype=_I32,
+                                          device=keys.device),
+                         drift=torch.zeros(shape, dtype=torch.float32,
+                                           device=keys.device))
+
+    def handle(self, row, node_idx, msg, t, keys, cfg, params):
+        _, out = super().handle(row.seen, node_idx, msg, t, keys, cfg,
+                                params)
+        # a float accumulator riding the carry: the silent widening the
+        # rule exists for
+        drift = row.drift * 0.999 + 1.0
+        return _FloatRow(seen=row.seen + 1, drift=drift), out
+
+
+# a host-side table the tick indexes with a device value
+_JITTER = (0, 0, 0, 0)
+
+
+class IrHostCallback(EchoModel):
+    """IR FIXTURE (do not register): a host read in the tick — a Python
+    table indexed by a device value makes the issuing thread wait for
+    the card on every tick, and no call the trace lint knows (``int()``,
+    ``.item()``, ...) appears in the source."""
+    name = "echo-ir-host-callback"
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        jitter = _JITTER[row.sum() % len(_JITTER)]
+        return row + jitter * 0, torch.zeros(
+            (node_idx.shape[0], self.tick_out, cfg.lanes), dtype=_I32,
+            device=node_idx.device)
+
+
+class IrFusionBreaker(EchoModel):
+    """IR FIXTURE (do not register): a broadcast materialised at 2 MiB,
+    many times the carry — written to device memory and read back
+    whole by its consumer every tick."""
+    name = "echo-ir-fusion-breaker"
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        big = torch.broadcast_to(row[:1] + t, (512, 1024)).contiguous()
+        row = row + big.sum(dtype=_I32) * 0
+        return row, torch.zeros(
+            (node_idx.shape[0], self.tick_out, cfg.lanes), dtype=_I32,
+            device=node_idx.device)
+
+
+# 128 KiB of int32 the tick reads as a constant, not from the carry
+_BAKED_TABLE = torch.arange(32768, dtype=_I32)
+
+
+class IrBakedConst(EchoModel):
+    """IR FIXTURE (do not register): a large module-level tensor read by
+    the tick — copied to the device on every run, invisible to the
+    carry and its checkpoints."""
+    name = "echo-ir-baked-const"
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        bias = _BAKED_TABLE.to(row.device).sum(dtype=_I32) * 0
+        return row + bias, torch.zeros(
+            (node_idx.shape[0], self.tick_out, cfg.lanes), dtype=_I32,
+            device=node_idx.device)
+
+
+# audited by analysis/ir_lint.py alongside the registered models;
+# intentionally NOT reachable from models.get_model
+IR_FIXTURE_MODELS = {
+    "float-leak": IrFloatLeak,
+    "host-callback": IrHostCallback,
+    "fusion-breaker": IrFusionBreaker,
+    "baked-const": IrBakedConst,
+}
+
+
+# --- lane-liveness fixtures (analysis/lane_liveness.py, LNE6xx) ------------
+
+
+class _DeadRow(NamedTuple):
+    seen: torch.Tensor     # int32: written every tick, observed never
+    ballast: torch.Tensor  # int32[4]: carried verbatim, read nowhere
+
+
+class IrDeadLane(EchoModel):
+    """LANE FIXTURE (do not register): declares ``body_lanes = 4`` but
+    the protocol only ever touches body lane 0 — lanes 1-3 are pure
+    device-memory headroom (LNE601), and the carry gains two leaves
+    that feed no observable output, not even through the carry fixed
+    point (LNE602). Narrowing ``body_lanes`` to the live set must leave
+    the trajectory bit-identical."""
+    name = "echo-ir-dead-lane"
+    body_lanes = 4
+
+    def init_state(self, n_nodes, keys):
+        shape = keys.shape[:-1]
+        return _DeadRow(seen=torch.zeros(shape, dtype=_I32,
+                                         device=keys.device),
+                        ballast=torch.zeros(shape + (4,), dtype=_I32,
+                                            device=keys.device))
+
+    def handle(self, row, node_idx, msg, t, keys, cfg, params):
+        _, out = super().handle(row.seen, node_idx, msg, t, keys, cfg,
+                                params)
+        return _DeadRow(seen=row.seen + 1, ballast=row.ballast), out
+
+
+class IrDeadStore(EchoModel):
+    """LANE FIXTURE (do not register): the echo reply also stamps the
+    request's msg_id into body lane 1 — but no reader (server or client
+    decode) ever looks at that lane, so every write is a dead store
+    (LNE603) and the lane itself is dead (LNE601)."""
+    name = "echo-ir-dead-store"
+
+    def handle(self, row, node_idx, msg, t, keys, cfg, params):
+        row, out = super().handle(row, node_idx, msg, t, keys, cfg,
+                                  params)
+        out[:, 0, wire.BODY + 1] = msg[:, wire.MSGID]
+        return row, out
+
+
+class IrLaneOverread(EchoModel):
+    """LANE FIXTURE (do not register): reads one lane past the end of
+    the message row through an index tensor — no bounds check runs when
+    the index is built, and on the card the gather reads out of bounds
+    (LNE604, error severity). The static slice folds the index constant
+    and flags the access."""
+    name = "echo-ir-lane-overread"
+
+    def handle(self, row, node_idx, msg, t, keys, cfg, params):
+        row, out = super().handle(row, node_idx, msg, t, keys, cfg,
+                                  params)
+        past = torch.full((msg.shape[0], 1), cfg.lanes, dtype=torch.long,
+                          device=msg.device)
+        ghost = msg.gather(1, past)[:, 0]
+        out[:, 0, wire.BODY] += ghost * 0
+        return row, out
+
+
+# audited by analysis/lane_liveness.py alongside the registered models;
+# intentionally NOT reachable from models.get_model
+LANE_FIXTURE_MODELS = {
+    "dead-lane": IrDeadLane,
+    "dead-store": IrDeadStore,
+    "lane-overread": IrLaneOverread,
+}

@@ -25,15 +25,21 @@ configuration profiles the same number of ticks. Per configuration and per tick 
 the device-busy time (sum of kernel durations) and so the idle share,
 the delivery kernel's device time, and per phase (the runtime's
 ``record_function`` ranges) the host time and the busy device time of
-its kernels. Prints one JSON object and writes it to ``--out``. Needs a
-CUDA card; refuses to run without one.
+its kernels, and beside them the static operators per tick of the same
+tick variant (``analysis/cost_model.py``, a trace on ``meta`` tensors:
+``static_ops_per_tick``, per phase and in all; the prediction of the
+kernels launched, as ``tools/tick_profile.py`` prints the JAX cost
+model's equations next to its measured phases). Prints one JSON object
+and writes it to ``--out``. Needs a CUDA card; refuses to run without
+one.
 
 ``--count-ops`` needs no card: it steps the same fleet at 8 instances
 on the CPU and prints the operators dispatched per tick, views left
 out — on the card nearly each is one kernel launch (4,136 for the
 flagship against the 4,134 kernels its card profile shows), so it
 predicts a tick's launches before a chip run; with ``--lanes`` also
-with the lanes on.
+with the lanes on. It prints the static count of the same tick beside
+them.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ class _Fleet:
     def __init__(self, model, opts, dev):
         from . import harness, runtime
         sim = harness.make_sim_config(model, opts)
+        self.model, self.sim = model, sim
         self.carry = runtime.init_carry(model, sim, opts["seed"], dev)
         self.tick = runtime.make_tick_fn(model, sim, device=dev)
         self.t = 0
@@ -128,6 +135,19 @@ def _breakdown(fleet: _Fleet, n: int, wall_ms: float, kernel_name: str):
                          "device_ms_per_tick": tot / 1e3 / n}
                         for name, (c, tot) in top],
     }
+
+
+def static_ops(model, sim, t: int) -> dict:
+    """The static operators per tick of ``sim``'s tick at the variant of
+    tick ``t`` (``analysis/cost_model.py``): ``{"variant", "ops_per_tick",
+    "phases": {phase: ops}}`` over :data:`PHASES` and ``other``."""
+    from .analysis import cost_model
+    rep = cost_model.cost_of_graph(cost_model.trace_tick(model, sim, t))
+    phases = {ph: 0 for ph in PHASES + ("other",)}
+    for raw, n in rep.scopes.items():
+        phases[raw if raw in phases else "other"] += n
+    return {"variant": cost_model.variant_tick(sim, t),
+            "ops_per_tick": rep.eqns, "phases": phases}
 
 
 # operators that only make views: they launch no kernel
@@ -213,10 +233,13 @@ def main(argv=None) -> int:
                           fleets.FLAGSHIP_MODEL_KW
                           if args.workload == "lin-kv" else None)
     if args.count_ops:
+        from . import harness
         rec = {"workload": args.workload,
                "dispatched_ops_per_tick": dispatched_ops_per_tick(
                    model, dict(opts, n_instances=8), args.warmup_to,
-                   args.ticks)}
+                   args.ticks),
+               "static": static_ops(model, harness.make_sim_config(
+                   model, opts), args.warmup_to)}
         if args.lanes:
             rec["dispatched_ops_per_tick_lanes"] = dispatched_ops_per_tick(
                 model, dict(opts, n_instances=8, check_mode="device"),
@@ -247,9 +270,13 @@ def main(argv=None) -> int:
                "wall_order": order, "configs": {}}
         for name, fleet in runs.items():
             wall = sum(walls[name]) / len(walls[name])
+            b = _breakdown(fleet, args.ticks, wall, delivery.KERNEL_NAME)
+            st = static_ops(fleet.model, fleet.sim, b["from_tick"])
+            for ph, d in b["phases"].items():
+                d["static_ops_per_tick"] = st["phases"][ph]
             rec["configs"][name] = dict(
-                _breakdown(fleet, args.ticks, wall, delivery.KERNEL_NAME),
-                wall_ms_runs=walls[name])
+                b, wall_ms_runs=walls[name], static_variant=st["variant"],
+                static_ops_per_tick=st["ops_per_tick"])
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=1)

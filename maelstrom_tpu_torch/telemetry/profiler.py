@@ -33,7 +33,7 @@ on a launch-bound tick the device wall is mostly the host's issue time
     clock on the CPU, where the ops run as they are issued) and split
     over the phases by fixed weights: the share of the non-view
     operators each phase dispatches in one tick of a two-instance copy
-    of the fleet on the CPU (:func:`phase_weights`, cached per
+    of the fleet on ``meta`` tensors (:func:`phase_weights`, cached per
     configuration). The per-phase sum equals the measured wall.
 
 Profiling only observes: the capture never touches the carry, and
@@ -181,9 +181,12 @@ def _weights_key(model, sim) -> Optional[Any]:
 
 def phase_op_counts(model, sim) -> Dict[str, int]:
     """Non-view operators each phase dispatches in one tick (tick 0) of
-    a copy of the fleet cut to two instances, on the CPU: a throwaway
-    carry and tick function of their own, so the run's carry and draws
-    are untouched. Operators outside every phase count as ``other``."""
+    a copy of the fleet cut to two instances, on ``meta`` tensors (no
+    values, no device): a throwaway carry and tick function of their
+    own, so the run's carry and draws are untouched. Operators outside
+    every phase count as ``other``. The static cost model
+    (``analysis/cost_model.py``) counts the same operators in its graph
+    of the tick."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from ..profile_tick import _VIEW_OPS
@@ -203,10 +206,10 @@ def phase_op_counts(model, sim) -> Dict[str, int]:
                 counts[_CURRENT[0]] = counts.get(_CURRENT[0], 0) + 1
             return func(*args, **(kwargs or {}))
 
-    cpu = torch.device("cpu")
+    meta = torch.device("meta")
     with torch.no_grad():
-        carry = init_carry(model, small, 0, cpu)
-        tick = make_tick_fn(model, small, device=cpu)
+        carry = init_carry(model, small, 0, meta)
+        tick = make_tick_fn(model, small, device=meta)
         with _Count():
             tick(carry, 0)
     return counts

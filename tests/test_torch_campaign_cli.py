@@ -138,9 +138,20 @@ def test_report_matches_jax(e2e):
     want = jreport(jdir, static_cost=False, write=False)
     assert _report_view(rep) == {**_report_view(want),
                                  "campaign": os.path.realpath(tdir)}
-    # the static-cost column is null in the port: no JAX cost model
+    # the static-cost column: each item's ir_bytes_est, the port's cost
+    # model over its own config (analysis/cost_model.py)
+    from maelstrom_tpu_torch.analysis.cost_model import tick_cost
+    from maelstrom_tpu_torch.campaign.runner import _run_opts, build_model
     with_cost = campaign_report(tdir, write=False)
-    assert [r["ir-bytes-est"] for r in with_cost["items"]] == [None, None]
+    want_est = []
+    for item in cqueue.list_items(tdir):
+        model = build_model(item["workload"], item["opts"])
+        sim = harness.make_sim_config(model, _run_opts(item["opts"]))
+        want_est.append(tick_cost(model, sim).hbm_bytes)
+    assert [r["ir-bytes-est"] for r in with_cost["items"]] == want_est
+    assert all(isinstance(e, int) and e > 0 for e in want_est)
+    assert [with_cost["trends"][wl]["ir-bytes-est"] for wl in
+            ("echo", "lin-kv-bug-double-vote")] == want_est
     # the JAX package reports the port's campaign dir as the port does
     assert _report_view(jreport(tdir, static_cost=False, write=False)) \
         == _report_view(rep)

@@ -170,10 +170,11 @@ Phases (any failure exits non-zero and prints no result line):
     ticks/s of off, auto and on, the per-phase ms/tick, each captured
     chunk's phase sum against its device wall and issue time, the
     ``profile`` table, the bench line and the launches. The bench line
-    also carries its five static fields (``ir_eqns``,
+    also carries its six static fields (``ir_eqns``,
     ``ir_bytes_est``, ``lanes_live``, ``lanes_dead``,
-    ``lanes_dead_bytes``), and the worker steps the same fleet to tick
-    480 and counts, with ``torch.profiler`` as ``profile_tick.py``
+    ``lanes_dead_bytes``, ``ovf_margin_bits``), and the worker steps the
+    same fleet to tick 480 and counts, with ``torch.profiler`` as
+    ``profile_tick.py``
     does, the kernels the card launches per tick by phase over ticks
     220-239 (a heal stretch) and 460-479 (inside the first partition
     phase), beside the static operator count of the same tick variant
@@ -181,7 +182,10 @@ Phases (any failure exits non-zero and prints no result line):
     phase with launches has static operators and the reverse, and the
     per-tick total outside ``deliver`` lies within 0.75-1.33x of the
     static count (``deliver`` is the plain version's operators on
-    ``meta`` against the one kernel launch, reported as a pair).
+    ``meta`` against the one kernel launch, reported as a pair). At
+    tick 480 every int32 leaf of the card's carry, its min and max over
+    the 4,096 instances, lies inside the ranges pass's proven interval
+    for the fleet's own sim at T = 480 (``analysis/absint.py``).
 
 15. runs over several processes (``parallel/multihost.py``), behind
     phase 14 in its card worker: two spawned processes (the ``spawn``
@@ -199,11 +203,12 @@ Phases (any failure exits non-zero and prints no result line):
     beside the card's name and power limit.
 
 16. the lint (``analysis/``) on the card's toolchain, in a reference
-    worker (no card visible to it): ``python -m maelstrom_tpu_torch lint
-    --strict --json --pass trace --pass contract --pass schema --ir
-    --cost --lanes`` as a child process must exit 0 with the trace,
-    contract and schema passes and the IR-hazard, cost and lane
-    passes over the aten graph of every model's tick run, no
+    worker of its own (no card visible to it), from phase 2 on:
+    ``python -m maelstrom_tpu_torch lint --strict --json --pass trace
+    --pass contract --pass schema --ir --cost --lanes --ranges`` as a
+    child process must exit 0 with the trace, contract and schema
+    passes and the IR-hazard, cost, lane and value-range passes over
+    the aten graph of every model's tick run, no
     error finding and no stale baseline entry, having loaded no kernel
     library and initialised no CUDA, and no module of the port may be
     the one that imports ``triton`` (torch's own compiler stack may).
@@ -373,8 +378,9 @@ PROCS_TIMEOUT_S = 600.0
 MESH_REF = "mesh-ref.pkl"
 MESH_CKPT = "mesh-checkpoint"
 # phase 16: `python -m maelstrom_tpu_torch lint --strict --json` with every
-# pass named (the default three and the ir, cost and lanes passes over the
-# aten graph of the tick), run through runpy so that the child can report,
+# pass named (the default three and the ir, cost, lanes and ranges passes
+# over the aten graph of the tick), run through runpy so that the child
+# can report,
 # after the lint, which file
 # imported triton first (torch's own compiler stack may; the port must
 # not), which kernel libraries it loaded and whether CUDA was initialised
@@ -394,7 +400,7 @@ class TritonImporter:
 sys.meta_path.insert(0, TritonImporter())
 sys.argv = ["maelstrom_tpu_torch", "lint", "--strict", "--json", "--pass",
             "trace", "--pass", "contract", "--pass", "schema", "--ir",
-            "--cost", "--lanes"]
+            "--cost", "--lanes", "--ranges"]
 try:
     runpy.run_module("maelstrom_tpu_torch", run_name="__main__",
                      alter_sys=True)
@@ -1740,9 +1746,10 @@ def profile_phase(dev_name, root, opts):
     return out
 
 
-# the bench line's static fields (analysis/cost_model.py, lane_liveness.py)
+# the bench line's static fields (analysis/cost_model.py, lane_liveness.py,
+# absint.py)
 STATIC_FIELDS = ("ir_eqns", "ir_bytes_est", "lanes_live", "lanes_dead",
-                 "lanes_dead_bytes")
+                 "lanes_dead_bytes", "ovf_margin_bits")
 
 
 def static_vs_launched(dev_name, opts):
@@ -1804,8 +1811,37 @@ def static_vs_launched(dev_name, opts):
                                          f"against {s_ex} static "
                                          f"operators ({l_ex / s_ex:.3f}x)")
             out[st["variant"]] = rec
+    out["ranges"] = carry_inside_ranges(model, fleet)
+    out["instances"] = fleet.sim.n_instances
     out["wall-s"] = time.monotonic() - t0
     return out
+
+
+def carry_inside_ranges(model, fleet):
+    """Phase 14's hold of the ranges pass against the card's state: at
+    ``fleet.t`` every int32 carry leaf's min and max over the instances
+    lies inside the leaf's proven interval for the fleet's own sim at
+    T = ``fleet.t`` (``absint.leaf_ranges``)."""
+    from maelstrom_tpu_torch.analysis import absint, cost_model
+    label = "phase 14 (ranges against the card)"
+    t0 = time.monotonic()
+    bounds = absint.leaf_ranges(model, fleet.sim, fleet.t)
+    seen, outside = {}, {}
+    for path, x in cost_model.flatten_paths(fleet.carry):
+        if x.dtype != torch.int32 or not x.numel():
+            continue
+        lo, hi = int(x.min()), int(x.max())
+        seen[path] = (lo, hi)
+        b = bounds.get(path)
+        if b is None or not b[0] <= lo <= hi <= b[1]:
+            outside[path] = ((lo, hi), b)
+    if outside:
+        raise AssertionError(f"{label}: at tick {fleet.t} the carry leaves "
+                             f"{json.dumps(outside)} leave their proven "
+                             f"intervals")
+    return {"tick": fleet.t, "leaves": len(seen), "seen": seen,
+            "bounds": {p: bounds[p] for p in seen},
+            "wall-s": time.monotonic() - t0}
 
 
 def log_profile_phase(dev, profile_ref):
@@ -1840,7 +1876,7 @@ def log_profile_phase(dev, profile_ref):
         f"{t['bytes']} B Chrome trace; the run took {t['wall-s']:.1f} s")
     st = m["static"]
     for variant, r in st.items():
-        if variant == "wall-s":
+        if variant in ("wall-s", "ranges", "instances"):
             continue
         span = f"ticks {r['from_tick']}-{r['from_tick'] + 19} ({variant})"
         if r["launched"] is None:
@@ -1861,9 +1897,22 @@ def log_profile_phase(dev, profile_ref):
             + f", other {other:.2f} / {r['static']['other']}")
     log(f"{label}: the fleet to tick 480 and its profiles took "
         f"{st['wall-s']:.1f} s in the worker")
+    rg = st["ranges"]
+    tight = sorted(rg["seen"], key=lambda p: rg["bounds"][p][1]
+                   - rg["seen"][p][1])[:4]
+    log(f"{label}: at tick {rg['tick']} all {rg['leaves']} int32 carry "
+        f"leaves of the fleet's {st['instances']} instances ({card}) lie "
+        f"inside the "
+        f"ranges pass's proven intervals at T = {rg['tick']} (analysis "
+        f"{rg['wall-s']:.1f} s on the worker's CPU); closest to a bound: "
+        + ", ".join(f"{p} {rg['seen'][p]} in {rg['bounds'][p]}"
+                    for p in tight))
     if m["bench"] is not None:
         line, t_b = m["bench"]
         log(f"{label}: bench module ({t_b:.1f} s): {json.dumps(line)}")
+        log(f"{label}: bench ovf_margin_bits {line['ovf_margin_bits']}: "
+            f"the flagship's least proven counter headroom at the "
+            f"production horizon or its proven one, if shorter")
     log(f"{label}: launches {json.dumps(m['launches'])}; the worker's "
         f"phase 14 took {t_prof:.1f} s")
     return m["launches"]
@@ -1992,6 +2041,8 @@ def main(argv) -> int:
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="bug-hunt-store-")
+    lint_pool = worker_pool(1, cuda=False)
+    lint_ref = submit(lint_pool, lint_phase)
     refs, side = worker_pool(2, cuda=False), worker_pool(1, cuda=True)
     # phase 13's card work: a card worker of its own, alongside the rest
     shards = worker_pool(1, cuda=True)
@@ -2005,17 +2056,19 @@ def main(argv) -> int:
         profile_ref = submit(shards, profile_phase, str(dev), root,
                              profile_opts)
         # phase 15: behind phase 14, in the same card worker; phase 16 in
-        # a reference worker
+        # a reference worker of its own, started first (the ranges pass
+        # keeps it busy for minutes: it must not hold up a reference
+        # half of another phase)
         late_refs = (submit(shards, multiproc_phase, str(dev), root,
                             mesh_opts),
-                     submit(refs, lint_phase))
+                     lint_ref)
         return drive_paths(dev, full, rehearse, record, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
                            lanes_opts, sweep_model, sweep_opts, campaign,
                            mesh_refs, profile_ref, late_refs)
     finally:
-        for pool in (shards, side, refs):
+        for pool in (shards, side, refs, lint_pool):
             pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2102,7 +2155,7 @@ def log_lint_phase(lint_ref):
     rep = json.loads(r["stdout"])
     loaded = r["loaded"]
     if rep["passes"] != ["trace", "contract", "schema", "ir", "cost",
-                         "lanes"] \
+                         "lanes", "ranges"] \
             or rep["summary"]["errors"] or rep["stale-baseline-entries"]:
         raise AssertionError(f"{label}: passes {rep['passes']}, summary "
                              f"{rep['summary']}")
@@ -2117,8 +2170,8 @@ def log_lint_phase(lint_ref):
     for w in warn:
         log(f"{label}: warning {w}")
     log(f"{label}: `python -m maelstrom_tpu_torch lint --strict --json "
-        f"--pass trace --pass contract --pass schema --ir --cost --lanes` "
-        f"exit 0 in {t_lint:.1f} s in a reference worker (no card "
+        f"--pass trace --pass contract --pass schema --ir --cost --lanes "
+        f"--ranges` exit 0 in {t_lint:.1f} s in a reference worker (no card "
         f"visible): passes {', '.join(rep['passes'])}; "
         f"{json.dumps(rep['summary'])} ({exp} expected-fixture); "
         f"{rep['files-scanned']} files; no kernel library, no CUDA "
@@ -2350,7 +2403,7 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     by_path.update(log_multiproc_phase(dev, late_refs[0], mesh_refs[0]))
     mark("phase 15 (two processes, behind phase 14 in its card worker)")
     log_lint_phase(late_refs[1])
-    mark("phase 16 (lint, in a reference worker)")
+    mark("phase 16 (lint, in a reference worker of its own)")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     record["launches_not_counted"] = {

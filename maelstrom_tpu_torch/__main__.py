@@ -68,10 +68,12 @@ flags: the trace-hygiene, contract and wire-schema passes by default,
 ``--strict`` exits 1 on an unsuppressed error finding, else 0. The
 opt-in passes over the aten graph of the tick run when named: ``--ir``
 (JXP4xx), ``--cost`` with ``--update-baseline`` / ``--cost-baseline``
-(COST5xx) and ``--lanes`` with ``--update-manifest`` /
-``--lane-manifest`` (LNE6xx), or ``--pass ir|cost|lanes``. The JAX
-CLI's ``--ranges``, ``--shard`` and ``--aot`` passes and their flags
-are not ported yet and exit 2. It touches no device.
+(COST5xx), ``--lanes`` with ``--update-manifest`` /
+``--lane-manifest`` (LNE6xx) and ``--ranges`` with ``--update-ranges``
+/ ``--range-manifest`` / ``--ranges-horizon-log2`` (ABS7xx), or
+``--pass ir|cost|lanes|ranges``. The JAX CLI's ``--shard`` and
+``--aot`` passes and their flags are not ported yet and exit 2. It
+touches no device.
 """
 
 from __future__ import annotations
@@ -92,13 +94,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the JAX CLI's passes the port has not ported yet, each with the
 # ROADMAP queue item it waits in, and their flags
-UNPORTED_PASSES = {"ranges": "A.11", "shard": "A.12", "aot": "A.12"}
-_UNPORTED_FLAGS = (("ranges", "--ranges", "ranges"),
-                   ("update_ranges", "--update-ranges", "ranges"),
-                   ("range_manifest", "--range-manifest", "ranges"),
-                   ("ranges_horizon_log2", "--ranges-horizon-log2",
-                    "ranges"),
-                   ("shard", "--shard", "shard"),
+UNPORTED_PASSES = {"shard": "A.12", "aot": "A.12"}
+_UNPORTED_FLAGS = (("shard", "--shard", "shard"),
                    ("update_shard_manifest", "--update-shard-manifest",
                     "shard"),
                    ("shard_manifest", "--shard-manifest", "shard"),
@@ -475,7 +472,7 @@ def _parser() -> argparse.ArgumentParser:
     p_lint = sub.add_parser(
         "lint", help="static analysis: the trace-hygiene, contract and "
                      "wire-schema passes, and the opt-in passes over the "
-                     "aten graph of the tick (ir, cost, lanes)")
+                     "aten graph of the tick (ir, cost, lanes, ranges)")
     p_lint.add_argument("paths", nargs="*",
                         help="restrict the trace-hygiene pass to these "
                              "files (other passes then run only when "
@@ -489,8 +486,9 @@ def _parser() -> argparse.ArgumentParser:
                         choices=(list(ALL_PASSES) + list(EXTRA_PASSES)
                                  + list(UNPORTED_PASSES)),
                         help="run only the named pass(es); default "
-                             "trace+contract+schema (ir/cost/lanes are "
-                             "opt-in: they trace every registered model)")
+                             "trace+contract+schema (ir/cost/lanes/ranges "
+                             "are opt-in: they trace every registered "
+                             "model)")
     p_lint.add_argument("--ir", action="store_true",
                         help="run the IR hazard pass (JXP4xx) over the "
                              "aten graph of every registered model's tick")
@@ -518,19 +516,30 @@ def _parser() -> argparse.ArgumentParser:
                         help="lane-manifest file (default "
                              "maelstrom_tpu_torch/analysis/"
                              "lane_manifest.json)")
-    for flag in ("--ranges", "--update-ranges", "--shard",
-                 "--update-shard-manifest", "--aot", "--update-aot"):
+    p_lint.add_argument("--ranges", action="store_true",
+                        help="run the value-range pass (ABS7xx): the "
+                             "interval abstract interpretation of every "
+                             "registered model's tick, gated against "
+                             "analysis/range_manifest.json")
+    p_lint.add_argument("--update-ranges", action="store_true",
+                        help="re-record analysis/range_manifest.json from "
+                             "the current tree (implies --ranges)")
+    p_lint.add_argument("--range-manifest", default=None,
+                        help="range-manifest file (default "
+                             "maelstrom_tpu_torch/analysis/"
+                             "range_manifest.json)")
+    p_lint.add_argument("--ranges-horizon-log2", type=int, default=None,
+                        help="probe this horizon (log2 ticks) instead of "
+                             "the default 2^24, and gate ABS701 on it")
+    for flag in ("--shard", "--update-shard-manifest", "--aot",
+                 "--update-aot"):
         p_lint.add_argument(flag, action="store_true",
                             help="a pass of the JAX CLI not ported yet: "
                                  "refused")
-    for flag in ("--range-manifest", "--shard-manifest", "--aot-manifest",
-                 "--aot-store"):
+    for flag in ("--shard-manifest", "--aot-manifest", "--aot-store"):
         p_lint.add_argument(flag, default=None,
                             help="a file of a pass not ported yet: "
                                  "refused")
-    p_lint.add_argument("--ranges-horizon-log2", type=int, default=None,
-                        help="an option of a pass not ported yet: "
-                             "refused")
     p_lint.add_argument("--baseline", default=None,
                         help="baseline file (default "
                              "maelstrom_tpu_torch/analysis/baseline.json)")
@@ -563,8 +572,9 @@ def cmd_lint(args) -> int:
               file=sys.stderr)
         return 2
     # None = runner default (the default passes; trace-only when paths
-    # restrict). --ir / --cost / --lanes name the opt-in passes
-    # (--update-baseline implies --cost, --update-manifest --lanes)
+    # restrict). --ir / --cost / --lanes / --ranges name the opt-in
+    # passes (--update-baseline implies --cost, --update-manifest
+    # --lanes, --update-ranges --ranges)
     passes = list(args.passes) if args.passes else []
     if args.ir:
         passes.append("ir")
@@ -572,6 +582,8 @@ def cmd_lint(args) -> int:
         passes.append("cost")
     if args.lanes or args.update_manifest:
         passes.append("lanes")
+    if args.ranges or args.update_ranges:
+        passes.append("ranges")
     baseline = None if args.no_baseline else (args.baseline
                                               or DEFAULT_BASELINE)
     report = run_lint(repo_root=args.root,
@@ -580,7 +592,10 @@ def cmd_lint(args) -> int:
                       cost_baseline_path=args.cost_baseline,
                       update_cost_baseline=args.update_baseline,
                       lane_manifest_path=args.lane_manifest,
-                      update_lane_manifest=args.update_manifest)
+                      update_lane_manifest=args.update_manifest,
+                      range_manifest_path=args.range_manifest,
+                      update_range_manifest=args.update_ranges,
+                      ranges_horizon_log2=args.ranges_horizon_log2)
     if args.json:
         print(json.dumps(report.to_json(), indent=2))
     else:

@@ -52,6 +52,15 @@ Where it differs from the JAX model, and why:
 - The 64-bit census (JAX's ``_dtype_census``) is kept per issuing
   function: the innermost frame of the port on the stack when the
   operator was dispatched (``wide_sites``).
+- **The tick number.** A jaxpr's ``t`` is a traced int32; the port's is
+  a host int, so ``t - heartbeat`` reaches the graph as a folded scalar.
+  The recorder passes the tick a :class:`TickInt` (an int that remembers
+  how it was computed from ``t``) and keeps, per operator, which scalar
+  arguments came from it (:attr:`TNode.sym`): the ranges pass reads
+  them as functions of ``t``. It also marks the operators issued inside
+  a call of the RNG (``rng.py``) and of ``xla_math.py`` with that call
+  (:attr:`TNode.region`, :class:`Region`), which the ranges pass prices
+  as one function. Neither changes the graph the other passes read.
 
 The numbers feed the same consumers as in JAX: ``lint --cost``
 (``analysis/ir_lint.py``, gated against ``analysis/cost_baseline.json``
@@ -63,6 +72,7 @@ predicts the kernels the card launches.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import sys
@@ -156,11 +166,33 @@ class TNode:
     outs: List[int]                   # tensor outputs
     phase: str
     site: Optional[Tuple[str, str]] = None   # (path, function) issuing it
+    sym: Optional[Dict[Any, Any]] = None     # arg index or kwarg name ->
+                                             # its TickInt expression
+    region: Optional[int] = None             # the Region issuing it
 
     @property
     def is_view(self) -> bool:
         from ..profile_tick import _VIEW_OPS
         return self.name in _VIEW_OPS
+
+    # an OpOverload does not pickle: a graph pickles with its name
+    def __getstate__(self):
+        return {**self.__dict__, "op": str(self.op)}
+
+    def __setstate__(self, state):
+        ns, packet, overload = state["op"].split(".")
+        state["op"] = getattr(getattr(getattr(torch.ops, ns), packet),
+                              overload)
+        self.__dict__.update(state)
+
+
+@dataclass
+class Region:
+    """One call of a function of ``rng.py`` or ``xla_math.py`` (the
+    outermost on the stack): its name and its scalar parameters (Python
+    numbers; a TickInt's expression), for the ranges pass."""
+    func: str                         # "rng.randint_from_bits", ...
+    params: Dict[str, Any]
 
 
 @dataclass
@@ -177,6 +209,11 @@ class TickGraph:
     output_paths: List[str] = field(default_factory=list)
     outputs: List[int] = field(default_factory=list)
     n_carry_out: int = 0
+    regions: List[Region] = field(default_factory=list)
+
+    def __getstate__(self):
+        # the lanes pass's cached tagger is rebuilt on demand
+        return {k: v for k, v in self.__dict__.items() if k != "_tagger"}
 
     def ops(self) -> List[TNode]:
         """The operators that launch: not views, and not the write-backs
@@ -226,15 +263,117 @@ def _site() -> Optional[Tuple[str, str]]:
     return None
 
 
+# --- the tick number as a function of t ------------------------------------
+
+
+def _tick_op(name, fn, reflected=False):
+    def op(self, other):
+        if isinstance(other, bool) or not isinstance(other, int):
+            return NotImplemented
+        o = other.expr if isinstance(other, TickInt) else int(other)
+        a, b = (o, self.expr) if reflected else (self.expr, o)
+        x, y = (int(other), int(self)) if reflected else (int(self),
+                                                            int(other))
+        return TickInt(fn(x, y), (name, a, b))
+    return op
+
+
+class TickInt(int):
+    """The tick number as the recorder hands it to the tick: an int
+    whose value the host branches on ``t`` read as usual, and which
+    carries ``expr``, how it was computed from ``t``: ``("t",)``, or
+    ``(op, a, b)`` with ``op`` one of ``+ - * // %`` and ``a``/``b`` an
+    expression or an int. Arithmetic with ints keeps it a TickInt; a
+    torch call that takes one as a scalar records the expression on the
+    operator (:attr:`TNode.sym`)."""
+
+    def __new__(cls, value: int, expr=("t",)):
+        obj = int.__new__(cls, value)
+        obj.expr = expr
+        return obj
+
+    __add__ = _tick_op("+", lambda a, b: a + b)
+    __radd__ = _tick_op("+", lambda a, b: a + b, reflected=True)
+    __sub__ = _tick_op("-", lambda a, b: a - b)
+    __rsub__ = _tick_op("-", lambda a, b: a - b, reflected=True)
+    __mul__ = _tick_op("*", lambda a, b: a * b)
+    __rmul__ = _tick_op("*", lambda a, b: a * b, reflected=True)
+    __floordiv__ = _tick_op("//", lambda a, b: a // b)
+    __mod__ = _tick_op("%", lambda a, b: a % b)
+
+    def __neg__(self):
+        return TickInt(-int(self), ("-", 0, self.expr))
+
+
+def _flat(args):
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            yield from _flat(a)
+        else:
+            yield a
+
+
+class _TickArgs:
+    """A torch function mode (built lazily: ``torch.overrides`` is heavy
+    to import) that, while a torch call with TickInt arguments runs,
+    holds their values -> expressions in ``live`` for the recorder."""
+
+    def __init__(self):
+        from torch.overrides import TorchFunctionMode
+
+        outer = self
+
+        class _Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                found = {int(a): a.expr for a in _flat(
+                    tuple(args) + tuple(kwargs.values()))
+                    if isinstance(a, TickInt)}
+                if not found:
+                    return func(*args, **kwargs)
+                prev = outer.live
+                outer.live = {**prev, **found}
+                try:
+                    return func(*args, **kwargs)
+                finally:
+                    outer.live = prev
+
+        self.live: Dict[int, Any] = {}
+        self.mode = _Mode()
+
+
+# the functions whose calls are one Region: every function of rng.py and
+# xla_math.py, by code object
+_REGION_CODES: Dict[Any, str] = {}
+
+
+def _region_codes() -> Dict[Any, str]:
+    if not _REGION_CODES:
+        from .. import rng, xla_math
+        for mod in (rng, xla_math):
+            short = mod.__name__.rsplit(".", 1)[-1]
+            for name, f in vars(mod).items():
+                if inspect.isfunction(f) and f.__module__ == mod.__name__:
+                    _REGION_CODES[f.__code__] = f"{short}.{name}"
+    return _REGION_CODES
+
+
 class _Recorder:
     """Builds a :class:`TickGraph` from the operators a dispatch mode
     sees. Every tensor it meets is kept alive, so an ``id`` is never
     reused during the trace."""
 
-    def __init__(self, graph: TickGraph):
+    def __init__(self, graph: TickGraph, ticks: Optional[_TickArgs] = None):
         self.g = graph
         self.vid_of: Dict[int, int] = {}
         self.keep: List[torch.Tensor] = []
+        self.ticks = ticks
+        self._codes = _region_codes()
+        self._frame = None            # the open region's frame (kept
+                                      # alive, so its id is not reused)
+        self._inner = None            # the last operator's innermost
+        self._inner_region = None     # frame of the port, its region
+        self.stop = None              # the code of the recorded call
 
     def value(self, x: torch.Tensor, kind: str,
               producer: Optional[int] = None) -> int:
@@ -257,6 +396,44 @@ class _Recorder:
         if vid is None:
             vid = self.value(x, "const")
         return vid
+
+    def _region(self) -> Optional[int]:
+        """The Region of the outermost rng / xla_math call on the stack,
+        opened at its first operator."""
+        # the innermost frame of the port: while it runs, the stack above
+        # it (and so the region) stays the same
+        f = sys._getframe(3)
+        while f is not None and (
+                not f.f_code.co_filename.startswith(_PKG_DIR)
+                or f.f_code.co_filename.startswith(_ANALYSIS_DIR)):
+            f = f.f_back
+        if f is self._inner:
+            return self._inner_region
+        self._inner, top = f, None
+        # up to the recorded call's own frame: the tick's frames only
+        while f is not None and f.f_code is not self.stop:
+            if f.f_code in self._codes:
+                top = f
+            f = f.f_back
+        self._inner_region = self._open(top)
+        return self._inner_region
+
+    def _open(self, top) -> Optional[int]:
+        if top is None:
+            self._frame = None
+            return None
+        if top is not self._frame:
+            self._frame = top
+            code = top.f_code
+            params = {}
+            for name in code.co_varnames[:code.co_argcount]:
+                v = top.f_locals.get(name)
+                if isinstance(v, TickInt):
+                    params[name] = v.expr
+                elif isinstance(v, (bool, int, float)):
+                    params[name] = v
+            self.g.regions.append(Region(self._codes[code], params))
+        return len(self.g.regions) - 1
 
     def add(self, func, args, kwargs, out) -> None:
         ins: List[int] = []
@@ -288,22 +465,21 @@ class _Recorder:
         if any(_dtype_name(self.g.values[v].dtype) in X64_DTYPES
                for v in outs):
             site = _site()
+        sym = None
+        live = self.ticks.live if self.ticks is not None else None
+        if live:
+            sym = {k: live[a] for k, a in list(enumerate(args))
+                   + list(kwargs.items())
+                   if type(a) is int and a in live} or None
         from ..telemetry.profiler import _CURRENT
         self.g.nodes.append(TNode(idx, func, name, rargs, rkwargs, ins,
-                                  outs, _CURRENT[0], site))
+                                  outs, _CURRENT[0], site, sym,
+                                  self._region()))
 
 
-def record_tick(model, sim, t: int) -> TickGraph:
-    """Run one tick of ``model`` under ``sim`` at tick ``t`` on ``meta``
-    tensors, functionalized, and record its aten graph: the same
-    ``init_carry`` and ``make_tick_fn`` closure the executors run.
-    Raises what the tick raises (a host read raises on ``meta``)."""
+def _recording(rec: _Recorder):
+    """The dispatch mode that feeds ``rec``."""
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from ..runtime import init_carry, make_tick_fn
-
-    g = TickGraph(t=int(t))
-    rec = _Recorder(g)
 
     class _Mode(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -314,15 +490,32 @@ def record_tick(model, sim, t: int) -> TickGraph:
                 rec.add(func, args, kwargs, out)
             return out
 
+    return _Mode()
+
+
+def record_tick(model, sim, t: int) -> TickGraph:
+    """Run one tick of ``model`` under ``sim`` at tick ``t`` on ``meta``
+    tensors, functionalized, and record its aten graph: the same
+    ``init_carry`` and ``make_tick_fn`` closure the executors run. The
+    tick gets ``t`` as a :class:`TickInt`. Raises what the tick raises
+    (a host read raises on ``meta``)."""
+    from ..runtime import init_carry, make_tick_fn
+
+    g = TickGraph(t=int(t))
+    ticks = _TickArgs()
+    rec = _Recorder(g, ticks)
+
     with torch.no_grad():
         carry = init_carry(model, sim, 0, META)
         tick = make_tick_fn(model, sim, None, META)
         for p, x in flatten_paths(carry):
             g.input_paths.append(p)
             g.inputs.append(rec.value(x, "input"))
-        fn = torch.func.functionalize(lambda c: tick(c, int(t)),
-                                      remove="mutations")
-        with _Mode():
+        def call(c):
+            return tick(c, TickInt(t))
+        rec.stop = call.__code__
+        fn = torch.func.functionalize(call, remove="mutations")
+        with _recording(rec), ticks.mode:
             new_carry, ys = fn(carry)
     outs = flatten_paths(new_carry)
     g.n_carry_out = len(outs)
@@ -330,6 +523,27 @@ def record_tick(model, sim, t: int) -> TickGraph:
     for p, x in outs:
         g.output_paths.append(p)
         g.outputs.append(rec.ref(x))
+    return g
+
+
+def record_init(model, sim) -> TickGraph:
+    """The aten graph of ``init_carry(model, sim, 0)`` on ``meta``
+    tensors: no inputs; its outputs are the carry's leaves (the ranges
+    pass seeds the carry from it)."""
+    from ..runtime import init_carry
+
+    g = TickGraph(t=0)
+    rec = _Recorder(g)
+
+    def call():
+        return init_carry(model, sim, 0, META)
+    rec.stop = call.__code__
+    with torch.no_grad(), _recording(rec):
+        carry = call()
+    for p, x in flatten_paths(carry):
+        g.output_paths.append(p)
+        g.outputs.append(rec.ref(x))
+    g.n_carry_out = len(g.outputs)
     return g
 
 
@@ -526,14 +740,25 @@ def audit_sim(model, node_count: int, layout: str = "lead"):
     config."""
     from ..harness import make_sim_config
     from .contract_audit import _audit_opts
+    # range_horizon_check=False: the audit config is what the ranges pass
+    # analyzes — a stale proven bound must not block its own re-proof
     return make_sim_config(model, {**_audit_opts(node_count),
-                                   "layout": layout})
+                                   "layout": layout,
+                                   "range_horizon_check": False})
 
 
 def tick_cost(model, sim, cache=None) -> CostReport:
     """One-call static cost of ``model``'s tick under ``sim``, over
     every tick variant: the bench and campaign-report entry point."""
     return cost_of_variants(trace_variants(model, sim, cache=cache))
+
+
+def tick_range_stats(model, sim, cache=None) -> Dict[str, int]:
+    """The bench line's ``ovf_margin_bits``: the minimum proven counter
+    headroom of ``sim``'s own tick (0 = unproven). Thin delegation; the
+    analysis lives in :mod:`.absint`."""
+    from .absint import tick_range_stats as stats
+    return stats(model, sim, cache=cache)
 
 
 def tick_lane_stats(model, sim, cost: Optional[CostReport] = None,

@@ -89,7 +89,8 @@ class BaselineEntry:
 # passes).
 _RULE_PASS_PREFIXES = (("TRC", "trace"), ("CON", "contract"),
                        ("SCH", "schema"), ("JXP", "ir"),
-                       ("COST", "cost"), ("LNE", "lanes"))
+                       ("COST", "cost"), ("LNE", "lanes"),
+                       ("ABS", "ranges"))
 
 
 def fingerprint_pass(fingerprint: str) -> Optional[str]:

@@ -841,8 +841,7 @@ def _field(path: str) -> str:
     return path.split(".")[1].split("[")[0] if "." in path else path
 
 
-def analyze_graph(g: TickGraph, n_lanes: int) -> _Analyzer:
-    """Run the three fixpoints over one functional tick graph."""
+def _new_tagger(g: TickGraph, n_lanes: int) -> _Analyzer:
     pool_i = g.input_paths.index(".pool")
     pool = g.inputs[pool_i]
     if g.values[pool].shape[-1] != n_lanes:
@@ -851,6 +850,24 @@ def analyze_graph(g: TickGraph, n_lanes: int) -> _Analyzer:
     ana = _Analyzer(g, n_lanes, {pool: len(g.values[pool].shape) - 1})
     ana.fold_consts()
     ana.infer_tags()
+    return ana
+
+
+def tagger_of(g: TickGraph, n_lanes: int) -> _Analyzer:
+    """The graph's folded constants and lane tags (the first two
+    fixpoints), computed once per graph: the ranges pass reads them
+    too."""
+    cached = getattr(g, "_tagger", None)
+    if cached is None or cached.L != n_lanes:
+        cached = _new_tagger(g, n_lanes)
+        g._tagger = cached
+    return cached
+
+
+def analyze_graph(g: TickGraph, n_lanes: int) -> _Analyzer:
+    """Run the three fixpoints over one functional tick graph (the first
+    two on a fresh tagger: the demand fixpoint writes to it)."""
+    ana = _new_tagger(g, n_lanes)
     n_carry = len(g.inputs)
     out_demands: List[Any] = [None] * len(g.outputs)
     for i, p in enumerate(g.output_paths):

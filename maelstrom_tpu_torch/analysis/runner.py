@@ -6,9 +6,9 @@ split them into live / baselined / stale, and hand back a
 :class:`~.findings.LintReport`. Exit-code policy lives in
 ``__main__.cmd_lint``: ``--strict`` fails on any unsuppressed
 error-severity finding. The opt-in passes over the aten graph of the
-tick (``ir``, ``cost``, ``lanes``) run only when named; the JAX
-package's ``ranges``, ``shard`` and ``aot`` passes are not ported yet,
-and the CLI refuses them by name.
+tick (``ir``, ``cost``, ``lanes``, ``ranges``) run only when named; the
+JAX package's ``shard`` and ``aot`` passes are not ported yet, and the
+CLI refuses them by name.
 """
 
 from __future__ import annotations
@@ -21,11 +21,12 @@ from .findings import (Baseline, DEFAULT_BASELINE, Finding, LintReport,
 
 ALL_PASSES = ("trace", "contract", "schema")
 
-# opt-in passes: the IR hazard audit, the cost gate and the lane-liveness
-# slice trace every registered model (tens of seconds to minutes), so
-# they run only when named (`--ir` / `--cost` / `--lanes` / `--pass ir`),
-# never as part of the default sweep
-EXTRA_PASSES = ("ir", "cost", "lanes")
+# opt-in passes: the IR hazard audit, the cost gate, the lane-liveness
+# slice and the value-range interpreter trace every registered model
+# (tens of seconds to minutes), so they run only when named (`--ir` /
+# `--cost` / `--lanes` / `--ranges` / `--pass ir`), never as part of the
+# default sweep
+EXTRA_PASSES = ("ir", "cost", "lanes", "ranges")
 
 
 def run_lint(repo_root: str = ".",
@@ -36,6 +37,9 @@ def run_lint(repo_root: str = ".",
              update_cost_baseline: bool = False,
              lane_manifest_path: Optional[str] = None,
              update_lane_manifest: bool = False,
+             range_manifest_path: Optional[str] = None,
+             update_range_manifest: bool = False,
+             ranges_horizon_log2: Optional[int] = None,
              ) -> LintReport:
     """Run the requested passes and fold in the baseline.
 
@@ -48,7 +52,10 @@ def run_lint(repo_root: str = ".",
     ``cost_baseline_path`` / ``update_cost_baseline`` parameterize the
     cost pass (``analysis/cost_baseline.json`` by default);
     ``lane_manifest_path`` / ``update_lane_manifest`` the lanes pass
-    (``analysis/lane_manifest.json``).
+    (``analysis/lane_manifest.json``); ``range_manifest_path`` /
+    ``update_range_manifest`` / ``ranges_horizon_log2`` the ranges pass
+    (``analysis/range_manifest.json``; the horizon override probes a
+    synthetic budget).
     """
     repo_root = os.path.abspath(repo_root)
     findings: List[Finding] = []
@@ -76,8 +83,8 @@ def run_lint(repo_root: str = ".",
     if "schema" in effective:
         from .schema_lint import run_schema_lint
         findings.extend(run_schema_lint(repo_root))
-    # the ir/cost and lanes passes each trace every registered model; a
-    # shared cache makes the combined gate pay that sweep once
+    # the ir/cost, lanes and ranges passes each trace every registered
+    # model; a shared cache makes the combined gate pay that sweep once
     trace_cache: dict = {}
     if "ir" in effective or "cost" in effective:
         from .ir_lint import run_ir_lint
@@ -88,6 +95,16 @@ def run_lint(repo_root: str = ".",
             cost_baseline_path=cost_baseline_path,
             update_baseline=update_cost_baseline,
             trace_cache=trace_cache))
+    # the ranges pass's workers analyze while the lanes pass runs here
+    finish_ranges = None
+    if "ranges" in effective:
+        from .absint import start_range_lint
+        finish_ranges = start_range_lint(
+            repo_root,
+            manifest_path=range_manifest_path,
+            update_manifest=update_range_manifest,
+            trace_cache=trace_cache,
+            probe_log2=ranges_horizon_log2)
     if "lanes" in effective:
         from .lane_liveness import run_lane_lint
         findings.extend(run_lane_lint(
@@ -95,6 +112,8 @@ def run_lint(repo_root: str = ".",
             manifest_path=lane_manifest_path,
             update_manifest=update_lane_manifest,
             trace_cache=trace_cache))
+    if finish_ranges is not None:
+        findings.extend(finish_ranges())
 
     baseline = (Baseline.load(baseline_path) if baseline_path
                 else Baseline())
@@ -110,8 +129,8 @@ def run_lint(repo_root: str = ".",
     # out-of-scope baseline entries suppress, and reporting those as
     # stale would tell the user to delete live entries. Staleness is
     # also pass-scoped (findings.fingerprint_pass): a default run must
-    # not report the ir/cost/lanes entries as stale just because those
-    # opt-in passes did not run.
+    # not report the ir/cost/lanes/ranges entries as stale just because
+    # those opt-in passes did not run.
     full_scope = set(ALL_PASSES) <= set(effective) and paths is None
     return LintReport(findings=live, suppressed=suppressed,
                       stale=baseline.stale_entries(set(effective))

@@ -21,17 +21,21 @@ captured chunks (``telemetry/profiler.py``). After the timed window it
 adds the static fields of ``bench.py``'s line, from a trace of the same
 sim's tick on ``meta`` tensors (``analysis/cost_model.py``): ``ir_eqns``
 (operators per tick of the heaviest tick variant), ``ir_bytes_est``
-(their output bytes), and ``lanes_live``, ``lanes_dead`` and
-``lanes_dead_bytes`` (``analysis/lane_liveness.py``); a failure to
-trace logs and leaves them ``null``.
+(their output bytes), ``lanes_live``, ``lanes_dead`` and
+``lanes_dead_bytes`` (``analysis/lane_liveness.py``), and
+``ovf_margin_bits`` (``analysis/absint.py``: the minimum proven counter
+headroom, in bits to int32 max, of this sim's tick at the production
+horizon or the proven one if shorter; 0 = unproven); a failure logs and
+leaves its fields ``null``.
 
 Environment knobs, those of ``bench.py`` that mean something here:
 ``BENCH_INSTANCES`` (4096), ``BENCH_SIM_SECONDS`` (4.0),
 ``BENCH_TELEMETRY=0`` (no flight recorder), ``BENCH_FUZZ=0`` (no fault
 distribution), ``BENCH_RECORD_INSTANCES`` (1), ``BENCH_CHECK_MODE``
 (``farm``; ``device`` or ``both`` add the device verdict lanes to the
-tick), ``BENCH_DEVICE_PROFILE=0`` (no profiler) and ``BENCH_LANES=0``
-(no lane fields). Needs a CUDA card.
+tick), ``BENCH_DEVICE_PROFILE=0`` (no profiler), ``BENCH_LANES=0`` (no
+lane fields) and ``BENCH_RANGES=0`` (no ``ovf_margin_bits``). Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -57,11 +61,13 @@ def log(msg: str) -> None:
 def static_fields(model, sim) -> dict:
     """The bench line's static fields, from a trace of ``sim``'s tick on
     ``meta`` tensors: the cost model's (``ir_eqns``, ``ir_bytes_est``)
-    and, unless ``BENCH_LANES=0``, the lane pass's (``lanes_live``,
-    ``lanes_dead``, ``lanes_dead_bytes``). A failure logs and leaves its
+    unless ``BENCH_LANES=0`` the lane pass's (``lanes_live``,
+    ``lanes_dead``, ``lanes_dead_bytes``), and unless ``BENCH_RANGES=0``
+    the ranges pass's ``ovf_margin_bits``. A failure logs and leaves its
     fields ``None``: it never stops the bench."""
     out = dict(ir_eqns=None, ir_bytes_est=None, lanes_live=None,
-               lanes_dead=None, lanes_dead_bytes=None)
+               lanes_dead=None, lanes_dead_bytes=None,
+               ovf_margin_bits=None)
     from .analysis import cost_model
     cache: dict = {}
     cost = None
@@ -83,6 +89,15 @@ def static_fields(model, sim) -> dict:
                 f"~{out['lanes_dead_bytes'] / 1e3:.0f} kB/tick dead")
         except Exception as e:
             log(f"tick_lane_stats unavailable: {e!r}")
+    if os.environ.get("BENCH_RANGES") != "0":
+        t0 = time.monotonic()
+        try:
+            out.update(cost_model.tick_range_stats(model, sim, cache=cache))
+            log(f"value ranges: {out['ovf_margin_bits']} bit(s) of proven "
+                f"counter headroom at the production horizon "
+                f"({time.monotonic() - t0:.1f} s)")
+        except Exception as e:
+            log(f"tick_range_stats unavailable: {e!r}")
     return out
 
 

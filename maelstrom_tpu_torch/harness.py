@@ -132,7 +132,7 @@ LIFECYCLE_OPTS = ("aot_store", "compile_cache")
 # harness holds the model to them) and the Elle checker's model names
 MODEL_OPTS = ("crash_clients", "txn_dirty_apply", "consistency_models")
 KNOWN_OPTS = (set(TORCH_DEFAULTS) | set(LIFECYCLE_OPTS) | set(MODEL_OPTS)
-              | {"store_root", "store_dir", "device"})
+              | {"store_root", "store_dir", "device", "range_horizon_check"})
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -168,6 +168,23 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
             f"time_limit {o['time_limit']}s at {mpt} ms/tick needs "
             f"{n_ticks} ticks, past the 2^20-tick delivery horizon; "
             f"raise ms_per_tick")
+    # the model's PROVEN overflow-free horizon from the range manifest
+    # (analysis/absint.py): a model whose counters provably overflow
+    # earlier is refused by name. An unproven or missing entry caps
+    # nothing; the static passes' own configs opt out
+    # (range_horizon_check=False): a stale bound must not block its
+    # re-proof
+    from .analysis.absint import proven_horizon_log2
+    cap_log2 = (proven_horizon_log2(getattr(model, "name", None))
+                if o.get("range_horizon_check", True) else None)
+    if cap_log2 is not None and n_ticks >= (1 << cap_log2):
+        raise ValueError(
+            f"time_limit {o['time_limit']}s at {mpt} ms/tick needs "
+            f"{n_ticks} ticks, past model {model.name!r}'s PROVEN "
+            f"overflow-free horizon 2^{cap_log2} "
+            f"(analysis/range_manifest.json); shorten the run, raise "
+            f"--ms-per-tick, or re-prove a wider bound with `python -m "
+            f"maelstrom_tpu_torch lint --ranges --update-ranges`")
     journal_instances = min(o["journal_instances"], o["n_instances"])
     # the NETID pairing lane rides only when the run journals (or the
     # caller forces the wide format); the journal decoder needs it

@@ -22,13 +22,19 @@ but the aten graph of their tick carries exactly the hazard the IR pass
   leaves that feed nothing (LNE601, LNE602);
 - :class:`IrDeadStore` — a body lane written and never read (LNE603);
 - :class:`IrLaneOverread` — a read one lane past the row's end
-  (LNE604).
+  (LNE604);
+- :class:`IrCounterOverflow` — a counter that provably crosses int32
+  max just past the production horizon (ABS701);
+- :class:`IrScatterRace` — an overwrite scatter whose constant index
+  rows alias (ABS702);
+- :class:`IrOobGather` — a clamped index whose range before the clamp
+  lies past the table (ABS703).
 
 Like ``RaftTracedHazards``, none is in any workload registry and none
-may be: ``tests/test_torch_ir.py`` and ``tests/test_torch_lanes.py``
-assert that each trips its rule, and ``analysis/baseline.json`` carries
-the findings as ``expected``. The range and shard fixtures wait for
-their passes.
+may be: ``tests/test_torch_ir.py``, ``tests/test_torch_lanes.py`` and
+``tests/test_torch_ranges.py`` assert that each trips its rule, and
+``analysis/baseline.json`` carries the findings as ``expected``. The
+shard fixtures wait for their pass.
 """
 
 from __future__ import annotations
@@ -200,4 +206,75 @@ LANE_FIXTURE_MODELS = {
     "dead-lane": IrDeadLane,
     "dead-store": IrDeadStore,
     "lane-overread": IrLaneOverread,
+}
+
+
+# --- value-range fixtures (analysis/absint.py, ABS7xx) ---------------------
+#
+# Clean by every TRC/CON/JXP/COST/LNE measure, hazardous in their VALUE
+# RANGES: exactly what the interval abstract interpreter proves.
+
+
+class IrCounterOverflow(EchoModel):
+    """RANGE FIXTURE (do not register): an unclamped per-tick counter
+    increment of 2048 — the leaf provably crosses int32 max at T = 2^31 /
+    2^11 = 2^20 ticks, just past the production horizon's last tick
+    (ABS701 names the leaf and the minimal overflowing T)."""
+    name = "echo-ir-counter-overflow"
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        # 2^11 per tick: reaches 2^31 on tick 2^20 exactly
+        return row + 2048, torch.zeros(
+            (node_idx.shape[0], self.tick_out, cfg.lanes), dtype=_I32,
+            device=node_idx.device)
+
+
+class IrScatterRace(EchoModel):
+    """RANGE FIXTURE (do not register): two of the three overwrite
+    scatter updates target the SAME slot — a write-write race within one
+    tick. On the card duplicate ``scatter`` writes land in an
+    unspecified order, so which payload wins depends on the schedule
+    (ABS702). The constant index rows make the aliasing provable."""
+    name = "echo-ir-scatter-race"
+
+    def init_state(self, n_nodes, keys):
+        return torch.zeros(keys.shape[:-1] + (4,), dtype=_I32,
+                           device=keys.device)
+
+    def handle(self, row, node_idx, msg, t, keys, cfg, params):
+        seen, out = super().handle(row[:, 0], node_idx, msg, t, keys, cfg,
+                                   params)
+        # rows 0 and 1 both write slot 1 with different payloads
+        vals = torch.stack([msg[:, wire.MSGID], msg[:, wire.MSGID] + 1,
+                            seen], dim=1)
+        slots = torch.tensor([1, 1, 2]).to(row.device)
+        row = row.scatter(1, slots.expand(row.shape[0], 3), vals)
+        row[:, 0] = seen
+        return row, out
+
+
+class IrOobGather(EchoModel):
+    """RANGE FIXTURE (do not register): a table read at ``8 + (t % 4)``
+    over an 8-entry table, through the ``.clamp`` the port uses where
+    XLA clamps a traced index — so nothing raises, and every tick reads
+    the last entry instead (ABS703: the index before the clamp is
+    ``[8, 11]``, never inside ``[0, 7]``)."""
+    name = "echo-ir-oob-gather"
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        table = torch.arange(8, dtype=_I32, device=row.device)
+        idx = torch.full((1,), 8 + t % 4, dtype=torch.long,
+                         device=row.device).clamp(0, 7)
+        ghost = table.gather(0, idx)
+        return row + ghost * 0, torch.zeros(
+            (node_idx.shape[0], self.tick_out, cfg.lanes), dtype=_I32,
+            device=node_idx.device)
+
+
+# audited by analysis/absint.py alongside the registered models;
+# intentionally NOT reachable from models.get_model
+RANGE_FIXTURE_MODELS = {
+    "counter-overflow": IrCounterOverflow,
+    "scatter-race": IrScatterRace,
+    "oob-gather": IrOobGather,
 }

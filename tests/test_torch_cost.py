@@ -38,16 +38,18 @@ from maelstrom_tpu_torch.analysis import cost_model, ir_lint
 from maelstrom_tpu_torch.models import get_model
 from maelstrom_tpu_torch.telemetry import profiler
 
+from torch_static_cases import static_traces  # noqa: F401 (fixture)
 from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SPECS = cost_model.cost_specs()
 
 
 @pytest.fixture(scope="module")
-def traces():
+def traces(static_traces):
     """One trace of every registered model's tick variants, shared by
-    the file's tests (the lint's own cache convention)."""
-    return {}
+    the file's tests and the other static-pass test files
+    (``torch_static_cases``; the lint's own cache convention)."""
+    return static_traces
 
 
 def _report(traces, wl, n):
@@ -278,6 +280,9 @@ def test_bench_static_fields(monkeypatch):
     assert f["ir_eqns"] == cost_model.tick_cost(model, sim).eqns
     assert all(isinstance(f[k], int) for k in f)
     assert f["lanes_live"] + f["lanes_dead"] == sim.net.lanes
+    # the range field has its own test (test_torch_ranges.py); the runs
+    # below check the cost fields without its fixed points
+    monkeypatch.setenv("BENCH_RANGES", "0")
     monkeypatch.setenv("BENCH_LANES", "0")
     f0 = bench.static_fields(model, sim)
     assert f0["lanes_live"] is None and f0["ir_eqns"] == f["ir_eqns"]

@@ -40,6 +40,7 @@ from maelstrom_tpu_torch.models.ir_hazards import (IR_FIXTURE_MODELS,
                                                    IrFusionBreaker,
                                                    IrHostCallback)
 
+from torch_static_cases import static_traces  # noqa: F401 (fixture)
 from torch_tutorial_cases import one_thread_env
 from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
@@ -167,8 +168,9 @@ def test_fixture_findings_are_expected_not_silent():
 
 
 @pytest.mark.parametrize("wl,n", [("echo", 2), ("lin-kv", 5)])
-def test_registered_models_trip_only_accepted_sites(wl, n):
-    fs, report = ir_lint.audit_model_ir(get_model(wl, n), n, "lead")
+def test_registered_models_trip_only_accepted_sites(wl, n, static_traces):
+    fs, report = ir_lint.audit_model_ir(get_model(wl, n), n, "lead",
+                                        trace_cache=static_traces)
     assert fs and all(f.rule == "JXP401" and _accepted(f) for f in fs), \
         [f.to_dict() for f in fs if not _accepted(f)]
     assert report.loops == 0

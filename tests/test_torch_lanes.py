@@ -43,6 +43,7 @@ from maelstrom_tpu_torch.models.ir_hazards import (LANE_FIXTURE_MODELS,
                                                    IrDeadLane, IrDeadStore,
                                                    IrLaneOverread)
 
+from torch_static_cases import static_traces  # noqa: F401 (fixture)
 from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SPECS = cost_model.cost_specs()
@@ -57,9 +58,14 @@ def _rules(findings):
 # --- parity with the live JAX analyzer ----------------------------------------
 
 
-@pytest.mark.parametrize("wl,n", SPECS, ids=[f"{wl}-{n}" for wl, n in SPECS])
-def test_lanes_equal_the_jax_analyzer(wl, n):
-    mine = analyze_model(get_model(wl, n, "grid"), n, "lead").to_entry()
+# in reverse registry order: test_torch_cost.py walks the registry
+# forward, so under xdist each file loads the graphs the other recorded
+# once they meet (torch_static_cases)
+@pytest.mark.parametrize("wl,n", SPECS[::-1],
+                         ids=[f"{wl}-{n}" for wl, n in SPECS[::-1]])
+def test_lanes_equal_the_jax_analyzer(wl, n, static_traces):
+    mine = analyze_model(get_model(wl, n, "grid"), n, "lead",
+                         trace_cache=static_traces).to_entry()
     theirs = jlanes.analyze_model(jget_model(wl, n, "grid"), n,
                                   "lead").to_entry()
     assert {k: mine[k] for k in FIELDS} == {k: theirs[k] for k in FIELDS}

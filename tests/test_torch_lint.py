@@ -18,9 +18,10 @@ package's ``maelstrom lint``.
 - **Baseline and CLI.** The baseline bookkeeping of both packages; the
   CLI's ``--strict``, ``--json``, ``--pass``, paths; of the JAX CLI's
   jaxpr passes, ``--ir``, ``--cost`` and ``--lanes`` run with the JAX
-  CLI's exit code (``tests/test_torch_ir.py``, ``test_torch_cost.py``
-  and ``test_torch_lanes.py`` hold them to JAX's), and ``--ranges``,
-  ``--shard`` and ``--aot`` are refused (exit 2); the port's tree is
+  CLI's exit code (``tests/test_torch_ir.py``, ``test_torch_cost.py``,
+  ``test_torch_lanes.py`` and ``test_torch_ranges.py`` hold them to
+  JAX's), and so does ``--ranges``; ``--shard`` and ``--aot`` are
+  refused (exit 2); the port's tree is
   lint-clean modulo its
   baseline, which holds the fixture's seven findings and the accepted
   ones.
@@ -709,11 +710,12 @@ def test_tree_clean_modulo_baseline(cli_report):
         entries = json.load(f)["entries"]
     # the default passes' entries are this run's; the rest belong to the
     # opt-in ir, cost and lanes passes (tests/test_torch_ir.py runs them)
+    # and the ranges pass (tests/test_torch_ranges.py)
     owner = {e["fingerprint"]: tfindings.fingerprint_pass(e["fingerprint"])
              for e in entries}
     assert {fp for fp, p in owner.items()
             if p in ("trace", "contract", "schema")} == set(sup)
-    assert set(owner.values()) == {"trace", "ir", "lanes"}
+    assert set(owner.values()) == {"trace", "ir", "lanes", "ranges"}
     assert all(e["reason"] for e in entries)
 
 
@@ -762,21 +764,23 @@ def test_cli_explicit_pass_with_paths(capsys):
                                   ["--pass", "cost"],
                                   ["--aot-store", "off"]])
 def test_cli_refuses_the_jaxpr_passes(argv, capsys, monkeypatch, tmp_path):
-    """The JAX CLI's jaxpr passes. ``ir``, ``cost`` and ``lanes`` run
-    over the aten graph of the tick, with the JAX CLI's exit code on the
-    same arguments (both packages' universes cut to echo at two nodes,
-    no fixtures, so that the case stays small; ``--update-baseline``
-    writes a temporary file in each). ``ranges``, ``shard`` and ``aot``
-    are not ported yet: exit 2, naming the pass and its ROADMAP item."""
+    """The JAX CLI's jaxpr passes. ``ir``, ``cost``, ``lanes`` and
+    ``ranges`` run over the aten graph of the tick, with the JAX CLI's
+    exit code on the same arguments (both packages' universes cut to
+    echo at two nodes, no fixtures, so that the case stays small;
+    ``--update-baseline`` writes a temporary file in each). ``shard``
+    and ``aot`` are not ported yet: exit 2, naming the pass and its
+    ROADMAP item."""
     runs = {"--ir": "ir", "--cost": "cost", "--lanes": "lanes",
-            "--update-baseline": "cost", "cost": "cost"}
+            "--ranges": "ranges", "--update-baseline": "cost",
+            "cost": "cost"}
     name = runs.get(argv[-1])
     if name is None:
         rc = cli(["lint"] + argv)
         err = capsys.readouterr().err
         assert rc == 2
         assert "not ported yet" in err and "(ROADMAP A.1" in err
-        assert any(p in err for p in ("ranges", "shard", "aot"))
+        assert any(p in err for p in ("shard", "aot"))
         return
     from maelstrom_tpu.analysis import cost_model as jcost
     from maelstrom_tpu.cli import main as jcli
@@ -788,6 +792,7 @@ def test_cli_refuses_the_jaxpr_passes(argv, capsys, monkeypatch, tmp_path):
     for mod in (jhazards, thazards):
         monkeypatch.setattr(mod, "IR_FIXTURE_MODELS", {})
         monkeypatch.setattr(mod, "LANE_FIXTURE_MODELS", {})
+        monkeypatch.setattr(mod, "RANGE_FIXTURE_MODELS", {})
 
     def extra(who):
         return (["--cost-baseline", str(tmp_path / f"{who}.json")]

@@ -205,13 +205,38 @@ Phases (any failure exits non-zero and prints no result line):
 16. the lint (``analysis/``) on the card's toolchain, in a reference
     worker of its own (no card visible to it), from phase 2 on:
     ``python -m maelstrom_tpu_torch lint --strict --json --pass trace
-    --pass contract --pass schema --ir --cost --lanes --ranges`` as a
-    child process must exit 0 with the trace, contract and schema
-    passes and the IR-hazard, cost, lane and value-range passes over
-    the aten graph of every model's tick run, no
-    error finding and no stale baseline entry, having loaded no kernel
+    --pass contract --pass schema --ir --cost --lanes --ranges --shard
+    --aot`` as a child process must exit 0 with the trace, contract and
+    schema passes, the IR-hazard, cost, lane and value-range passes over
+    the aten graph of every model's tick, the shard pass over the mesh
+    executor and the aot pass over the chunk dispatch run, no error
+    finding and no stale baseline entry, having loaded no kernel
     library and initialised no CUDA, and no module of the port may be
     the one that imports ``triton`` (torch's own compiler stack may).
+
+17. the certified store of the kernel libraries (``aot_store.py``),
+    behind phase 15 in phase 13's card worker: the flagship
+    (``fleets.FLAGSHIP`` with its model, 4,096 instances) for 100 ticks
+    in 50-tick chunks through ``run_torch_test`` with a fresh store,
+    each leg in a fresh process: (a) a miss builds the delivery library
+    into the store with one ``nvcc``; (b) a hit starts no ``nvcc``,
+    loads the library from the store and launches it once per tick,
+    with results and final carry equal to (a); ``lint --strict --aot
+    --aot-store`` in a child that sees no card is clean on a copy of
+    that store and gives EXE901 on a copy with one library byte flipped
+    (both audits run alongside (c) and (d)); (c) that byte flipped in
+    the store is refused by name, rebuilt, and the run equal again; (d)
+    a foreign device kind in the entry is refused by name at load. It prints each leg's ``first-dispatch-s``,
+    ``load-s``, ``nvcc-s`` and the certificate's seconds.
+
+The store is off (``MAELSTROM_AOT=0``) but where a phase exercises it:
+the side card worker first prewarms one shared store for phase 9's bug
+hunt and phase 12's campaign item (their runs hit it and record the
+port's ``aot-fingerprint``), phase 10's triage on the card and phase
+12's ``campaign resume`` pass the drift gate on those records, phase
+14's bench child has a store of its own (its line carries
+``collectives_per_tick``, ``ici_bytes_est``, ``first_dispatch_s``,
+``aot`` and ``aot_load_s``), and phase 17 its own.
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
@@ -227,12 +252,14 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-16 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-17 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic
 (phase 15 with two CPU processes); it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
 its phase 10 compares the CPU with itself; its phase 14 profiles with
-the timed source and checks that the bench module refuses to run).
+the timed source and checks that the bench module refuses to run; its
+phase 17 plants a library into the CPU entry, whose dispatch launches
+none, for the tamper steps).
 ``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
 simulated seconds instead (a quicker check; the broadcast fleet for at
 least 1 s, which it needs to converge after the heal).
@@ -240,6 +267,7 @@ least 1 s, which it needs to converge after the heal).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -378,12 +406,17 @@ PROCS_TIMEOUT_S = 600.0
 MESH_REF = "mesh-ref.pkl"
 MESH_CKPT = "mesh-checkpoint"
 # phase 16: `python -m maelstrom_tpu_torch lint --strict --json` with every
-# pass named (the default three and the ir, cost, lanes and ranges passes
-# over the aten graph of the tick), run through runpy so that the child
-# can report,
-# after the lint, which file
-# imported triton first (torch's own compiler stack may; the port must
-# not), which kernel libraries it loaded and whether CUDA was initialised
+# pass named (the default three, the ir, cost, lanes and ranges passes over
+# the aten graph of the tick, the shard and aot passes), run through runpy
+# so that the child can report, after the lint, which file imported triton
+# first (torch's own compiler stack may; the port must not), which kernel
+# libraries it loaded and whether CUDA was initialised; phase 17's audits
+# run the same child with `lint --aot --aot-store DIR`
+LINT_ARGV = ["lint", "--strict", "--json", "--pass", "trace", "--pass",
+             "contract", "--pass", "schema", "--ir", "--cost", "--lanes",
+             "--ranges", "--shard", "--aot"]
+LINT_PASSES = ["trace", "contract", "schema", "ir", "cost", "lanes",
+               "ranges", "shard", "aot"]
 LINT_CHILD = """
 import json, runpy, sys
 class TritonImporter:
@@ -398,9 +431,7 @@ class TritonImporter:
             TritonImporter.file = f.f_code.co_filename if f else "?"
         return None
 sys.meta_path.insert(0, TritonImporter())
-sys.argv = ["maelstrom_tpu_torch", "lint", "--strict", "--json", "--pass",
-            "trace", "--pass", "contract", "--pass", "schema", "--ir",
-            "--cost", "--lanes", "--ranges"]
+sys.argv = ["maelstrom_tpu_torch"] + json.loads(sys.argv[1])
 try:
     runpy.run_module("maelstrom_tpu_torch", run_name="__main__",
                      alter_sys=True)
@@ -419,6 +450,64 @@ sys.exit(rc)
 # phases 4-13 run without the device profiler (whose default is auto), so
 # their ticks/s stay comparable with earlier calls; phase 14 prices it
 NO_PROFILE = dict(device_profile="off")
+# phase 17: the certified store of the kernel libraries (aot_store.py), in
+# phase 13's card worker behind phase 15: the flagship (fleets.FLAGSHIP
+# with its model, 4,096 instances) for 100 ticks in 50-tick chunks, each
+# leg in a fresh process (a process keeps the first library it loaded)
+STORE = dict(time_limit=0.1, chunk=50)
+# the script runs with the store off (MAELSTROM_AOT=0) but where a phase
+# exercises it: phase 9's bug hunt, phase 10's triage gate and phase 12's
+# campaign item share this store under the script's temporary root, which
+# the side card worker prewarms for their two configurations first (one
+# nvcc, two certificates) so that neither pays a populate on its path;
+# phase 14's bench child and phase 17 have stores of their own
+SHARED_STORE = "aot-shared"
+# one leg of phase 17 in a child process: run_torch_test with the store,
+# then what the main process checks (the results, the store's record, the
+# launches, the nvcc processes started and where the library came from)
+STORE_CHILD = """
+import json, sys, time
+t0 = time.monotonic()
+import numpy as np
+from maelstrom_tpu_torch import convert, fleets, harness, pipeline
+from maelstrom_tpu_torch.kernels import build, delivery
+dev, store, out = sys.argv[1], sys.argv[2], sys.argv[4]
+opts = json.loads(sys.argv[3])
+model, _ = fleets.fleet("lin-kv")
+kept = {}
+run = pipeline.run_sim_pipelined
+def keep(*args, **kw):
+    res = run(*args, **kw)
+    kept["carry"] = convert.carry_to_numpy(res.carry)
+    return res
+pipeline.run_sim_pipelined = keep
+delivery.reset_launches()
+t1 = time.monotonic()
+res = harness.run_torch_test(model, dict(opts, aot_store=store), device=dev)
+run_s = time.monotonic() - t1
+np.savez(out + ".npz", **dict(convert.carry_leaves(kept["carry"])))
+with open(out, "w") as f:
+    json.dump({"results": {k: v for k, v in res.items()
+                           if k not in ("perf", "store-dir")},
+               "aot": res["perf"]["phases"]["aot"],
+               "pipeline": res["perf"]["phases"]["pipeline"],
+               "ticks": res["perf"]["ticks"],
+               "launches": delivery.deliver.launches,
+               "nvcc-starts": build.nvcc_starts,
+               "origins": build.origins, "import-s": t1 - t0,
+               "run-s": run_s}, f, default=repr)
+"""
+# phase 17 (d): an entry's load in a child process, refused or not
+LOAD_CHILD = """
+import json, sys
+from maelstrom_tpu_torch.aot_store import AotStore, _device_sig
+from maelstrom_tpu_torch.kernels import build
+payload, why = AotStore(sys.argv[1]).check(sys.argv[2],
+                                           _device_sig(sys.argv[3]))
+print(json.dumps({"loaded": payload is not None, "refusal": why,
+                  "libraries": sorted(build._loaded),
+                  "nvcc-starts": build.nvcc_starts}))
+"""
 # phase 14: the flagship (fleets.FLAGSHIP with its model) under
 # BENCH_FUZZ_DIST, as phase 4 runs it, for 300 ticks in 100-tick chunks
 # with device_profile off, auto and on in turns; a 50-tick run under a
@@ -1120,6 +1209,15 @@ def campaign_phase(dev_name, root, item_opts, kill_at):
     tick ``kill_at`` or later, run the uninterrupted checkpointed
     reference here meanwhile, then ``campaign resume`` here. Checks the
     item against the reference; returns what the main process logs."""
+    label = "phase 12 (campaign)"
+    # the item runs with the shared store (its options' aot_store): the
+    # child records the port's fingerprint, and resume goes through the
+    # gate
+    with aot_on():
+        return _campaign_phase(dev_name, root, item_opts, kill_at, label)
+
+
+def _campaign_phase(dev_name, root, item_opts, kill_at, label):
     import os
     import signal
     import subprocess
@@ -1129,7 +1227,6 @@ def campaign_phase(dev_name, root, item_opts, kill_at):
     from maelstrom_tpu_torch.campaign.checkpoint import checkpoint_path
     from maelstrom_tpu_torch.kernels import delivery
     from maelstrom_tpu_torch.models import get_model
-    label = "phase 12 (campaign)"
     spec = os.path.join(root, "flagship-campaign.json")
     with open(spec, "w") as f:
         json.dump({"name": "flagship", "items": [
@@ -1238,7 +1335,12 @@ def campaign_phase(dev_name, root, item_opts, kill_at):
         restore_s=results["perf"]["phases"].get("restore-s"),
         ref_tps=ref["perf"]["ticks-per-sec"],
         segment_tps=_segment_rates(run_dir), histories=n_hist,
-        attempts=item["attempts"])
+        attempts=item["attempts"],
+        # the item's run-start record carries the port's fingerprint,
+        # and `campaign resume` resumed through its gate
+        gate=fingerprint_gate(get_model("lin-kv", item_opts["node_count"]),
+                              run_dir),
+        aot=results["perf"]["phases"].get("aot"))
     return out
 
 
@@ -1565,19 +1667,239 @@ def multiproc_phase(dev_name, root, opts):
     return out
 
 
-def lint_phase():
-    """Phase 16 in a reference worker (no card visible): the lint as a
-    child process; its exit code, report and what it imported."""
+def start_lint(argv=None, store_on=False):
+    """The lint (``LINT_ARGV``, or ``argv``) started as a child process
+    that sees no card; :func:`finish_lint` waits for it. ``store_on``
+    lifts the script's ``MAELSTROM_AOT=0`` for the child (phase 17's
+    audits)."""
     import os
     import subprocess
     repo = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run([sys.executable, "-c", LINT_CHILD], cwd=repo,
-                          env=_child_env(), capture_output=True, text=True,
-                          timeout=900)
-    tail = proc.stderr.strip().splitlines()
-    return {"rc": proc.returncode, "stdout": proc.stdout,
-            "stderr": proc.stderr[-3000:],
+    env = dict(_child_env(), CUDA_VISIBLE_DEVICES="")
+    if store_on:
+        env.pop("MAELSTROM_AOT", None)
+    return subprocess.Popen([sys.executable, "-c", LINT_CHILD,
+                             json.dumps(argv or LINT_ARGV)], cwd=repo,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_lint(proc):
+    """A lint child's exit code, report and what it imported."""
+    out, err = proc.communicate(timeout=900)
+    tail = err.strip().splitlines()
+    return {"rc": proc.returncode, "stdout": out, "stderr": err[-3000:],
             "loaded": json.loads(tail[-1]) if tail else None}
+
+
+def lint_phase():
+    """Phase 16 in a reference worker (no card visible): the lint as a
+    child process; its exit code, report and what it imported."""
+    return finish_lint(start_lint())
+
+
+@contextlib.contextmanager
+def aot_on():
+    """The store on in this process for the block (the script runs with
+    ``MAELSTROM_AOT=0``)."""
+    import os
+    prev = os.environ.pop("MAELSTROM_AOT", None)
+    try:
+        yield
+    finally:
+        if prev is not None:
+            os.environ["MAELSTROM_AOT"] = prev
+
+
+def prewarm_phase(dev_name, store, specs):
+    """The shared store's entries for phases 9 and 12, in the side card
+    worker before its other work: ``prewarm_pipelined`` for each
+    ``(label, model spec, options)`` on ``dev_name`` (the delivery
+    library built once, one certificate each). Returns each label's
+    ``{length: outcome}``."""
+    from maelstrom_tpu_torch import harness
+    from maelstrom_tpu_torch.aot_store import prewarm_pipelined
+    out = {}
+    for label, spec, opts in specs:
+        model = _make_model(spec)
+        full = {**harness.TORCH_DEFAULTS, **opts}
+        sim = harness.make_sim_config(model, opts)
+        t0 = time.monotonic()
+        got = prewarm_pipelined(
+            model, sim, store, chunk=int(full["chunk_ticks"] or 100),
+            event_cap=int(full["event_capacity"] or 0) or None,
+            scan_k=int(full["scan_top_k"] or 1), device=dev_name)
+        if any(v.startswith("error") for v in got.values()):
+            raise AssertionError(f"phase 9/12 (store prewarm): {label}: "
+                                 f"{got}")
+        out[label] = (got, time.monotonic() - t0)
+    return out
+
+
+def _flip_byte(path, at=None):
+    with open(path, "rb") as f:
+        blob = bytearray(f.read())
+    blob[len(blob) // 2 if at is None else at] ^= 0xFF
+    with open(path, "wb") as f:
+        f.write(bytes(blob))
+
+
+def store_phase(dev_name, root, opts):
+    """Phase 17 behind phase 15 in phase 13's card worker: the flagship
+    through ``run_torch_test`` with a fresh store, each leg in a fresh
+    process: (a) a miss that builds the delivery library with one nvcc,
+    (b) a hit that starts no nvcc and loads it from the store, results
+    and carry equal to (a); the audit (``lint --aot --aot-store``, in a
+    child that sees no card) clean on a copy of (b)'s store and EXE901
+    on a copy with one library byte flipped, both alongside (c) that
+    byte flipped in the store: refused by name, rebuilt, equal again,
+    and (d) a foreign device kind in the entry: refused by name at load.
+    Returns what the main process logs."""
+    import os
+    import shutil
+    import subprocess
+    from maelstrom_tpu_torch.aot_store import AotStore
+    label = "phase 17 (store)"
+    on_card = dev_name != "cpu"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "aot-store")
+    run_opts = dict(opts["fleet"], time_limit=opts["time_limit"],
+                    chunk_ticks=opts["chunk"], pipeline="on",
+                    device_profile="off")
+    env = _child_env()
+    env.pop("MAELSTROM_AOT", None)
+    out = {"legs": {}}
+
+    def leg(name):
+        path = os.path.join(root, f"store-{name}.json")
+        t0 = time.monotonic()
+        p = subprocess.run(
+            [sys.executable, "-c", STORE_CHILD, dev_name, d, json.dumps(
+                dict(run_opts, store_root=os.path.join(
+                    root, f"store-runs-{name}"))), path],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"{label} ({name}): the child exited "
+                                 f"{p.returncode}: {p.stderr[-2000:]}")
+        r = _read_json(path)
+        r["wall"] = time.monotonic() - t0
+        with np.load(path + ".npz") as z:
+            r["carry"] = {k: z[k] for k in z.files}
+        rec = r["aot"]
+        if r["results"]["valid?"] is not True:
+            raise AssertionError(f"{label} ({name}): valid? "
+                                 f"{r['results']['valid?']}")
+        if on_card and r["launches"] != r["ticks"]:
+            raise AssertionError(f"{label} ({name}): {r['launches']} "
+                                 f"delivery launches for {r['ticks']} "
+                                 f"ticks")
+        out["legs"][name] = {k: r[k] for k in (
+            "wall", "import-s", "run-s", "ticks", "launches",
+            "nvcc-starts", "origins", "aot")}
+        out["legs"][name]["first-dispatch-s"] = \
+            r["pipeline"]["first-dispatch-s"]
+        log(f"{label} ({name}): {json.dumps(rec)}")
+        return r
+
+    def same(a, b, name):
+        if a["results"] != b["results"]:
+            raise AssertionError(f"{label} ({name}): results differ from "
+                                 f"the miss's")
+        if a["carry"].keys() != b["carry"].keys() or not all(
+                np.array_equal(a["carry"][k], b["carry"][k])
+                for k in a["carry"]):
+            raise AssertionError(f"{label} ({name}): the final carry "
+                                 f"differs from the miss's")
+
+    builds = 1 if on_card else 0
+    miss = leg("miss")
+    rec = miss["aot"]
+    if rec["hit"] or set(rec["lengths"].values()) != {"populated"} \
+            or rec["nvcc"] != builds or miss["nvcc-starts"] != builds \
+            or rec["refused"]:
+        raise AssertionError(f"{label} (a): not one miss with {builds} "
+                             f"nvcc: {rec}, nvcc started "
+                             f"{miss['nvcc-starts']}")
+    hit = leg("hit")
+    rec = hit["aot"]
+    if not rec["hit"] or set(rec["lengths"].values()) != {"hit"} \
+            or rec["nvcc"] or hit["nvcc-starts"] or rec["refused"]:
+        raise AssertionError(f"{label} (b): not a hit without nvcc: {rec}, "
+                             f"nvcc started {hit['nvcc-starts']}")
+    lib_dir = os.path.join(d, "lib")
+    if on_card and not all(v.startswith(f"store {lib_dir}")
+                           for v in hit["origins"].values()) \
+            or on_card and len(hit["origins"]) != 1:
+        raise AssertionError(f"{label} (b): libraries not from the store: "
+                             f"{hit['origins']}")
+    same(miss, hit, "b")
+    key = rec["fingerprint"]
+    store = AotStore(d)
+    meta = store.meta(key)
+    if not on_card:
+        # the CPU dispatch launches no kernel: the rehearsal plants a
+        # library into the entry for its tamper steps
+        sha = store.put_library("deliver-planted", b"planted " * 256,
+                                {"name": "deliver"})
+        meta["libraries"] = [{"name": "deliver", "key": "deliver-planted",
+                              "sha256": sha}]
+        store.put(key, meta)
+    lib = store.lib_path(meta["libraries"][0]["key"])
+    # the audits read copies of (b)'s store, and run while (c) and (d)
+    # change the store itself
+    audit_argv = ["lint", "--strict", "--json", "--aot", "--aot-store"]
+    audits = {}
+    for name in ("clean", "tampered"):
+        copy = os.path.join(root, f"aot-store-{name}")
+        shutil.copytree(d, copy)
+        if name == "tampered":
+            _flip_byte(os.path.join(copy, "lib", os.path.basename(lib)))
+        audits[name] = start_lint(audit_argv + [copy], store_on=True)
+    _flip_byte(lib)
+    tamper = leg("tamper")
+    rec = tamper["aot"]
+    if rec["hit"] or len(rec["refused"]) != 1 \
+            or not rec["refused"][0].startswith("EXE901") \
+            or rec["nvcc"] != builds \
+            or set(rec["lengths"].values()) != {"populated"}:
+        raise AssertionError(f"{label} (c): the tampered library was not "
+                             f"refused and rebuilt: {rec}")
+    same(miss, tamper, "c")
+    meta = store.meta(key)
+    meta["device-kind"] = "NVIDIA H0 sm_00"
+    store.put(key, meta)
+    p = subprocess.run([sys.executable, "-c", LOAD_CHILD, d, key,
+                        dev_name], cwd=repo, env=env, capture_output=True,
+                       text=True, timeout=300)
+    load = json.loads(p.stdout.strip().splitlines()[-1]) \
+        if p.returncode == 0 else {}
+    if load.get("loaded") is not False or not (
+            load.get("refusal") or "").startswith("EXE904") \
+            or load.get("libraries") or load.get("nvcc-starts"):
+        raise AssertionError(f"{label} (d): the foreign device kind was "
+                             f"not refused at load: {load} {p.stderr[-1500:]}")
+    clean, dirty = finish_lint(audits["clean"]), finish_lint(
+        audits["tampered"])
+    for name, r, rc in (("clean", clean, 0), ("tampered", dirty, 1)):
+        rep = json.loads(r["stdout"]) if r["stdout"].strip() else {}
+        if r["rc"] != rc or r["loaded"]["kernel-libraries"] \
+                or r["loaded"]["cuda-initialized"]:
+            raise AssertionError(f"{label}: the audit of the {name} store "
+                                 f"exited {r['rc']} (expected {rc}), "
+                                 f"loaded {r['loaded']}: "
+                                 f"{r['stdout'][-1500:]} {r['stderr']}")
+        out[f"audit-{name}"] = [(f["rule"], f["severity"],
+                                 f["message"][:160])
+                                for f in rep.get("findings", [])]
+    errors = {name: [f[0] for f in out[f"audit-{name}"] if f[1] == "error"]
+              for name in ("clean", "tampered")}
+    if errors["clean"] or "EXE901" not in errors["tampered"]:
+        raise AssertionError(f"{label}: audits {out['audit-clean']} / "
+                             f"{out['audit-tampered']}")
+    out["foreign"] = load["refusal"]
+    out["key"] = key
+    out["libraries"] = meta["libraries"]
+    return out
 
 
 def _profiled_run(model, opts, dev_name, root, name):
@@ -1717,11 +2039,12 @@ def profile_phase(dev_name, root, opts):
     out["static"] = static_vs_launched(dev_name, opts)
     # the bench module, as a user runs it (no card: it must refuse)
     t_b = time.monotonic()
-    p = subprocess.run([sys.executable, "-m", "maelstrom_tpu_torch.bench"],
+    env = dict(_child_env(), BENCH_SIM_SECONDS=str(opts["bench_seconds"]))
+    env.pop("MAELSTROM_AOT", None)
+    p = subprocess.run([sys.executable, "-m", "maelstrom_tpu_torch.bench",
+                        "--aot-store", os.path.join(root, "aot-bench")],
                        cwd=repo, capture_output=True, text=True,
-                       timeout=600, env=dict(
-                           _child_env(),
-                           BENCH_SIM_SECONDS=str(opts["bench_seconds"])))
+                       timeout=600, env=env)
     if not on_card:
         if p.returncode == 0 or "needs a CUDA card" not in p.stderr:
             raise AssertionError(f"{label}: the bench ran without a card")
@@ -1734,11 +2057,13 @@ def profile_phase(dev_name, root, opts):
             "delivered", "delivered_timed", "sent", "dropped_overflow",
             "wall_s", "msg_lanes", "bytes_per_msg_row", "fault_fuzz",
             "device_profile", "device_ms_per_tick",
-            "device_phase_ms_per_tick") + STATIC_FIELDS
+            "device_phase_ms_per_tick") + STATIC_FIELDS + STORE_FIELDS
     missing = [k for k in keys if k not in line]
     if missing or not line.get("value", 0) > 0 \
             or line["metric"] != "simulated_msgs_per_sec" \
-            or not all(isinstance(line[k], int) for k in STATIC_FIELDS):
+            or not all(isinstance(line[k], int) for k in STATIC_FIELDS) \
+            or not isinstance(line["aot"], dict) \
+            or not line["first_dispatch_s"] > 0:
         raise AssertionError(f"{label}: bench exited {p.returncode}, "
                              f"missing {missing}: {p.stdout[-800:]} "
                              f"{p.stderr[-800:]}")
@@ -1747,9 +2072,12 @@ def profile_phase(dev_name, root, opts):
 
 
 # the bench line's static fields (analysis/cost_model.py, lane_liveness.py,
-# absint.py)
+# absint.py, shard_audit.py)
 STATIC_FIELDS = ("ir_eqns", "ir_bytes_est", "lanes_live", "lanes_dead",
-                 "lanes_dead_bytes", "ovf_margin_bits")
+                 "lanes_dead_bytes", "ovf_margin_bits",
+                 "collectives_per_tick", "ici_bytes_est")
+# and the store's (aot_store.py)
+STORE_FIELDS = ("first_dispatch_s", "aot", "aot_load_s")
 
 
 def static_vs_launched(dev_name, opts):
@@ -1913,6 +2241,12 @@ def log_profile_phase(dev, profile_ref):
         log(f"{label}: bench ovf_margin_bits {line['ovf_margin_bits']}: "
             f"the flagship's least proven counter headroom at the "
             f"production horizon or its proven one, if shorter")
+        log(f"{label}: bench collectives_per_tick "
+            f"{line['collectives_per_tick']}, ici_bytes_est "
+            f"{line['ici_bytes_est']} (8 shards); first_dispatch_s "
+            f"{line['first_dispatch_s']}, aot {json.dumps(line['aot'])}, "
+            f"aot_load_s {line['aot_load_s']} (the bench child's own "
+            f"store, cold: the miss builds the library)")
     log(f"{label}: launches {json.dumps(m['launches'])}; the worker's "
         f"phase 14 took {t_prof:.1f} s")
     return m["launches"]
@@ -1942,6 +2276,11 @@ def main(argv) -> int:
             "False); nothing run")
         return 1
     import maelstrom_tpu_torch  # noqa: F401 — fails outside the repo
+    import os
+    # the store off everywhere but where a phase exercises it (aot_on,
+    # and the children phase 12, 14 and 17 start): the paths' timings
+    # stay comparable with earlier calls and pay no populate
+    os.environ["MAELSTROM_AOT"] = "0"
     from maelstrom_tpu_torch import fleets
     from maelstrom_tpu_torch.kernels import delivery_cases
     from maelstrom_tpu_torch.models import get_model
@@ -1962,6 +2301,7 @@ def main(argv) -> int:
     campaign = (dict(fleets.FLAGSHIP, **CAMPAIGN), KILL_AT_TICKS,
                 small(fleets.FLAGSHIP) | SMALL_CHECKPOINT)
     mesh_opts = dict(MESH, fleet=dict(fleets.FLAGSHIP))
+    store_opts = dict(STORE, fleet=dict(fleets.FLAGSHIP))
     # paths cut to keep the script well inside its 1,200 s limit on a
     # slow host (PERF.md §6): the flagship to 1 s (from 4; healed at
     # tick 700), the broadcast fleet to 1 s (from 2; healed at tick
@@ -2012,6 +2352,7 @@ def main(argv) -> int:
         profile_opts = dict(profile_opts, time_limit=0.15, chunk=50,
                             trace_ticks=20, fleet=small(fleets.FLAGSHIP, 16),
                             stretches=(20, 120))
+        store_opts = dict(store_opts, fleet=small(fleets.FLAGSHIP, 16))
     limit = None
     if "--time-limit" in argv:
         limit = float(argv[argv.index("--time-limit") + 1])
@@ -2041,6 +2382,10 @@ def main(argv) -> int:
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="bug-hunt-store-")
+    # phases 9, 10 and 12 share one store (prewarmed by the side worker)
+    shared = os.path.join(root, SHARED_STORE)
+    hunt_opts["aot_store"] = shared
+    campaign = (dict(campaign[0], aot_store=shared),) + campaign[1:]
     lint_pool = worker_pool(1, cuda=False)
     lint_ref = submit(lint_pool, lint_phase)
     refs, side = worker_pool(2, cuda=False), worker_pool(1, cuda=True)
@@ -2061,7 +2406,10 @@ def main(argv) -> int:
         # half of another phase)
         late_refs = (submit(shards, multiproc_phase, str(dev), root,
                             mesh_opts),
-                     lint_ref)
+                     lint_ref,
+                     # phase 17: behind phase 15, in the same card worker
+                     submit(shards, store_phase, str(dev), root,
+                            store_opts))
         return drive_paths(dev, full, rehearse, record, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
@@ -2144,6 +2492,68 @@ def log_multiproc_phase(dev, procs_ref, mesh_ref):
     return {f"phase 15 {k}": v for k, v in m["launches"].items()}
 
 
+def fingerprint_gate(model, run_dir):
+    """The store's drift gate on a stored run, as triage and campaign
+    resume hold it: the run-start record's ``aot-fingerprint`` against
+    the one recomputed from its options for its device. Fails unless the
+    record carries the port's fingerprint and it matches; returns the
+    line to log."""
+    from maelstrom_tpu_torch import harness
+    from maelstrom_tpu_torch.telemetry.stream import read_heartbeat
+    head = read_heartbeat(run_dir)["header"]
+    fp = head.get("aot-fingerprint")
+    now = harness.aot_fingerprint_for(
+        model, dict(head["opts"]), device_sig=tuple(head.get("aot-device")
+                                                    or ()) or None)
+    if not fp or head.get("aot-engine") != harness.AOT_ENGINE \
+            or now != fp:
+        raise AssertionError(f"the store's gate on {run_dir}: recorded "
+                             f"{fp} ({head.get('aot-engine')}), recomputed "
+                             f"{now}")
+    return (f"the run-start record's aot-fingerprint {fp} (for "
+            f"{head['aot-device']}) equals the one recomputed from its "
+            f"options: the gate passes")
+
+
+def log_store_phase(dev, store_ref):
+    """Phase 17's results, logged in the main process: the delivery
+    launches of its card legs."""
+    from maelstrom_tpu_torch.kernels.devtime import card_line
+    label = "phase 17 (store)"
+    m, t_store = store_ref.result()
+    card = card_line() if dev.type == "cuda" else "no card (rehearsal)"
+    legs = m["legs"]
+    for name, r in legs.items():
+        a = r["aot"]
+        log(f"{label} ({name}): hit {a['hit']}, lengths {a['lengths']}, "
+            f"first-dispatch-s {r['first-dispatch-s']}, load-s "
+            f"{a['load-s']}, nvcc {a['nvcc']} ({a['nvcc-s']} s), "
+            f"certificate recorded in {a['record-s']} s, refused "
+            f"{[x[:60] for x in a['refused']]}, nvcc processes started "
+            f"{r['nvcc-starts']}, libraries {r['origins']}; the child "
+            f"{r['wall']:.1f} s (imports {r['import-s']:.1f} s, run "
+            f"{r['run-s']:.1f} s), launches {r['launches']} ({card})")
+    log(f"{label}: (a) miss and (b) hit at {legs['miss']['ticks']} ticks"
+        f": results and final carry equal; first-dispatch-s cold "
+        f"{legs['miss']['first-dispatch-s']} against warm "
+        f"{legs['hit']['first-dispatch-s']}; the hit's load-s "
+        f"{legs['hit']['aot']['load-s']} against the miss's nvcc "
+        f"{legs['miss']['aot']['nvcc-s']} s ({card})")
+    log(f"{label}: `lint --strict --aot --aot-store` in a child that sees "
+        f"no card: clean on (b)'s store {m['audit-clean']}; on a copy with "
+        f"one library byte flipped "
+        f"{[f[:2] for f in m['audit-tampered']]}; no library loaded, no "
+        f"CUDA context")
+    log(f"{label}: (c) the byte flipped in the store: "
+        f"{legs['tamper']['aot']['refused'][0][:160]} ... rebuilt with "
+        f"{legs['tamper']['aot']['nvcc']} nvcc, equal again; (d) "
+        f"{m['foreign'][:200]}")
+    log(f"{label}: entry {m['key']}, libraries {m['libraries']}; the "
+        f"worker's phase 17 took {t_store:.1f} s")
+    return {f"phase 17 store {name}": r["launches"]
+            for name, r in legs.items()}
+
+
 def log_lint_phase(lint_ref):
     """Phase 16's result, checked in the main process."""
     label = "phase 16 (lint)"
@@ -2154,8 +2564,7 @@ def log_lint_phase(lint_ref):
                              f"{r['stderr']}")
     rep = json.loads(r["stdout"])
     loaded = r["loaded"]
-    if rep["passes"] != ["trace", "contract", "schema", "ir", "cost",
-                         "lanes", "ranges"] \
+    if rep["passes"] != LINT_PASSES \
             or rep["summary"]["errors"] or rep["stale-baseline-entries"]:
         raise AssertionError(f"{label}: passes {rep['passes']}, summary "
                              f"{rep['summary']}")
@@ -2169,10 +2578,9 @@ def log_lint_phase(lint_ref):
     warn = [f"{f['rule']} {f['message'][:200]}" for f in rep["findings"]]
     for w in warn:
         log(f"{label}: warning {w}")
-    log(f"{label}: `python -m maelstrom_tpu_torch lint --strict --json "
-        f"--pass trace --pass contract --pass schema --ir --cost --lanes "
-        f"--ranges` exit 0 in {t_lint:.1f} s in a reference worker (no card "
-        f"visible): passes {', '.join(rep['passes'])}; "
+    log(f"{label}: `python -m maelstrom_tpu_torch "
+        f"{' '.join(LINT_ARGV)}` exit 0 in {t_lint:.1f} s in a reference "
+        f"worker (no card visible): passes {', '.join(rep['passes'])}; "
         f"{json.dumps(rep['summary'])} ({exp} expected-fixture); "
         f"{rep['files-scanned']} files; no kernel library, no CUDA "
         f"context; triton imported: {loaded['triton-imported']} (first "
@@ -2234,6 +2642,15 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
     dev_name = str(dev)
     forensics = "phase 10 (forensics)"
+    item_opts, kill_at, small_ckpt = campaign
+    # the shared store's two entries, before the side worker's other work
+    prewarm_ref = submit(side, prewarm_phase, dev_name,
+                         hunt_opts["aot_store"], [
+                             ("bug hunt", ("fleet", BUG_HUNT_MUTANT, None),
+                              hunt_opts),
+                             ("campaign item", ("model", "lin-kv",
+                                                item_opts["node_count"],
+                                                {}), item_opts)])
     shrink_refs = {"fuzz run": submit(side, fuzz_run, dev_name, root),
                    "card": submit(side, shrink, dev_name,
                                   os.path.join(root, "fuzz-card"),
@@ -2248,7 +2665,6 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
         # byte for byte (tests/test_torch_check_pool.py)
         submit(refs, _cpu_test, lanes_spec,
                dict(lanes_opts, check_workers=0)))
-    item_opts, kill_at, small_ckpt = campaign
     campaign_refs = (
         submit(side, campaign_phase, dev_name, root, item_opts, kill_at),
         submit(side, checkpoint_run, dev_name, root, small_ckpt),
@@ -2323,15 +2739,32 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
                                  f"recorded instances")
         by_path[f"phase 8 {w}"] = t_launches["deliver"]
     mark("phase 8")
-    hunt, h_launches = run_bug_hunt(dev, hunt_model, hunt_opts,
-                                    "phase 9 (bug hunt)", root)
+    prewarmed, t_pre = prewarm_ref.result()
+    log(f"phase 9/12 (store prewarm): the shared store's entries in the "
+        f"side worker in {t_pre:.1f} s: "
+        + ", ".join(f"{k} {v} ({t:.1f} s)"
+                    for k, (v, t) in prewarmed.items()))
+    with aot_on():
+        hunt, h_launches = run_bug_hunt(dev, hunt_model, hunt_opts,
+                                        "phase 9 (bug hunt)", root)
+    rec = hunt["perf"]["phases"]["aot"]
+    if not rec["hit"] or rec["nvcc"] or rec["refused"]:
+        raise AssertionError(f"phase 9 (bug hunt): the prewarmed store "
+                             f"missed: {rec}")
+    log(f"phase 9 (bug hunt): the shared store hit (prewarmed): load-s "
+        f"{rec['load-s']}, first-dispatch-s "
+        f"{hunt['perf']['phases']['pipeline']['first-dispatch-s']}, "
+        f"libraries {rec['libraries']}")
     mark("phase 9")
     for (label, _, _), (card, cpu) in zip(small_runs, small_refs):
         check_small_run_matches_cpu(dev, label, card.result(), cpu.result())
     if small_runs:
         mark("phase 3 (run alongside phases 4-9)")
-    f_launches = run_forensics(dev, hunt, root, forensics, refs,
-                               shrink_refs)
+    with aot_on():
+        # triage on the card passes the store's drift gate (EXE901)
+        f_launches = run_forensics(dev, hunt, root, forensics, refs,
+                                   shrink_refs)
+        log(f"{forensics}: {fingerprint_gate(hunt_model, hunt['store-dir'])}")
     mark("phase 10")
     by_path["phase 9 bug hunt (L=21), run and funnel replay"] = \
         h_launches["deliver"]
@@ -2375,6 +2808,8 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
         f"({camp['ref_s']:.1f} s, alongside the child); net "
         f"{json.dumps(camp['net'])}; the side worker's phase 12 "
         f"{t_camp:.1f} s")
+    log(f"{label}: {camp['gate']}; the resumed segment's store "
+        f"{json.dumps(camp['aot'])}")
     log(f"{label}: state.npz {camp['npz_bytes']} B; checkpoint-s per "
         f"save: uninterrupted run {camp['ref_save_s']}, resumed segment "
         f"{camp['resume_save_s']}; restore-s {camp['restore_s']}")
@@ -2404,6 +2839,8 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     mark("phase 15 (two processes, behind phase 14 in its card worker)")
     log_lint_phase(late_refs[1])
     mark("phase 16 (lint, in a reference worker of its own)")
+    by_path.update(log_store_phase(dev, late_refs[2]))
+    mark("phase 17 (the store, behind phase 15 in its card worker)")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     record["launches_not_counted"] = {

@@ -14,9 +14,12 @@ and a ``torch.profiler`` trace's. The flags the JAX CLI's device runtime
 notes and ignores (``--txn``, ``--crash-clients`` off kafka,
 ``--log-stderr``, ``--log-net-send``, ``--log-net-recv``) print its note
 and the run goes on without them; ``--max-txn-length``,
-``--max-writes-per-key``, ``--compile-cache`` and ``--aot-store`` are
-taken and not used, as there. Exit code 0 when the run is valid, 1 when
-it is not, 2 for a bad or missing schedule file.
+``--max-writes-per-key`` and ``--compile-cache`` are taken and not
+used, as there; ``--aot-store DIR|auto|off`` picks the certified store
+of the kernel libraries (``aot_store.py``: a warm store loads them
+without ``nvcc``; ``MAELSTROM_AOT=0`` turns it off). Exit code 0 when
+the run is valid, 1 when it is not, 2 for a bad or missing schedule
+file.
 
 The forensics commands work on a stored run's directory, with the JAX
 CLI's flags, messages and exit codes:
@@ -70,10 +73,13 @@ opt-in passes over the aten graph of the tick run when named: ``--ir``
 (JXP4xx), ``--cost`` with ``--update-baseline`` / ``--cost-baseline``
 (COST5xx), ``--lanes`` with ``--update-manifest`` /
 ``--lane-manifest`` (LNE6xx) and ``--ranges`` with ``--update-ranges``
-/ ``--range-manifest`` / ``--ranges-horizon-log2`` (ABS7xx), or
-``--pass ir|cost|lanes|ranges``. The JAX CLI's ``--shard`` and
-``--aot`` passes and their flags are not ported yet and exit 2. It
-touches no device.
+/ ``--range-manifest`` / ``--ranges-horizon-log2`` (ABS7xx), the shard
+pass over the mesh executor ``--shard`` with
+``--update-shard-manifest`` / ``--shard-manifest`` (SHD8xx) and the
+audit of the kernel-library store ``--aot`` with ``--update-aot`` /
+``--aot-manifest`` / ``--aot-store`` (EXE9xx), or ``--pass
+ir|cost|lanes|ranges|shard|aot``. It touches no device: it loads no
+kernel library and creates no CUDA context.
 """
 
 from __future__ import annotations
@@ -91,19 +97,6 @@ from .runtime import NEMESIS_KINDS, scripted_isolate_groups
 from .topology import TOPOLOGIES
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# the JAX CLI's passes the port has not ported yet, each with the
-# ROADMAP queue item it waits in, and their flags
-UNPORTED_PASSES = {"shard": "A.12", "aot": "A.12"}
-_UNPORTED_FLAGS = (("shard", "--shard", "shard"),
-                   ("update_shard_manifest", "--update-shard-manifest",
-                    "shard"),
-                   ("shard_manifest", "--shard-manifest", "shard"),
-                   ("aot", "--aot", "aot"), ("update_aot", "--update-aot",
-                                             "aot"),
-                   ("aot_manifest", "--aot-manifest", "aot"),
-                   ("aot_store", "--aot-store", "aot"))
-
 
 def _positive_int(v: str) -> int:
     n = int(v)
@@ -284,8 +277,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="the JAX CLI's compile cache: accepted and not "
                         "used (the port compiles nothing per run)")
     p.add_argument("--aot-store",
-                   help="the JAX CLI's executable store: accepted and "
-                        "not used")
+                   help="the certified store of the kernel libraries "
+                        "(aot_store.py): a directory, auto (default: "
+                        "build/aot) or off; a warm store loads them "
+                        "without nvcc (MAELSTROM_AOT=0 disables)")
     p.add_argument("--no-heartbeat", action="store_true",
                    help="do not stream heartbeat.jsonl into the run dir")
     p.add_argument("--pipeline", choices=("auto", "on", "off"))
@@ -435,8 +430,9 @@ def _parser() -> argparse.ArgumentParser:
                             "not used (the port compiles nothing per "
                             "run)")
     c_run.add_argument("--aot-store", default=None,
-                       help="the JAX CLI's executable store: accepted "
-                            "and not used")
+                       help="the items' store of the kernel libraries "
+                            "(a directory, auto or off; default: the "
+                            "items' own option, auto)")
     c_run.add_argument("--triage", action="store_true",
                        help="run `triage` on each invalid item's run dir")
     c_run.add_argument("--device", default="cuda",
@@ -483,12 +479,11 @@ def _parser() -> argparse.ArgumentParser:
     p_lint.add_argument("--json", action="store_true",
                         help="machine-readable findings on stdout")
     p_lint.add_argument("--pass", dest="passes", action="append",
-                        choices=(list(ALL_PASSES) + list(EXTRA_PASSES)
-                                 + list(UNPORTED_PASSES)),
+                        choices=list(ALL_PASSES) + list(EXTRA_PASSES),
                         help="run only the named pass(es); default "
-                             "trace+contract+schema (ir/cost/lanes/ranges "
-                             "are opt-in: they trace every registered "
-                             "model)")
+                             "trace+contract+schema (ir/cost/lanes/ranges/"
+                             "shard/aot are opt-in: they record every "
+                             "registered model or the dispatch)")
     p_lint.add_argument("--ir", action="store_true",
                         help="run the IR hazard pass (JXP4xx) over the "
                              "aten graph of every registered model's tick")
@@ -531,15 +526,34 @@ def _parser() -> argparse.ArgumentParser:
     p_lint.add_argument("--ranges-horizon-log2", type=int, default=None,
                         help="probe this horizon (log2 ticks) instead of "
                              "the default 2^24, and gate ABS701 on it")
-    for flag in ("--shard", "--update-shard-manifest", "--aot",
-                 "--update-aot"):
-        p_lint.add_argument(flag, action="store_true",
-                            help="a pass of the JAX CLI not ported yet: "
-                                 "refused")
-    for flag in ("--shard-manifest", "--aot-manifest", "--aot-store"):
-        p_lint.add_argument(flag, default=None,
-                            help="a file of a pass not ported yet: "
-                                 "refused")
+    p_lint.add_argument("--shard", action="store_true",
+                        help="run the shard pass (SHD8xx): the collective "
+                             "census of every registered model's sharded "
+                             "chunk vs analysis/shard_manifest.json, the "
+                             "replicated-params and reshard checks")
+    p_lint.add_argument("--update-shard-manifest", action="store_true",
+                        help="re-record analysis/shard_manifest.json from "
+                             "the current tree (implies --shard)")
+    p_lint.add_argument("--shard-manifest", default=None,
+                        help="shard-manifest file (default "
+                             "maelstrom_tpu_torch/analysis/"
+                             "shard_manifest.json)")
+    p_lint.add_argument("--aot", action="store_true",
+                        help="run the aot pass (EXE9xx): the chunk "
+                             "dispatch's certificate vs analysis/"
+                             "aot_manifest.json, and every entry of the "
+                             "kernel-library store")
+    p_lint.add_argument("--update-aot", action="store_true",
+                        help="re-record analysis/aot_manifest.json "
+                             "(implies --aot); with an explicit "
+                             "--aot-store DIR also populate that store")
+    p_lint.add_argument("--aot-manifest", default=None,
+                        help="aot-manifest file (default "
+                             "maelstrom_tpu_torch/analysis/"
+                             "aot_manifest.json)")
+    p_lint.add_argument("--aot-store", default=None,
+                        help="the store the aot pass audits: a directory, "
+                             "auto (default: build/aot) or off")
     p_lint.add_argument("--baseline", default=None,
                         help="baseline file (default "
                              "maelstrom_tpu_torch/analysis/baseline.json)")
@@ -553,28 +567,15 @@ def _parser() -> argparse.ArgumentParser:
 
 def cmd_lint(args) -> int:
     """Run the analysis passes; --strict turns error findings into a
-    nonzero exit. The passes not ported yet exit 2."""
+    nonzero exit."""
     from .analysis import render_text, run_lint
     from .analysis.findings import DEFAULT_BASELINE
 
-    refused = [(flag, name) for attr, flag, name in _UNPORTED_FLAGS
-               if getattr(args, attr) not in (None, False)]
-    refused += [(f"--pass {p}", p) for p in (args.passes or ())
-                if p in UNPORTED_PASSES]
-    if refused:
-        names = list(dict.fromkeys(name for _, name in refused))
-        print(f"error: {', '.join(flag for flag, _ in refused)}: the "
-              f"{', '.join(names)} pass{'es are' if len(names) > 1 else ' is'}"
-              f" not ported yet (ROADMAP "
-              f"{', '.join(sorted({UNPORTED_PASSES[n] for n in names}))}"
-              f"). The port runs the "
-              f"{', '.join(ALL_PASSES + EXTRA_PASSES)} passes.",
-              file=sys.stderr)
-        return 2
     # None = runner default (the default passes; trace-only when paths
-    # restrict). --ir / --cost / --lanes / --ranges name the opt-in
-    # passes (--update-baseline implies --cost, --update-manifest
-    # --lanes, --update-ranges --ranges)
+    # restrict). --ir / --cost / --lanes / --ranges / --shard / --aot
+    # name the opt-in passes (--update-baseline implies --cost,
+    # --update-manifest --lanes, --update-ranges --ranges,
+    # --update-shard-manifest --shard, --update-aot --aot)
     passes = list(args.passes) if args.passes else []
     if args.ir:
         passes.append("ir")
@@ -584,6 +585,10 @@ def cmd_lint(args) -> int:
         passes.append("lanes")
     if args.ranges or args.update_ranges:
         passes.append("ranges")
+    if args.shard or args.update_shard_manifest:
+        passes.append("shard")
+    if args.aot or args.update_aot:
+        passes.append("aot")
     baseline = None if args.no_baseline else (args.baseline
                                               or DEFAULT_BASELINE)
     report = run_lint(repo_root=args.root,
@@ -595,7 +600,12 @@ def cmd_lint(args) -> int:
                       update_lane_manifest=args.update_manifest,
                       range_manifest_path=args.range_manifest,
                       update_range_manifest=args.update_ranges,
-                      ranges_horizon_log2=args.ranges_horizon_log2)
+                      ranges_horizon_log2=args.ranges_horizon_log2,
+                      shard_manifest_path=args.shard_manifest,
+                      update_shard_manifest=args.update_shard_manifest,
+                      aot_manifest_path=args.aot_manifest,
+                      update_aot_manifest=args.update_aot,
+                      aot_store_path=args.aot_store)
     if args.json:
         print(json.dumps(report.to_json(), indent=2))
     else:

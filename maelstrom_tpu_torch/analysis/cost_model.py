@@ -64,7 +64,8 @@ Where it differs from the JAX model, and why:
 
 The numbers feed the same consumers as in JAX: ``lint --cost``
 (``analysis/ir_lint.py``, gated against ``analysis/cost_baseline.json``
-with a 10% tolerance), the bench line (``ir_eqns``, ``ir_bytes_est``),
+with a 10% tolerance), the bench line (``ir_eqns``, ``ir_bytes_est``;
+through :func:`tick_shard_stats` the shard pass's fields),
 ``profile_tick.py``'s static column, the campaign report's
 ``ir-bytes-est``, and ``chip_smoke.py``'s check that the static count
 predicts the kernels the card launches.
@@ -477,14 +478,62 @@ class _Recorder:
                                   self._region()))
 
 
-def _recording(rec: _Recorder):
-    """The dispatch mode that feeds ``rec``."""
+# the process-group operators of torch.distributed: functional
+# collectives and the c10d ops behind the classic API
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d")
+
+
+def _collective_out(func, args, group_size: int):
+    """What a collective of :data:`COLLECTIVE_NAMESPACES` returns, on
+    ``meta`` and without a process group: the gathers' outputs grow by
+    the group's size along dim 0, a reduce-scatter's shrink by it, the
+    rest keep their input's shape (the in-place c10d ops return their
+    operands). No backend runs: the recorder sees the operator and its
+    shapes, and nothing is communicated."""
+    name = func.overloadpacket.__name__
+    x = args[0]
+    if isinstance(x, (list, tuple)):
+        return type(x)(torch.empty_like(t) for t in x)
+    if name.startswith("all_gather"):
+        n = args[1] if len(args) > 1 and isinstance(args[1], int) \
+            else group_size
+        return x.new_empty((x.shape[0] * n,) + tuple(x.shape[1:]))
+    if name.startswith("reduce_scatter"):
+        n = args[2] if len(args) > 2 and isinstance(args[2], int) \
+            else group_size
+        return x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    if name == "wait_tensor":
+        return x
+    return torch.empty_like(x)
+
+
+def _off_meta_copy(func, args, kwargs) -> bool:
+    """A copy of a ``meta`` tensor to another accelerator device (a
+    cross-device copy on the card); a copy to the CPU is a host read and
+    raises as before."""
+    dev = kwargs.get("device")
+    return (func is torch.ops.aten._to_copy.default and dev is not None
+            and torch.device(dev).type not in ("meta", "cpu")
+            and isinstance(args[0], torch.Tensor) and args[0].is_meta)
+
+
+def _recording(rec: _Recorder, group_size: int = 2):
+    """The dispatch mode that feeds ``rec``. A collective (the tick of a
+    shard that talks to its peers) is recorded with the shapes of
+    :func:`_collective_out` at ``group_size`` shards and is not run; a
+    copy of a ``meta`` tensor to an accelerator stays on ``meta`` and
+    keeps its ``device`` argument in the graph."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class _Mode(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
-            out = func(*args, **kwargs)
+            if func.namespace in COLLECTIVE_NAMESPACES:
+                out = _collective_out(func, args, group_size)
+            elif _off_meta_copy(func, args, kwargs):
+                out = func(*args, **{**kwargs, "device": META})
+            else:
+                out = func(*args, **kwargs)
             # the phase ranges' own profiler ops launch nothing
             if func.namespace != "profiler":
                 rec.add(func, args, kwargs, out)
@@ -523,6 +572,33 @@ def record_tick(model, sim, t: int) -> TickGraph:
     for p, x in outs:
         g.output_paths.append(p)
         g.outputs.append(rec.ref(x))
+    return g
+
+
+def record_call(fn, inputs, *args, group_size: int = 2) -> TickGraph:
+    """The aten graph of ``fn(inputs, *args)`` on ``meta`` tensors,
+    functionalized, as :func:`record_tick` records a tick: the tensors
+    of ``inputs`` (a tree) are the graph's inputs, what ``fn`` returns
+    its outputs. The executable store's certificate records a chunk
+    dispatch so (``aot_store.record_dispatch``), and the shard pass one
+    shard's chunk (``shard_audit.trace_sharded_chunk``)."""
+    g = TickGraph(t=0)
+    rec = _Recorder(g)
+
+    def call(c):
+        return fn(c, *args)
+    rec.stop = call.__code__
+    with torch.no_grad():
+        for p, x in flatten_paths(inputs):
+            g.input_paths.append(p)
+            g.inputs.append(rec.value(x, "input"))
+        f = torch.func.functionalize(call, remove="mutations")
+        with _recording(rec, group_size):
+            out = f(inputs)
+    for p, x in flatten_paths(out):
+        g.output_paths.append(p)
+        g.outputs.append(rec.ref(x))
+    g.n_carry_out = len(g.outputs)
     return g
 
 
@@ -759,6 +835,16 @@ def tick_range_stats(model, sim, cache=None) -> Dict[str, int]:
     analysis lives in :mod:`.absint`."""
     from .absint import tick_range_stats as stats
     return stats(model, sim, cache=cache)
+
+
+def tick_shard_stats(model, sim, mesh_size: int = 8,
+                     cache=None) -> Dict[str, int]:
+    """The bench line's shard fields: ``collectives_per_tick`` (the
+    collectives in a shard's tick under ``sim``) and ``ici_bytes_est``
+    (the per-tick estimate at ``mesh_size`` shards). Thin delegation;
+    the analysis lives in :mod:`.shard_audit`."""
+    from .shard_audit import shard_stats
+    return shard_stats(model, sim, mesh_size, cache=cache)
 
 
 def tick_lane_stats(model, sim, cost: Optional[CostReport] = None,

@@ -90,7 +90,8 @@ class BaselineEntry:
 _RULE_PASS_PREFIXES = (("TRC", "trace"), ("CON", "contract"),
                        ("SCH", "schema"), ("JXP", "ir"),
                        ("COST", "cost"), ("LNE", "lanes"),
-                       ("ABS", "ranges"))
+                       ("ABS", "ranges"), ("SHD", "shard"),
+                       ("EXE", "aot"))
 
 
 def fingerprint_pass(fingerprint: str) -> Optional[str]:

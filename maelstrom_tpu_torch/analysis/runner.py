@@ -5,10 +5,10 @@ programmatic face of the CLI subcommand: pick passes, collect findings,
 split them into live / baselined / stale, and hand back a
 :class:`~.findings.LintReport`. Exit-code policy lives in
 ``__main__.cmd_lint``: ``--strict`` fails on any unsuppressed
-error-severity finding. The opt-in passes over the aten graph of the
-tick (``ir``, ``cost``, ``lanes``, ``ranges``) run only when named; the
-JAX package's ``shard`` and ``aot`` passes are not ported yet, and the
-CLI refuses them by name.
+error-severity finding. The opt-in passes run only when named: those
+over the aten graph of the tick (``ir``, ``cost``, ``lanes``,
+``ranges``), the shard pass over the mesh executor (``shard``) and the
+audit of the kernel-library store (``aot``).
 """
 
 from __future__ import annotations
@@ -22,11 +22,12 @@ from .findings import (Baseline, DEFAULT_BASELINE, Finding, LintReport,
 ALL_PASSES = ("trace", "contract", "schema")
 
 # opt-in passes: the IR hazard audit, the cost gate, the lane-liveness
-# slice and the value-range interpreter trace every registered model
+# slice, the value-range interpreter and the shard pass record every
+# registered model, and the aot pass its subjects' chunk dispatches
 # (tens of seconds to minutes), so they run only when named (`--ir` /
-# `--cost` / `--lanes` / `--ranges` / `--pass ir`), never as part of the
-# default sweep
-EXTRA_PASSES = ("ir", "cost", "lanes", "ranges")
+# `--cost` / `--lanes` / `--ranges` / `--shard` / `--aot` / `--pass
+# ir`), never as part of the default sweep
+EXTRA_PASSES = ("ir", "cost", "lanes", "ranges", "shard", "aot")
 
 
 def run_lint(repo_root: str = ".",
@@ -40,6 +41,11 @@ def run_lint(repo_root: str = ".",
              range_manifest_path: Optional[str] = None,
              update_range_manifest: bool = False,
              ranges_horizon_log2: Optional[int] = None,
+             shard_manifest_path: Optional[str] = None,
+             update_shard_manifest: bool = False,
+             aot_manifest_path: Optional[str] = None,
+             update_aot_manifest: bool = False,
+             aot_store_path: Optional[str] = None,
              ) -> LintReport:
     """Run the requested passes and fold in the baseline.
 
@@ -55,7 +61,12 @@ def run_lint(repo_root: str = ".",
     (``analysis/lane_manifest.json``); ``range_manifest_path`` /
     ``update_range_manifest`` / ``ranges_horizon_log2`` the ranges pass
     (``analysis/range_manifest.json``; the horizon override probes a
-    synthetic budget).
+    synthetic budget); ``shard_manifest_path`` /
+    ``update_shard_manifest`` the shard pass
+    (``analysis/shard_manifest.json``); ``aot_manifest_path`` /
+    ``update_aot_manifest`` / ``aot_store_path`` the aot pass
+    (``analysis/aot_manifest.json``, the store it audits or, updating,
+    populates).
     """
     repo_root = os.path.abspath(repo_root)
     findings: List[Finding] = []
@@ -112,6 +123,21 @@ def run_lint(repo_root: str = ".",
             manifest_path=lane_manifest_path,
             update_manifest=update_lane_manifest,
             trace_cache=trace_cache))
+    if "shard" in effective:
+        from .shard_audit import run_shard_lint
+        findings.extend(run_shard_lint(
+            repo_root,
+            manifest_path=shard_manifest_path,
+            update_manifest=update_shard_manifest,
+            trace_cache=trace_cache))
+    if "aot" in effective:
+        from .aot_audit import run_aot_lint
+        findings.extend(run_aot_lint(
+            repo_root,
+            manifest_path=aot_manifest_path,
+            update_manifest=update_aot_manifest,
+            store_path=aot_store_path,
+            trace_cache=trace_cache))
     if finish_ranges is not None:
         findings.extend(finish_ranges())
 
@@ -129,8 +155,8 @@ def run_lint(repo_root: str = ".",
     # out-of-scope baseline entries suppress, and reporting those as
     # stale would tell the user to delete live entries. Staleness is
     # also pass-scoped (findings.fingerprint_pass): a default run must
-    # not report the ir/cost/lanes/ranges entries as stale just because
-    # those opt-in passes did not run.
+    # not report the ir/cost/lanes/ranges/shard/aot entries as stale
+    # just because those opt-in passes did not run.
     full_scope = set(ALL_PASSES) <= set(effective) and paths is None
     return LintReport(findings=live, suppressed=suppressed,
                       stale=baseline.stale_entries(set(effective))

@@ -711,13 +711,17 @@ TRACE_TARGET_PATTERNS = (
     "maelstrom_tpu_torch/checkers/pool.py",
     "maelstrom_tpu_torch/campaign/*.py", "maelstrom_tpu_torch/faults/*.py",
     "maelstrom_tpu_torch/parallel/mesh.py",
+    # host-side analysis code whose verdicts gate the executors: keep the
+    # analyzers themselves lint-clean, as the JAX pass does
+    "maelstrom_tpu_torch/analysis/shard_audit.py",
+    "maelstrom_tpu_torch/analysis/aot_audit.py",
 )
 
 
 def default_trace_targets(repo_root: str) -> List[str]:
     """The files the pass reads by default: every model, the tick loop
-    and its helpers, the delivery kernel's wrapper, and the executors
-    around the tick."""
+    and its helpers, the delivery kernel's wrapper, the executors around
+    the tick, and the shard and aot analyzers."""
     import glob
     out = []
     for p in TRACE_TARGET_PATTERNS:

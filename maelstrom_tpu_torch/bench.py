@@ -25,8 +25,16 @@ sim's tick on ``meta`` tensors (``analysis/cost_model.py``): ``ir_eqns``
 ``lanes_dead_bytes`` (``analysis/lane_liveness.py``), and
 ``ovf_margin_bits`` (``analysis/absint.py``: the minimum proven counter
 headroom, in bits to int32 max, of this sim's tick at the production
-horizon or the proven one if shorter; 0 = unproven); a failure logs and
-leaves its fields ``null``.
+horizon or the proven one if shorter; 0 = unproven), and
+``collectives_per_tick`` and ``ici_bytes_est`` (``analysis/
+shard_audit.py``: the collectives in a shard's tick and the bytes one
+shard would move per tick at 8 shards); a failure logs and leaves its
+fields ``null``. The chunks go through the certified store of the kernel
+libraries (``aot_store.py``, ``--aot-store DIR|auto|off``, default
+``auto``): the line carries ``aot`` (the store's outcome, or ``false``
+when it is off), ``aot_load_s`` and ``first_dispatch_s``, the wall from
+the start of the store's work (or the kernel's build) to the warm-up
+chunk's counters on the host.
 
 Environment knobs, those of ``bench.py`` that mean something here:
 ``BENCH_INSTANCES`` (4096), ``BENCH_SIM_SECONDS`` (4.0),
@@ -34,8 +42,9 @@ Environment knobs, those of ``bench.py`` that mean something here:
 distribution), ``BENCH_RECORD_INSTANCES`` (1), ``BENCH_CHECK_MODE``
 (``farm``; ``device`` or ``both`` add the device verdict lanes to the
 tick), ``BENCH_DEVICE_PROFILE=0`` (no profiler), ``BENCH_LANES=0`` (no
-lane fields) and ``BENCH_RANGES=0`` (no ``ovf_margin_bits``). Needs a
-CUDA card.
+lane fields) and ``BENCH_RANGES=0`` (no ``ovf_margin_bits``) and ``BENCH_SHARD=0`` (no
+shard fields); ``MAELSTROM_AOT=0`` or ``--aot-store off`` turns the store
+off. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -67,7 +76,8 @@ def static_fields(model, sim) -> dict:
     fields ``None``: it never stops the bench."""
     out = dict(ir_eqns=None, ir_bytes_est=None, lanes_live=None,
                lanes_dead=None, lanes_dead_bytes=None,
-               ovf_margin_bits=None)
+               ovf_margin_bits=None, collectives_per_tick=None,
+               ici_bytes_est=None)
     from .analysis import cost_model
     cache: dict = {}
     cost = None
@@ -98,13 +108,29 @@ def static_fields(model, sim) -> dict:
                 f"({time.monotonic() - t0:.1f} s)")
         except Exception as e:
             log(f"tick_range_stats unavailable: {e!r}")
+    if os.environ.get("BENCH_SHARD") != "0":
+        try:
+            out.update(cost_model.tick_shard_stats(model, sim, 8,
+                                                   cache=cache))
+            log(f"shard comms: {out['collectives_per_tick']} collective(s) "
+                f"in a shard's tick, ~{out['ici_bytes_est']} B/tick at 8 "
+                f"shards")
+        except Exception as e:
+            log(f"shard_stats unavailable: {e!r}")
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(prog="python -m maelstrom_tpu_torch.bench")
+    ap.add_argument("--aot-store", default="auto",
+                    help="the kernel-library store: a directory, auto "
+                         "(build/aot) or off")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("maelstrom_tpu_torch.bench needs a CUDA card")
     from . import fleets, harness, pipeline, runtime
+    from .aot_store import finalize_record, resolve_store_dir, wrap_pipelined
     from .faults.fuzz import BENCH_FUZZ_DIST
     from .kernels import build, delivery, devtime
     from .telemetry.profiler import DeviceProfiler
@@ -126,9 +152,11 @@ def main() -> int:
     dev = torch.device("cuda")
     log(devtime.card_line())
 
-    t_b = time.monotonic()
-    build.build_all([delivery.SOURCE])
-    log(f"delivery kernel built in {time.monotonic() - t_b:.1f} s")
+    store_dir = resolve_store_dir(args.aot_store)
+    t_first = time.monotonic()
+    if store_dir is None:
+        build.build_all([delivery.SOURCE])
+        log(f"delivery kernel built in {time.monotonic() - t_first:.1f} s")
     ids = runtime.default_instance_ids(sim, dev)
     carry = runtime.init_carry(model, sim, int(opts["seed"]), dev, ids)
     tick = runtime.make_tick_fn(model, sim, ids, dev)
@@ -139,23 +167,32 @@ def main() -> int:
     n_chunks = [0]
 
     def issue(c, t0: int, length: int):
-        buf = pipeline.new_buffer(cap, V, dev) if R > 0 else None
-        for t in range(t0, t0 + length):
-            c, ys = tick(c, t)
-            if buf is not None:
-                buf = pipeline.compact_tick(buf, t, ys.events, V)
-        return c, torch.stack(list(c.stats))
+        # the chunked executor's dispatch, the fleet's counters copied
+        return pipeline.issue_chunk(
+            tick, c, t0, length, cap=cap, V=V, R=R,
+            J=sim.journal_instances, instance_ids=ids,
+            scan_k=pipeline.DEFAULT_SCAN_TOP_K, with_stats=True,
+            device=dev)
+
+    # the store resolves each chunk length before its first chunk: a hit
+    # loads the delivery library, a miss builds it into the store
+    wrapped, aot_rec = wrap_pipelined(
+        issue, model=model, sim=sim, instance_ids=ids, cap=cap,
+        scan_k=pipeline.DEFAULT_SCAN_TOP_K, stats=True, device=dev,
+        store_dir=store_dir)
+    if wrapped is not None:
+        issue = wrapped
 
     def step(c, t0: int, length: int):
         """One chunk queued on the card: the carry and its counters'
         pending copy."""
         if prof is not None and prof.should_capture(n_chunks[0]):
-            (c, svec), _ = prof.capture(issue, (c, t0, length), length,
-                                        devices=[dev])
+            (c, out), _ = prof.capture(issue, (c, t0, length), length,
+                                       devices=[dev])
         else:
-            c, svec = issue(c, t0, length)
+            c, out = issue(c, t0, length)
         n_chunks[0] += 1
-        return c, pipeline.start_fetch(svec)
+        return c, pipeline.start_fetch(out[-2])
 
     def counters(fetch):
         """(sent, delivered, dropped_overflow) after the chunk."""
@@ -169,7 +206,10 @@ def main() -> int:
         carry, fetch = step(carry, 0, W)
         sent, delivered, ovf = counters(fetch)
         ticks = W
-        log(f"warm-up chunk of {W} ticks in {time.monotonic() - t0:.2f} s")
+        first_dispatch_s = time.monotonic() - t_first
+        log(f"warm-up chunk of {W} ticks in {time.monotonic() - t0:.2f} s; "
+            f"{first_dispatch_s:.2f} s from the start of the store's work "
+            f"(or the build) to its counters")
         if ticks + W <= n_ticks:
             t1 = time.monotonic()
             carry, fetch = step(carry, ticks, W)
@@ -233,7 +273,16 @@ def main() -> int:
         "telemetry": bench_telemetry,
         "device_profile": bench_profile,
         **static,
+        "first_dispatch_s": round(first_dispatch_s, 3),
+        "aot": (False if aot_rec is None else {
+            "hit": aot_rec["hit"], "fingerprint": aot_rec["fingerprint"],
+            "lengths": dict(aot_rec["lengths"]),
+            **({"error": aot_rec["error"]} if "error" in aot_rec else {})}),
     }
+    if aot_rec is not None:
+        finalize_record(aot_rec)
+        rec["aot_load_s"] = aot_rec["load-s"]
+        log(f"aot store: {json.dumps(aot_rec)}")
     if sim.check_summary:
         from .checkers import device_summary
         flagged = device_summary.flagged_mask(

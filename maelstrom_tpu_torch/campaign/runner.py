@@ -100,7 +100,8 @@ def resume_run(run_dir: str,
     """Resume one killed checkpointed run in place on ``device``; returns
     the final results (also written to the run dir's results.json),
     equal to the run executed uninterrupted."""
-    from ..checkers.triage import TriageError, load_run_info
+    from ..checkers.triage import (TriageError, check_fingerprint,
+                                   load_run_info)
     from ..harness import run_torch_test
 
     run_dir = os.path.realpath(run_dir)
@@ -113,21 +114,14 @@ def resume_run(run_dir: str,
         info = load_run_info(run_dir)
     except TriageError as e:
         raise CheckpointError(str(e))
-    header = ((info.get("heartbeat") or {}).get("header") or {})
-    if header.get("aot-fingerprint"):
-        # the JAX package's drift gate (EXE901) recomputes the
-        # fingerprint from its executable store, which the port lacks
-        raise CheckpointError(
-            f"{run_dir}: the run-start record carries an executable "
-            f"fingerprint (aot-fingerprint), which only the JAX "
-            f"package's executable store can check; maelstrom_tpu_torch "
-            f"does not port that store, so it cannot show the resumed "
-            f"suffix runs the code of the checkpointed prefix — resume "
-            f"this run with python -m maelstrom_tpu campaign resume")
     opts = dict(info["opts"])
     opts["seed"] = info["seed"]
     opts.update(opts_override or {})
     model = build_model(info["workload"], opts, info["model-config"])
+    # the store's drift gate (EXE901): the resumed suffix must run the
+    # code of the checkpointed prefix
+    check_fingerprint(info, model, _run_opts(opts), CheckpointError,
+                      "resume")
     return run_torch_test(model, _run_opts(opts), device=device,
                           resume_from=run_dir)
 

@@ -153,6 +153,44 @@ def _journal_edn_lines(journal):
         yield dumps(rec)
 
 
+def check_fingerprint(info: Dict[str, Any], model, opts: Dict[str, Any],
+                      error, verb: str) -> None:
+    """The executable store's drift gate, as the JAX package's triage
+    and campaign resume hold it: a run-start record carrying an
+    ``aot-fingerprint`` that this package wrote (``aot-engine``) is
+    recomputed from the record's options for the recorded device
+    (``harness.aot_fingerprint_for``); a match goes on, a drift raises
+    ``error`` naming EXE901, and ``MAELSTROM_AOT=0`` (or the record's
+    store off) skips the gate. A fingerprint the JAX package wrote keys
+    an XLA executable, which this package cannot recompute: refused by
+    name."""
+    header = ((info.get("heartbeat") or {}).get("header") or {})
+    recorded = header.get("aot-fingerprint")
+    if not recorded:
+        return
+    from ..harness import AOT_ENGINE, aot_fingerprint_for
+    if header.get("aot-engine") != AOT_ENGINE:
+        raise error(
+            f"{info['run-dir']}: the run-start record carries the JAX "
+            f"package's executable fingerprint (aot-fingerprint "
+            f"{recorded}), which keys an XLA executable that "
+            f"maelstrom_tpu_torch cannot recompute, so it cannot show "
+            f"the {verb} runs the run's own code — {verb} this run with "
+            f"python -m maelstrom_tpu")
+    dsig = header.get("aot-device")
+    current = aot_fingerprint_for(model, opts,
+                                  device_sig=tuple(dsig) if dsig else None)
+    if current is not None and current != recorded:
+        raise error(
+            f"EXE901: executable fingerprint drifted since this run "
+            f"(recorded {recorded}, current {current}) — the dispatch's "
+            f"sources, toolchain or run config changed, so the {verb} "
+            f"would not be bit-identical to the original dispatch. Run "
+            f"it from the matching checkout (and re-certify with "
+            f"`python -m maelstrom_tpu_torch lint --aot --update-aot`), "
+            f"or set MAELSTROM_AOT=0 to go on anyway")
+
+
 def triage_run(run_dir: str, ids: Optional[List[int]] = None,
                max_instances: int = 8, out_root: Optional[str] = None,
                max_svg_events: int = 1500, device=None) -> Dict[str, Any]:
@@ -185,19 +223,11 @@ def triage_run(run_dir: str, ids: Optional[List[int]] = None,
                            "heartbeat saw no violation scan hits)")
         return summary
 
-    header = ((info.get("heartbeat") or {}).get("header") or {})
-    if header.get("aot-fingerprint"):
-        # the JAX package's executable-store gate: the port has no
-        # executable store to recompute the fingerprint from
-        raise TriageError(
-            f"{info['run-dir']}: the run-start record carries an "
-            f"executable fingerprint (aot-fingerprint), which only the "
-            f"JAX package's executable store can check; "
-            f"maelstrom_tpu_torch does not port that store, so it "
-            f"cannot show the replay is bit-identical — triage this run "
-            f"with python -m maelstrom_tpu triage")
     dev = resolve_device(device)
     model = resolve_model(info)
+    # the store's drift gate (EXE901): the replay contract is bit-identity
+    # with the run's own dispatch
+    check_fingerprint(info, model, info["opts"], TriageError, "triage")
     K = len(targets)
     sub_opts = {**info["opts"], "n_instances": K, "record_instances": K,
                 "journal_instances": K}

@@ -114,6 +114,13 @@ TORCH_DEFAULTS = dict(
                              # for >= 16 recorded instances on a
                              # multi-core host); verdicts are identical
                              # at every setting
+    aot_store="auto",        # the certified store of the kernel
+                             # libraries (aot_store.py): "auto" is
+                             # build/aot, a dir pins it, "off" (or
+                             # MAELSTROM_AOT=0) disables. A warm store
+                             # loads the delivery library without nvcc
+                             # (perf.phases.pipeline.aot.hit); entries
+                             # are certified by `lint --aot` (EXE9xx)
     check_mode="farm",       # verdict routing: "farm" checks every
                              # recorded instance on the host; "device"
                              # runs the device verdict lanes (checkers/
@@ -123,11 +130,11 @@ TORCH_DEFAULTS = dict(
 )
 CHECK_MODES = ("farm", "device", "both")
 
-# options of the JAX harness that change neither the trajectory nor the
-# verdict and have no counterpart here, accepted and not used: the
-# executable store and the compilation cache (the port compiles nothing
-# per run)
-LIFECYCLE_OPTS = ("aot_store", "compile_cache")
+# an option of the JAX harness that changes neither the trajectory nor
+# the verdict and has no counterpart here, accepted and not used: the
+# XLA compilation cache (the port compiles nothing per run; its kernel
+# libraries go through the aot_store option)
+LIFECYCLE_OPTS = ("compile_cache",)
 # model-selection flags (models.get_model builds the model from them; the
 # harness holds the model to them) and the Elle checker's model names
 MODEL_OPTS = ("crash_clients", "txn_dirty_apply", "consistency_models")
@@ -526,6 +533,39 @@ def heartbeat_meta(model: Model, sim: SimConfig, opts: Dict[str, Any],
     return meta
 
 
+AOT_ENGINE = "maelstrom_tpu_torch"
+
+
+def _resolve_aot_dir(opts: Dict[str, Any]) -> Optional[str]:
+    """The run's effective store dir (None = disabled)."""
+    from .aot_store import resolve_store_dir
+    return resolve_store_dir(opts.get("aot_store", "auto"))
+
+
+def aot_fingerprint_for(model: Model, opts: Dict[str, Any],
+                        device=None, device_sig=None) -> Optional[str]:
+    """The store key of a run's first chunk dispatch from ``(model,
+    opts)`` and its device (``device``, or the recorded ``(platform,
+    kind)`` pair ``device_sig``) alone: shapes only, nothing recorded
+    or built. The heartbeat's run-start record carries it; ``triage``
+    and ``campaign.runner.resume_run`` recompute it and refuse a drift
+    by name (EXE901) instead of replaying against other code. None when
+    the store is disabled or the fingerprint cannot be derived."""
+    full = {**TORCH_DEFAULTS, **(opts or {})}
+    if _resolve_aot_dir(full) is None:
+        return None
+    try:
+        from .aot_store import pipelined_fingerprint
+        sim = make_sim_config(model, full)
+        return pipelined_fingerprint(
+            model, sim, chunk=int(full.get("chunk_ticks") or 100),
+            event_cap=int(full.get("event_capacity") or 0) or None,
+            scan_k=int(full.get("scan_top_k") or 1), device=device,
+            device_sig=device_sig)
+    except Exception:
+        return None
+
+
 def _resume_state(model: Model, sim: SimConfig, seed: int, run_dir: str,
                   dev: torch.device):
     """The cut a killed run left in ``<run_dir>/checkpoint/``, its carry
@@ -610,9 +650,20 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                                            "chunks-done": resume.chunks},
                                  resume_from=resume.ticks)
         else:
+            # the store key of the run's first chunk dispatch rides the
+            # run-start record, with the engine and the device it was
+            # keyed for: triage and campaign resume recompute it and
+            # refuse a drift by name (EXE901)
+            aot_fp = (aot_fingerprint_for(model, opts, device=dev)
+                      if use_pipe else None)
+            aot = {}
+            if aot_fp:
+                from .aot_store import _device_sig
+                aot = {"aot-fingerprint": aot_fp, "aot-engine": AOT_ENGINE,
+                       "aot-device": list(_device_sig(dev))}
             hb = HeartbeatWriter(run_dir, dict(
                 heartbeat_meta(model, sim, opts, fuzz_windows),
-                pipeline=bool(use_pipe)))
+                pipeline=bool(use_pipe), **aot))
     checkpoint_cb = None
     if int(opts.get("checkpoint_every") or 0) > 0:
         if run_dir and use_pipe:
@@ -666,11 +717,15 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
                 check_mode=opts.get("check_mode"),
                 checkpoint_cb=checkpoint_cb,
                 checkpoint_every=int(opts.get("checkpoint_every") or 0),
-                resume=resume, profiler=prof)
+                resume=resume, profiler=prof,
+                aot_store=_resolve_aot_dir(opts))
             carry = pipe_res.carry
             journal_sends = pipe_res.journal_sends
             journal_recvs = pipe_res.journal_recvs
             phases["pipeline"] = pipe_res.perf
+            if "aot" in pipe_res.perf:
+                # the store's outcome ({hit, load-s, fingerprint, ...})
+                phases["aot"] = pipe_res.perf["aot"]
             if prof is not None and prof.records:
                 # device ms/tick by phase, next to the host timers
                 phases["device"] = prof.summary()

@@ -28,13 +28,17 @@ but the aten graph of their tick carries exactly the hazard the IR pass
 - :class:`IrScatterRace` — an overwrite scatter whose constant index
   rows alias (ABS702);
 - :class:`IrOobGather` — a clamped index whose range before the clamp
-  lies past the table (ABS703).
+  lies past the table (ABS703);
+- :class:`IrShardCrossTalk` — a tick that gathers and all-reduces over
+  the instance axis through functional collectives (SHD803, SHD801);
+- :class:`IrShardReplicatedLeaf` — a per-instance table in the params
+  every shard holds whole (SHD802).
 
 Like ``RaftTracedHazards``, none is in any workload registry and none
 may be: ``tests/test_torch_ir.py``, ``tests/test_torch_lanes.py`` and
-``tests/test_torch_ranges.py`` assert that each trips its rule, and
-``analysis/baseline.json`` carries the findings as ``expected``. The
-shard fixtures wait for their pass.
+``tests/test_torch_ranges.py`` and ``tests/test_torch_shard.py`` assert
+that each trips its rule, and ``analysis/baseline.json`` carries the
+findings as ``expected``.
 """
 
 from __future__ import annotations
@@ -277,4 +281,61 @@ RANGE_FIXTURE_MODELS = {
     "counter-overflow": IrCounterOverflow,
     "scatter-race": IrScatterRace,
     "oob-gather": IrOobGather,
+}
+
+
+# --- shard fixtures (analysis/shard_audit.py, SHD8xx) -----------------------
+#
+# Models clean by every one-device measure whose SHARDED run is
+# hazardous: what the shard pass exists to catch before a run over
+# several cards does. Never registered; findings carried as
+# status="expected" in analysis/baseline.json.
+
+# the process group a shard's collectives would name: the mesh's axis
+# (parallel/mesh.py AXIS)
+_GROUP = "instances"
+
+
+class IrShardCrossTalk(EchoModel):
+    """SHARD FIXTURE (do not register): the tick gathers every shard's
+    rows across the instance axis and folds an all-reduce of them back
+    into the row — a cross-shard data dependence (SHD803: instances are
+    pure functions of (seed, global id), so results now change with the
+    mesh size) and an unbudgeted reduction in the tick (SHD801). The
+    functional collectives name the mesh's process group; outside a
+    group of that name they raise, so only the shard pass, which records
+    them on ``meta`` tensors, ever sees them."""
+    name = "echo-ir-shard-cross-talk"
+
+    def tick(self, row, node_idx, t, keys, cfg, params):
+        c10d = torch.ops._c10d_functional
+        peers = c10d.wait_tensor(c10d.all_gather_into_tensor(
+            row, 2, _GROUP))
+        spill = c10d.wait_tensor(c10d.all_reduce(
+            peers.sum(dtype=_I32).reshape(1), "sum", _GROUP))
+        return row + spill * 0, torch.zeros(
+            (node_idx.shape[0], self.tick_out, cfg.lanes), dtype=_I32,
+            device=node_idx.device)
+
+
+class IrShardReplicatedLeaf(EchoModel):
+    """SHARD FIXTURE (do not register): a params table with one row per
+    instance. Every shard builds the params whole, so every device holds
+    ALL instances' rows — per-instance state smuggled into the params is
+    O(shards) memory and stops scaling with the fleet (SHD802). The leaf
+    clears the audit's 16 KiB floor (4 x 4096 int32 = 64 KiB)."""
+    name = "echo-ir-shard-replicated-leaf"
+
+    def make_params(self, n_nodes, device=None):
+        # leading dim == the audit sim's per-shard instance count: the
+        # shape SHD802 keys on
+        return {"per_instance_cache": torch.zeros((4, 4096), dtype=_I32,
+                                                  device=device)}
+
+
+# audited by analysis/shard_audit.py alongside the registered models;
+# intentionally NOT reachable from models.get_model
+SHARD_FIXTURE_MODELS = {
+    "shard-cross-talk": IrShardCrossTalk,
+    "shard-replicated-leaf": IrShardReplicatedLeaf,
 }

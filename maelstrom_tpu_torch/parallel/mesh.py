@@ -221,6 +221,36 @@ def _sum_i32(xs) -> int:
     return int(np.int64(sum(int(x) for x in xs)).astype(np.int32))
 
 
+# the cross-shard reductions of the executors, when a census is open
+# (shard_audit.trace_sharded_run): one (primitive, per-shard bytes) each
+_CENSUS: List[list] = []
+
+
+@contextlib.contextmanager
+def reduction_census():
+    """Collect the cross-shard reductions the executors make while the
+    block runs: ``[(primitive, per-shard payload bytes), ...]``, in
+    JAX's vocabulary (a sum over the shards is a ``psum``)."""
+    got: list = []
+    _CENSUS.append(got)
+    try:
+        yield got
+    finally:
+        _CENSUS.remove(got)
+
+
+def _psum(parts):
+    """The sum over the shards of one per-shard array (int32, wrapping),
+    the counterpart of a ``psum`` over the instance axis; counted by an
+    open :func:`reduction_census`."""
+    parts = [np.asarray(p) for p in parts]
+    for c in _CENSUS:
+        c.append(("psum", int(parts[0].nbytes)))
+    if parts[0].ndim == 0:
+        return _sum_i32(parts)
+    return sum(parts[1:], parts[0].copy())
+
+
 # --- the exchange between the processes of a mesh ---------------------------
 
 
@@ -360,7 +390,9 @@ def run_sim_sharded(model: Model, sim: SimConfig, seed: int, params=None,
                       None if c.telemetry is None else tuple(c.telemetry)))
     # every shard's parts, in global shard order
     parts = _flat(_all_rows(mesh, parts))
-    stats = NetStats(*(_sum_i32(xs) for xs in zip(*(p[0] for p in parts))))
+    # the single-dispatch runner's cross-shard reductions (JAX psums
+    # them inside shard_map): one per NetStats counter, and the series
+    stats = NetStats(*(_psum(xs) for xs in zip(*(p[0] for p in parts))))
     violations = deinterleave(
         np.concatenate([p[1] for p in parts], axis=0), S)
     events = deinterleave(np.concatenate([p[2] for p in parts], axis=1),
@@ -369,8 +401,11 @@ def run_sim_sharded(model: Model, sim: SimConfig, seed: int, params=None,
         return stats, violations, events
     tel = None
     if parts[0][3] is not None:
-        merged = merge_unsharded_telemetry([p[3] for p in parts])
-        tel = _deinterleave_telemetry(merged, merged.series, S)
+        tels = [Telemetry(*(_np(x) for x in p[3])) for p in parts]
+        merged = Telemetry(*(np.concatenate(xs, axis=0)
+                             for xs in zip(*tels)))
+        series = _psum([t.series for t in tels])
+        tel = _deinterleave_telemetry(merged, series, S)
     return stats, violations, events, tel
 
 
@@ -504,6 +539,43 @@ def _split_wire(wire: Carry, mesh: Mesh, n_instances: int,
     return out
 
 
+def shard_chunk(tick, carry: Carry, ids: torch.Tensor, t0: int,
+                length: int, R: int, scan_k: int):
+    """One shard's chunk of :func:`run_sim_sharded_chunked`: ``length``
+    ticks from ``t0``, then the chunk-end ``[1, 5]`` NetStats snapshot
+    and ``[1, k, 3]`` violation scan with global ids. Returns ``(carry',
+    outputs)``: the chunk's dense events (when ``R``), the snapshot and
+    the scan, which the executor copies to the host and joins there
+    (the shard_map boundary of the JAX executor: no reduction runs
+    here)."""
+    evs = []
+    for t in range(t0, t0 + length):
+        carry, ys = tick(carry, t)
+        if R > 0:
+            evs.append(ys.events)
+    svec = torch.stack(list(carry.stats)).reshape(1, -1)
+    scan = violation_scan(scan_source(carry), carry.telemetry, ids,
+                          k=scan_k)[None]
+    return carry, (*((torch.stack(evs),) if evs else ()), svec, scan)
+
+
+def record_shard_chunk(model: Model, sim: SimConfig, n_shards: int,
+                       length: int = 4, scan_k: int = DEFAULT_SCAN_TOP_K):
+    """The aten graph of shard 0's :func:`shard_chunk` at ``n_shards``
+    shards, on ``meta`` tensors (``analysis/cost_model.record_call``): a
+    collective the tick issues is recorded at ``n_shards`` (the shard
+    pass's census; the executable store's certificate)."""
+    from ..analysis.cost_model import META, record_call
+    ids = torch.from_numpy(shard_instance_ids(sim.n_instances,
+                                              n_shards)[0]).to(META)
+    carry = init_carry(model, sim, 0, META, ids)
+    tick = make_tick_fn(model, sim, ids, META)
+    return record_call(
+        lambda c: shard_chunk(tick, c, ids, 0, length,
+                              sim.record_instances, scan_k),
+        carry, group_size=n_shards)
+
+
 def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
                             params=None, mesh: Optional[Mesh] = None,
                             chunk: int = 100,
@@ -554,8 +626,12 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
     chunks its ``should_capture`` picks, by absolute chunk index: a
     captured chunk spans every shard's issue, its heartbeat record gains
     ``device-s``, ``device-ms`` and ``device-source``, and ``perf`` the
-    roll-up under ``device``. ``aot_store`` is the JAX executor's
-    executable store, which the port does not have.
+    roll-up under ``device``. ``aot_store`` (a directory, or None) is
+    the certified store of the kernel libraries (``aot_store.py``), as
+    on ``pipeline.run_sim_pipelined``: the first chunk of each length
+    loads the libraries of this process's shards from the store (a
+    hit) or builds and stores them (a miss); the outcome lands under
+    ``perf["aot"]``, and the outputs are the same warm or cold.
 
     On a mesh over several processes every rank calls this with the
     same arguments and issues its own row's shards. Each chunk's
@@ -566,9 +642,6 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
     ``checkpoint_cb`` (with the global wire) and fills ``perf`` (every
     shard's issue seconds, and each process's seconds in the exchange,
     ``process-gather-s``); its ``profiler`` captures its own shards."""
-    if aot_store is not None:
-        raise ValueError("aot_store: the port has no executable store "
-                         "(tpu/aot_store.py is not ported)")
     seed32 = _prepare(sim, seed, params)
     mesh = mesh or make_mesh()
     _check_group(mesh)
@@ -612,22 +685,21 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
         the queued copies."""
         t_i = time.monotonic()
         with _on(devs[j]):
-            carry, evs = carries[j], []
-            for t in range(t0, t0 + length):
-                carry, ys = ticks[j](carry, t)
-                if R > 0:
-                    evs.append(ys.events)
-            carries[j] = carry
-            svec = torch.stack(list(carry.stats)).reshape(1, -1)
-            scan = violation_scan(scan_source(carry), carry.telemetry,
-                                  ids[j], k=scan_k)[None]
-            fetch = start_fetch(*((torch.stack(evs),) if R > 0 else ()),
-                                svec, scan)
+            carries[j], out = shard_chunk(ticks[j], carries[j], ids[j], t0,
+                                          length, R, scan_k)
+            fetch = start_fetch(*out)
         stats["issue-s"][j] += time.monotonic() - t_i
         return fetch
 
     def issue_all(t0: int, length: int):
         return [issue(j, t0, length) for j in range(len(local))]
+
+    from ..aot_store import wrap_sharded
+    wrapped, aot_rec = wrap_sharded(issue_all, model=model, sim=sim,
+                                    mesh=mesh, carry=carries[0],
+                                    scan_k=scan_k, store_dir=aot_store)
+    if wrapped is not None:
+        issue_all = wrapped
 
     def consume(fetches, t0: int, length: int, prof_rec=None) -> bool:
         t_m = time.monotonic()
@@ -743,6 +815,9 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
             perf["stopped-early"] = True
         if profiler is not None and profiler.records:
             perf["device"] = profiler.summary()
+        if aot_rec is not None:
+            from ..aot_store import finalize_record
+            perf["aot"] = finalize_record(aot_rec)
 
     # the per-shard NetStats slots summed with int32 wrap; int adds
     # commute, so the total is invariant to how a reshard regrouped them

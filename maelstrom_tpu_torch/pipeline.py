@@ -236,6 +236,35 @@ def scan_source(carry: Carry) -> torch.Tensor:
     return carry.violations + (flags != 0).to(torch.int32)
 
 
+def issue_chunk(tick, carry: Carry, t0: int, length: int, *, cap: int,
+                V: int, R: int, J: int, instance_ids: torch.Tensor,
+                scan_k: int, with_stats: bool, device=None):
+    """One chunk dispatch of the chunked executor: ``length`` ticks of
+    ``tick`` from ``t0``, the recorded instances' events folded into a
+    fresh ``cap``-row compacted buffer, the journaled instances' rows,
+    the fleet's NetStats (``with_stats``) and the violation scan, queued
+    on the device. Returns ``(carry', outputs)``, ``outputs`` in the
+    order :func:`run_sim_pipelined`'s consumer pops them. The executor,
+    the bench and the executable store's recorder
+    (``aot_store.record_dispatch``) all run this one function."""
+    buf = new_buffer(cap, V, device) if R > 0 else None
+    sends, recvs = [], []
+    for t in range(t0, t0 + length):
+        carry, ys = tick(carry, t)
+        if buf is not None:
+            buf = compact_tick(buf, t, ys.events, V)
+        if J > 0:
+            sends.append(ys.journal_sends)
+            recvs.append(ys.journal_recvs)
+    scan = violation_scan(scan_source(carry), carry.telemetry,
+                          instance_ids, k=scan_k)
+    out = ((buf.rows, buf.count) if buf is not None else ()) + (
+        (torch.stack(sends), torch.stack(recvs)) if J > 0 else ())
+    if with_stats:
+        out += (torch.stack(list(carry.stats)),)
+    return carry, out + (scan,)
+
+
 class PipelineResult(NamedTuple):
     carry: Carry
     compact: List[Tuple[np.ndarray, int]]   # per chunk (rows, count)
@@ -255,7 +284,8 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
                       check_mode: Optional[str] = None,
                       checkpoint_cb=None, checkpoint_every: int = 0,
                       resume: Optional[ResumeState] = None,
-                      profiler=None) -> PipelineResult:
+                      profiler=None,
+                      aot_store: Optional[str] = None) -> PipelineResult:
     """Run the horizon chunk by chunk; returns the final carry, each
     chunk's compacted event rows, executor stats, the violation scan
     of the last consumed chunk and the journaled instances' sent rows
@@ -299,7 +329,18 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     under device-time measurement: their heartbeat records gain
     ``device-s``, ``device-ms`` and ``device-source``, and ``perf`` the
     roll-up under ``device``. The other chunks are issued as without
-    it; the trajectory is the same either way."""
+    it; the trajectory is the same either way.
+
+    ``aot_store`` (a directory, or None): the certified store of the
+    kernel libraries the dispatch launches (``aot_store.py``). The
+    first chunk of each length loads them from the store (a hit: no
+    ``nvcc``) or records the dispatch's certificate, builds what the
+    store lacks and stores the entry (a miss); the outcome lands under
+    ``perf["aot"]`` (``hit``, ``load-s``, ``fingerprint``, ``lengths``,
+    and the refusals, builds and seconds behind them). ``perf
+    ["first-dispatch-s"]`` is the wall from the executor's start to the
+    end of the first chunk's issue, the store's work included. The
+    trajectory is the same with the store on, off, warm or cold."""
     if instance_ids is None:
         instance_ids = default_instance_ids(sim, device)
     R, J, V = sim.record_instances, sim.journal_instances, model.ev_vals
@@ -307,7 +348,7 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
     plans = resume_plans(sim.n_ticks, chunk, resume)
     cap = int(event_cap) if event_cap else event_capacity(
         sim, model, full_plans[0][1])
-    t_init = time.monotonic()
+    t_init = t_start = time.monotonic()
     carry = (resume.carry if resume is not None
              else init_carry(model, sim, seed, device, instance_ids))
     tick = make_tick_fn(model, sim, instance_ids, device)
@@ -370,24 +411,19 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
         return int(last_scan[0][0, 0]) > 0
 
     def issue(carry, t0: int, length: int):
-        """One chunk's ticks, compacted events, journal rows and
-        violation scan, queued on the device."""
-        buf = new_buffer(cap, V, device) if R > 0 else None
-        sends, recvs = [], []
-        for t in range(t0, t0 + length):
-            carry, ys = tick(carry, t)
-            if buf is not None:
-                buf = compact_tick(buf, t, ys.events, V)
-            if J > 0:
-                sends.append(ys.journal_sends)
-                recvs.append(ys.journal_recvs)
-        scan = violation_scan(scan_source(carry), carry.telemetry,
-                              instance_ids, k=scan_k)
-        out = ((buf.rows, buf.count) if buf is not None else ()) + (
-            (torch.stack(sends), torch.stack(recvs)) if J > 0 else ())
-        if heartbeat is not None:
-            out += (torch.stack(list(carry.stats)),)
-        return carry, out + (scan,)
+        return issue_chunk(tick, carry, t0, length, cap=cap, V=V, R=R,
+                           J=J, instance_ids=instance_ids, scan_k=scan_k,
+                           with_stats=heartbeat is not None,
+                           device=device)
+
+    from .aot_store import finalize_record, wrap_pipelined
+    wrapped, aot_rec = wrap_pipelined(
+        issue, model=model, sim=sim, instance_ids=instance_ids, cap=cap,
+        scan_k=scan_k, stats=heartbeat is not None, device=device,
+        store_dir=aot_store)
+    if wrapped is not None:
+        issue = wrapped
+    first_dispatch_s = None
 
     pending = None
     issued = 0
@@ -405,6 +441,8 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
             else:
                 carry, out = issue(carry, t0, length)
             fetch = start_fetch(*out)
+            if first_dispatch_s is None:
+                first_dispatch_s = time.monotonic() - t_start
             ticks_dispatched = t0 + length
             dt = time.monotonic() - t_i
             stats["chunk-issue-s"].append(round(dt, 4))
@@ -441,6 +479,10 @@ def run_sim_pipelined(model: Model, sim: SimConfig, seed: int, device=None,
             "fetch-s": round(stats["fetch-s"], 4),
             "overflowed-chunks": stats["overflowed-chunks"],
             "ticks-dispatched": ticks_dispatched}
+    if first_dispatch_s is not None:
+        perf["first-dispatch-s"] = round(first_dispatch_s, 4)
+    if aot_rec is not None:
+        perf["aot"] = finalize_record(aot_rec)
     if stats["checkpoint-s"]:
         perf["checkpoints"] = len(stats["checkpoint-s"])
         perf["checkpoint-s"] = round(sum(stats["checkpoint-s"]), 4)

@@ -453,23 +453,47 @@ def test_resume_without_checkpoint_refused(tmp_path):
                                device="cpu", resume_from=str(tmp_path))
 
 
-def test_aot_fingerprint_resume_refused_by_name(resumed_echo, tmp_path):
-    """A run-start record carrying the JAX executable store's
-    fingerprint cannot be checked by the port: refused, naming it."""
+def test_aot_fingerprint_resume_refused_by_name(resumed_echo, tmp_path,
+                                                monkeypatch):
+    """The store's drift gate, as JAX's campaign resume holds it: a
+    fingerprint this package wrote is recomputed from the record's
+    options — a match resumes, a drift is refused naming EXE901; one the
+    JAX package wrote keys an XLA executable and is refused by name."""
     import shutil
-    _, _, _, run_dir = resumed_echo
-    d = str(tmp_path / "run")
-    shutil.copytree(run_dir, d)
-    path = os.path.join(d, "heartbeat.jsonl")
-    with open(path) as f:
-        lines = f.readlines()
-    start = json.loads(lines[0])
-    start["aot-fingerprint"] = "0123abcd"
-    lines[0] = json.dumps(start) + "\n"
-    with open(path, "w") as f:
-        f.writelines(lines)
+    _, oracle, _, run_dir = resumed_echo
+    monkeypatch.delenv("MAELSTROM_AOT", raising=False)
+
+    def with_start(name, **edit):
+        d = str(tmp_path / name)
+        shutil.copytree(run_dir, d)
+        path = os.path.join(d, "heartbeat.jsonl")
+        with open(path) as f:
+            lines = f.readlines()
+        start = json.loads(lines[0])
+        start.update(edit)
+        lines[0] = json.dumps(start) + "\n"
+        with open(path, "w") as f:
+            f.writelines(lines)
+        return d, start
+
+    # the resumed runs keep their store in the test's directory
+    store = {"aot_store": str(tmp_path / "store")}
+    _, start = with_start("run")
+    fp = harness.aot_fingerprint_for(get_model("echo", 2),
+                                     dict(start["opts"], **store),
+                                     device="cpu")
+    assert fp is not None
+    ours = {"aot-engine": harness.AOT_ENGINE, "aot-device": ["cpu", "cpu"]}
+    ok, _ = with_start("ok", **{"aot-fingerprint": fp}, **ours)
+    assert _strip(resume_run(ok, device="cpu", opts_override=store)) \
+        == _strip(oracle)
+    drifted, _ = with_start("drift", **{"aot-fingerprint": "0123abcd"},
+                            **ours)
+    with pytest.raises(CheckpointError, match="EXE901"):
+        resume_run(drifted, device="cpu", opts_override=store)
+    jax_written, _ = with_start("jax", **{"aot-fingerprint": "0123abcd"})
     with pytest.raises(CheckpointError, match="aot-fingerprint"):
-        resume_run(d, device="cpu")
+        resume_run(jax_written, device="cpu", opts_override=store)
 
 
 def test_checkpoint_notes_without_store_or_chunks(tmp_path, capsys):

@@ -20,8 +20,9 @@ package's ``maelstrom lint``.
   jaxpr passes, ``--ir``, ``--cost`` and ``--lanes`` run with the JAX
   CLI's exit code (``tests/test_torch_ir.py``, ``test_torch_cost.py``,
   ``test_torch_lanes.py`` and ``test_torch_ranges.py`` hold them to
-  JAX's), and so does ``--ranges``; ``--shard`` and ``--aot`` are
-  refused (exit 2); the port's tree is
+  JAX's), and so do ``--ranges``, ``--shard`` and ``--aot``
+  (``tests/test_torch_shard.py`` and ``test_torch_aot.py``); the port's
+  tree is
   lint-clean modulo its
   baseline, which holds the fixture's seven findings and the accepted
   ones.
@@ -709,13 +710,15 @@ def test_tree_clean_modulo_baseline(cli_report):
     with open(tfindings.DEFAULT_BASELINE) as f:
         entries = json.load(f)["entries"]
     # the default passes' entries are this run's; the rest belong to the
-    # opt-in ir, cost and lanes passes (tests/test_torch_ir.py runs them)
-    # and the ranges pass (tests/test_torch_ranges.py)
+    # opt-in ir, cost and lanes passes (tests/test_torch_ir.py runs them),
+    # the ranges pass (tests/test_torch_ranges.py) and the shard pass
+    # (tests/test_torch_shard.py)
     owner = {e["fingerprint"]: tfindings.fingerprint_pass(e["fingerprint"])
              for e in entries}
     assert {fp for fp, p in owner.items()
             if p in ("trace", "contract", "schema")} == set(sup)
-    assert set(owner.values()) == {"trace", "ir", "lanes", "ranges"}
+    assert set(owner.values()) == {"trace", "ir", "lanes", "ranges",
+                                   "shard"}
     assert all(e["reason"] for e in entries)
 
 
@@ -762,29 +765,28 @@ def test_cli_explicit_pass_with_paths(capsys):
                                   ["--ranges"], ["--shard"], ["--aot"],
                                   ["--update-baseline"],
                                   ["--pass", "cost"],
-                                  ["--aot-store", "off"]])
+                                  ["--aot", "--aot-store", "off"]])
 def test_cli_refuses_the_jaxpr_passes(argv, capsys, monkeypatch, tmp_path):
-    """The JAX CLI's jaxpr passes. ``ir``, ``cost``, ``lanes`` and
-    ``ranges`` run over the aten graph of the tick, with the JAX CLI's
-    exit code on the same arguments (both packages' universes cut to
-    echo at two nodes, no fixtures, so that the case stays small;
-    ``--update-baseline`` writes a temporary file in each). ``shard``
-    and ``aot`` are not ported yet: exit 2, naming the pass and its
-    ROADMAP item."""
+    """The JAX CLI's jaxpr passes, each with the JAX CLI's exit code on
+    the same arguments: ``ir``, ``cost``, ``lanes`` and ``ranges`` over
+    the aten graph of the tick, ``shard`` over the mesh executor and
+    ``aot`` over the chunk dispatch and the store (``--aot-store off``:
+    the manifest gate alone). Both packages' universes are cut to echo
+    at two nodes, no fixtures, so that the case stays small (the JAX
+    shard audit's ``AbstractMesh`` on jax 0.9's signature, as
+    ``tests/test_torch_shard.py`` routes it); ``--update-baseline``
+    writes a temporary file in each."""
     runs = {"--ir": "ir", "--cost": "cost", "--lanes": "lanes",
             "--ranges": "ranges", "--update-baseline": "cost",
-            "cost": "cost"}
-    name = runs.get(argv[-1])
-    if name is None:
-        rc = cli(["lint"] + argv)
-        err = capsys.readouterr().err
-        assert rc == 2
-        assert "not ported yet" in err and "(ROADMAP A.1" in err
-        assert any(p in err for p in ("shard", "aot"))
-        return
+            "cost": "cost", "--shard": "shard", "--aot": "aot",
+            "off": "aot"}
+    name = runs[argv[-1]]
+    from jax.sharding import AbstractMesh
     from maelstrom_tpu.analysis import cost_model as jcost
+    from maelstrom_tpu.analysis import shard_audit as jshard
     from maelstrom_tpu.cli import main as jcli
     from maelstrom_tpu.models import ir_hazards as jhazards
+    from maelstrom_tpu.parallel import mesh as jmesh
     from maelstrom_tpu_torch.analysis import cost_model as tcost
     from maelstrom_tpu_torch.models import ir_hazards as thazards
     for mod in (jcost, tcost):
@@ -793,6 +795,9 @@ def test_cli_refuses_the_jaxpr_passes(argv, capsys, monkeypatch, tmp_path):
         monkeypatch.setattr(mod, "IR_FIXTURE_MODELS", {})
         monkeypatch.setattr(mod, "LANE_FIXTURE_MODELS", {})
         monkeypatch.setattr(mod, "RANGE_FIXTURE_MODELS", {})
+        monkeypatch.setattr(mod, "SHARD_FIXTURE_MODELS", {})
+    monkeypatch.setattr(jshard, "_abstract_mesh", lambda size: AbstractMesh(
+        (int(size),), (jmesh.AXIS,)))
 
     def extra(who):
         return (["--cost-baseline", str(tmp_path / f"{who}.json")]

@@ -326,11 +326,13 @@ def test_hybrid_mesh_single_process_degenerate(monkeypatch):
         multihost.init(num_processes=2)
 
 
-def test_refusals(monkeypatch):
-    """``journal_instances`` is refused as JAX refuses it, the
-    executable store by name (the device profiler, ported since, is
-    taken), and ``make_mesh()`` without a card unless CPU devices are
-    passed."""
+def test_refusals(monkeypatch, tmp_path):
+    """``journal_instances`` is refused as JAX refuses it, and
+    ``make_mesh()`` without a card unless CPU devices are passed; the
+    device profiler and the kernel-library store (``aot_store``), both
+    ported since, are taken: the store populates its entry for the
+    shards' dispatch (no library on the CPU) and the outputs are those
+    of the run without it."""
     jm, tm = _models("raft")
     opts = dict(RAFT_OPTS, journal_instances=1, time_limit=0.05)
     jsim, tsim = _sims(jm, tm, opts)
@@ -340,13 +342,20 @@ def test_refusals(monkeypatch):
         with pytest.raises(ValueError, match="journal_instances"):
             run(tm, tsim, 9, mesh=cpu_mesh(2))
     tsim = harness.make_sim_config(tm, dict(opts, journal_instances=0))
-    with pytest.raises(ValueError, match="aot_store"):
-        mesh.run_sim_sharded_chunked(tm, tsim, 9, mesh=cpu_mesh(2),
-                                     aot_store="x")
+    monkeypatch.delenv("MAELSTROM_AOT", raising=False)
+    store = str(tmp_path / "store")
     perf = {}
-    mesh.run_sim_sharded_chunked(tm, tsim, 9, mesh=cpu_mesh(2), perf=perf,
-                                 profiler=DeviceProfiler("on"))
+    got = mesh.run_sim_sharded_chunked(tm, tsim, 9, mesh=cpu_mesh(2),
+                                       perf=perf,
+                                       profiler=DeviceProfiler("on"),
+                                       aot_store=store)
     assert perf["device"]["captured-chunks"] == perf["chunks"]
+    assert set(perf["aot"]["lengths"].values()) == {"populated"}
+    from maelstrom_tpu_torch.aot_store import AotStore
+    assert [m["libraries"] for _, m in AotStore(store).entries()] == [[]]
+    want = mesh.run_sim_sharded_chunked(tm, tsim, 9, mesh=cpu_mesh(2))
+    assert got[0] == want[0] and np.array_equal(got[1], want[1])
+    monkeypatch.setenv("MAELSTROM_AOT", "0")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mesh.make_mesh()

@@ -479,11 +479,17 @@ def test_synthetic_horizon_trips_abs701(static_traces):
     assert any(f.rule == "ABS701" and f.severity == "error" for f in fs)
 
 
-def test_shard_and_aot_still_refused(capsys):
-    for argv in (["--shard"], ["--pass", "aot"]):
-        assert cli(["lint"] + argv) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "A.12" in err
+def test_shard_and_aot_still_refused(capsys, monkeypatch):
+    """The shard and aot passes, refused until they were ported, now run
+    from the CLI (the universe cut to echo at two nodes, no fixtures)."""
+    from maelstrom_tpu_torch.models import ir_hazards
+    monkeypatch.setattr(cost_model, "cost_specs", lambda: [("echo", 2)])
+    monkeypatch.setattr(ir_hazards, "SHARD_FIXTURE_MODELS", {})
+    for argv, name in ((["--shard"], "shard"), (["--pass", "aot"], "aot")):
+        assert cli(["lint", "--json"] + argv) == 0
+        payload = json.loads(capsys.readouterr().out)
+        assert payload["passes"] == [name]
+        assert payload["summary"]["errors"] == 0
 
 
 # --- the trace cache and the bench -------------------------------------------

@@ -13,10 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
    the 25-node broadcast shape (S=256, K=8, NT=50, L=10), the txn and
    kafka shapes (below), the bug-hunt shape (S=128, K=8, NT=6, L=20) and
    the journaled bug hunt's (the same with the NETID lane, L=21), 4096
-   instances each, and on edge-case pools at small I
+   instances each, and the bench's other two configs (the flagship
+   shape at 16,384 instances, and S=48, K=3 at 4096), and on edge-case
+   pools at small I
    (``kernels/delivery_cases.py``, rows of L = 9, 10, 14, 20, 21, 26,
    32, 33 and 66, and the shape phase 10 shrinks at: S=24, K=2, NT=7);
-   at ``delivery_cases.TIMED``'s seven shapes time the
+   at ``delivery_cases.TIMED``'s nine shapes time the
    kernel's device time per launch (CUPTI
    durations under ``torch.profiler``, L2 flushed before each launch,
    and warm), the wrapper's time per call (host issue included) and the
@@ -164,15 +166,10 @@ Phases (any failure exits non-zero and prints no result line):
     the event-trace source, and ``perf.phases.device`` counts 3
     captured chunks; ``python -m maelstrom_tpu_torch profile`` on the
     "on" run (a child process) exits 0 and names the hot scope; a
-    50-tick run with ``profile_dir`` writes one Chrome trace; ``python
-    -m maelstrom_tpu_torch.bench`` (a child process) at 0.3 simulated
-    seconds prints the metric line with ``value`` > 0. It prints the
-    ticks/s of off, auto and on, the per-phase ms/tick, each captured
+    50-tick run with ``profile_dir`` writes one Chrome trace. It prints
+    the ticks/s of off, auto and on, the per-phase ms/tick, each captured
     chunk's phase sum against its device wall and issue time, the
-    ``profile`` table, the bench line and the launches. The bench line
-    also carries its six static fields (``ir_eqns``,
-    ``ir_bytes_est``, ``lanes_live``, ``lanes_dead``,
-    ``lanes_dead_bytes``, ``ovf_margin_bits``), and the worker steps the
+    ``profile`` table and the launches, and the worker steps the
     same fleet to tick 480 and counts, with ``torch.profiler`` as
     ``profile_tick.py``
     does, the kernels the card launches per tick by phase over ticks
@@ -185,7 +182,21 @@ Phases (any failure exits non-zero and prints no result line):
     ``meta`` against the one kernel launch, reported as a pair). At
     tick 480 every int32 leaf of the card's carry, its min and max over
     the 4,096 instances, lies inside the ranges pass's proven interval
-    for the fleet's own sim at T = 480 (``analysis/absint.py``).
+    for the fleet's own sim at T = 480 (``analysis/absint.py``). Once
+    those runs have ended and its own work is done, the side card worker
+    runs ``python -m maelstrom_tpu_torch.bench`` (a child process) at 0.2
+    simulated seconds with a 0.5 s dispatch budget: its three configs
+    (``k1``, ``k1-16k`` at 16,384 instances and ``k3``, the last two for
+    100 ticks) each end with a timed window (``value`` > 0), a complete
+    horizon, ``check_valid`` 1, no overflowed chunk and p50 <= p95 <= p99
+    ticks-to-ack; the ``k1`` line carries the JAX child's keys but the two
+    of a compiled XLA executable, its static fields as ints, and a funnel
+    whose replays trip exactly as the fleet did, every verdict True; the
+    last line is the merge of the configs' last lines, headed by the
+    ``k1``-family config with the higher msgs/s, ``k3`` as ``secondary``
+    and the other scale as ``alt_scale``. It prints each config's
+    msgs/s, bytes per instance and ms per timed tick beside the card's
+    name and power limit, and the merged line.
 
 15. runs over several processes (``parallel/multihost.py``), behind
     phase 14 in its card worker: two spawned processes (the ``spawn``
@@ -257,7 +268,8 @@ plain versions (no card, no nvcc) to check the script's own logic
 (phase 15 with two CPU processes); it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
 its phase 10 compares the CPU with itself; its phase 14 profiles with
-the timed source and checks that the bench module refuses to run; its
+the timed source, and its bench child checks that the bench module
+refuses to run; its
 phase 17 plants a library into the CPU entry, whose dispatch launches
 none, for the tamper steps).
 ``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
@@ -517,8 +529,19 @@ print(json.dumps({"loaded": payload is not None, "refusal": why,
 # stretch, and one inside the first partition phase, ticks 400-799),
 # against the static operator count of the same tick variant
 PROFILE = dict(time_limit=0.3, chunk=100, trace_ticks=50,
-               bench_seconds=0.3, modes=("off", "auto", "on"),
-               stretches=(220, 460), stretch_ticks=20)
+               modes=("off", "auto", "on"), stretches=(220, 460),
+               stretch_ticks=20)
+# the file that marks the end of phase 14's profiled runs; it holds
+# ABORTED when the script stopped before they ran
+PROFILE_DONE = "phase14-profile.done"
+ABORTED = "aborted"
+# phase 14's bench child: 0.2 simulated seconds (k1 200 ticks, k1-16k
+# and k3 100; at 0.3 s its card work slowed the main process's last
+# phases past a 600 s mark), and a 0.5 s dispatch budget, which keeps
+# the chunks at 32 ticks (a tick takes 30 ms or more on the card): no
+# provisional chunk, and a timed window of 4 chunks (k1) or 1 (k1-16k,
+# k3) in each config
+BENCH = dict(seconds=0.2, dispatch_s=0.5)
 # the static count outside `deliver` predicts the launches outside it
 # within this ratio (launched / static)
 STATIC_RATIO = (0.75, 1.33)
@@ -1930,13 +1953,13 @@ def _profiled_run(model, opts, dev_name, root, name):
             time.monotonic() - t0)
 
 
-def profile_phase(dev_name, root, opts):
+def _profile_phase(dev_name, root, opts):
     """Phase 14 in phase 13's card worker: the flagship with
     ``device_profile`` off, auto and on in turns, each held to the
     off run's carry, counters and verdict; the profiled runs' heartbeat
     lanes and roll-up checked; ``profile`` on the "on" run in a child
-    process; a ``profile_dir`` run; the bench module in a child process.
-    Returns what the main process logs."""
+    process; a ``profile_dir`` run; the launches against the static
+    count. Returns what the main process logs."""
     import glob
     import os
     import subprocess
@@ -2037,38 +2060,129 @@ def profile_phase(dev_name, root, opts):
                     "ticks": res["perf"]["ticks"]}
     out["launches"]["phase 14 profile_dir run"] = launches
     out["static"] = static_vs_launched(dev_name, opts)
-    # the bench module, as a user runs it (no card: it must refuse)
+    return out
+
+
+def profile_phase(dev_name, root, opts):
+    """Phase 14's profiled runs (:func:`_profile_phase`); its end, pass
+    or fail, marked by a file the bench child waits for, so that the
+    bench's card work never overlaps these device times."""
+    import os
+    try:
+        return _profile_phase(dev_name, root, opts)
+    finally:
+        with open(os.path.join(root, PROFILE_DONE), "w"):
+            pass
+
+
+def _bench_lines(out):
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def check_bench_lines(lines, record_instances):
+    """The bench child's lines: every config's last line with a timed
+    window (``value`` > 0), ``check_valid`` equal to the recorded
+    instances, no overflowed chunk and ordered latency quantiles; the
+    ``k1`` line with the JAX child's key set (less the fields with no
+    counterpart) and a funnel whose replays trip exactly as the fleet
+    did, every verdict True; the last line the merge of the configs'
+    last lines. Returns ``{config: (last line, ms per timed tick,
+    latency quantiles)}``."""
+    label = "phase 14 (bench)"
+    if not lines:
+        raise AssertionError(f"{label}: no line")
+    final, lines = lines[-1], lines[:-1]
+    last = {}
+    for r in lines:
+        last[r["config"]] = r
+    if list(last) != list(BENCH_CONFIGS):
+        raise AssertionError(f"{label}: configs {list(last)}")
+    out = {}
+    for name, r in last.items():
+        # the quantiles ride the timed window's final line (the verdict
+        # stage's line after it leaves them out, as the JAX child's does)
+        lat = [x for x in lines if x["config"] == name
+               and x.get("latency_ticks")][-1:]
+        lat = lat[0]["latency_ticks"] if lat else {}
+        if not r.get("value", 0) > 0 or not r.get("complete") \
+                or r.get("check_valid") != record_instances \
+                or r.get("overflowed_chunks") != 0 \
+                or not lat.get("p50", -1) <= lat.get("p95", -1) \
+                <= lat.get("p99", -1) or lat.get("p50") is None:
+            raise AssertionError(f"{label}: {name}'s last line {r}")
+        # the timed window starts after the provisional chunk, if one ran,
+        # else after the two 32-tick warm-up chunks
+        starts = [x["sim_ticks"] for x in lines
+                  if x["config"] == name and x.get("provisional")]
+        t0 = starts[1] if len(starts) > 1 else 64
+        out[name] = (r, r["wall_s"] * 1e3 / (r["sim_ticks"] - t0), lat)
+    k1 = last["k1"]
+    missing, extra = BENCH_KEYS - set(k1), set(k1) - BENCH_KEYS
+    if missing or extra \
+            or not all(isinstance(k1[k], int) for k in STATIC_FIELDS) \
+            or not isinstance(k1["aot"], dict) \
+            or not k1["first_dispatch_s"] > 0:
+        raise AssertionError(f"{label}: k1 line missing {sorted(missing)}, "
+                             f"extra {sorted(extra)}: {k1}")
+    f = k1["funnel"]
+    if "error" in f or f["replayed_violating"] != f["expected_violating"] \
+            or f["replayed"] != len(f["verdicts"]) \
+            or not all(v is True for v in f["verdicts"].values()):
+        raise AssertionError(f"{label}: funnel {f}")
+    head = final["config"]
+    other = "k1-16k" if head == "k1" else "k1"
+    want = {k: v for k, v in final.items()
+            if k not in ("secondary", "alt_scale")}
+    if head not in ("k1", "k1-16k") or want != last[head] \
+            or final["secondary"]["config"] != "k3" \
+            or final["secondary"]["value"] != last["k3"]["value"] \
+            or final["alt_scale"]["config"] != other \
+            or final["alt_scale"]["value"] != last[other]["value"] \
+            or last[head]["value"] < last[other]["value"]:
+        raise AssertionError(f"{label}: merged line {final}")
+    return out
+
+
+def bench_phase(dev_name, root, opts):
+    """Phase 14's bench child, in the side card worker once its other
+    work is done and phase 14's profiled runs have ended: ``python -m
+    maelstrom_tpu_torch.bench`` as a user runs it, its three configs at
+    ``opts``' horizon (no card: it must refuse by name). Returns the
+    checked lines and the child's wall."""
+    import os
+    import subprocess
+    label = "phase 14 (bench)"
+    done = os.path.join(root, PROFILE_DONE)
+    t_w = time.monotonic()
+    while not os.path.exists(done):
+        if time.monotonic() - t_w > 900:
+            raise AssertionError(f"{label}: phase 14's runs never ended")
+        time.sleep(1.0)
+    with open(done) as f:
+        if f.read() == ABORTED:
+            raise AssertionError(f"{label}: the script stopped before "
+                                 f"phase 14's runs ended")
+    waited = time.monotonic() - t_w
+    repo = os.path.dirname(os.path.abspath(__file__))
     t_b = time.monotonic()
-    env = dict(_child_env(), BENCH_SIM_SECONDS=str(opts["bench_seconds"]))
+    env = dict(_child_env(), BENCH_SIM_SECONDS=str(opts["seconds"]),
+               BENCH_DISPATCH_S=str(opts["dispatch_s"]))
     env.pop("MAELSTROM_AOT", None)
     p = subprocess.run([sys.executable, "-m", "maelstrom_tpu_torch.bench",
                         "--aot-store", os.path.join(root, "aot-bench")],
                        cwd=repo, capture_output=True, text=True,
                        timeout=600, env=env)
-    if not on_card:
+    if dev_name == "cpu":
         if p.returncode == 0 or "needs a CUDA card" not in p.stderr:
             raise AssertionError(f"{label}: the bench ran without a card")
-        out["bench"] = None
-        return out
-    line = json.loads(p.stdout.strip().splitlines()[-1]) \
-        if p.returncode == 0 else {}
-    keys = ("metric", "value", "unit", "vs_baseline", "platform", "engine",
-            "config", "inbox_k", "pool_slots", "instances", "sim_ticks",
-            "delivered", "delivered_timed", "sent", "dropped_overflow",
-            "wall_s", "msg_lanes", "bytes_per_msg_row", "fault_fuzz",
-            "device_profile", "device_ms_per_tick",
-            "device_phase_ms_per_tick") + STATIC_FIELDS + STORE_FIELDS
-    missing = [k for k in keys if k not in line]
-    if missing or not line.get("value", 0) > 0 \
-            or line["metric"] != "simulated_msgs_per_sec" \
-            or not all(isinstance(line[k], int) for k in STATIC_FIELDS) \
-            or not isinstance(line["aot"], dict) \
-            or not line["first_dispatch_s"] > 0:
-        raise AssertionError(f"{label}: bench exited {p.returncode}, "
-                             f"missing {missing}: {p.stdout[-800:]} "
-                             f"{p.stderr[-800:]}")
-    out["bench"] = (line, time.monotonic() - t_b)
-    return out
+        return None
+    if p.returncode != 0:
+        raise AssertionError(f"{label}: bench exited {p.returncode}: "
+                             f"{p.stdout[-800:]} {p.stderr[-1500:]}")
+    lines = _bench_lines(p.stdout)
+    return {"configs": check_bench_lines(lines, 1), "final": lines[-1],
+            "wall-s": time.monotonic() - t_b, "waited-s": waited}
 
 
 # the bench line's static fields (analysis/cost_model.py, lane_liveness.py,
@@ -2076,8 +2190,24 @@ def profile_phase(dev_name, root, opts):
 STATIC_FIELDS = ("ir_eqns", "ir_bytes_est", "lanes_live", "lanes_dead",
                  "lanes_dead_bytes", "ovf_margin_bits",
                  "collectives_per_tick", "ici_bytes_est")
-# and the store's (aot_store.py)
-STORE_FIELDS = ("first_dispatch_s", "aot", "aot_load_s")
+# the bench child's configs, in the order it runs them
+BENCH_CONFIGS = ("k1", "k1-16k", "k3")
+# the keys of the JAX bench child's last k1 line on an accelerator
+# (bench.py:553-661, 820-855), less ir_thunks and ir_while_loops, which
+# count a compiled XLA executable (maelstrom_tpu_torch/bench.py)
+BENCH_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "platform", "engine",
+    "layout", "config", "inbox_k", "pool_slots", "instances", "sim_ticks",
+    "delivered", "delivered_timed", "sent", "dropped_overflow", "wall_s",
+    "bytes_per_instance", "msg_lanes", "bytes_per_msg_row", "wide",
+    "fault_fuzz", "fuzz_phases", *STATIC_FIELDS, "first_dispatch_s",
+    "pipeline", "aot", "aot_load_s", "heartbeat", "device_profile",
+    "device_ms_per_tick", "device_phase_ms_per_tick", "device_source",
+    "device_chunks", "heartbeat_records", "event_capacity",
+    "event_bytes_fetched", "event_bytes_dense", "fetch_reduction_x",
+    "overflowed_chunks", "check_mode", "check_workers", "check_pool",
+    "farm_load_fraction", "decode_s", "check_s", "verdicts_per_s",
+    "check_valid", "latency_ticks", "complete", "funnel"}
 
 
 def static_vs_launched(dev_name, opts):
@@ -2235,21 +2365,37 @@ def log_profile_phase(dev, profile_ref):
         f"{rg['wall-s']:.1f} s on the worker's CPU); closest to a bound: "
         + ", ".join(f"{p} {rg['seen'][p]} in {rg['bounds'][p]}"
                     for p in tight))
-    if m["bench"] is not None:
-        line, t_b = m["bench"]
-        log(f"{label}: bench module ({t_b:.1f} s): {json.dumps(line)}")
-        log(f"{label}: bench ovf_margin_bits {line['ovf_margin_bits']}: "
-            f"the flagship's least proven counter headroom at the "
-            f"production horizon or its proven one, if shorter")
-        log(f"{label}: bench collectives_per_tick "
-            f"{line['collectives_per_tick']}, ici_bytes_est "
-            f"{line['ici_bytes_est']} (8 shards); first_dispatch_s "
-            f"{line['first_dispatch_s']}, aot {json.dumps(line['aot'])}, "
-            f"aot_load_s {line['aot_load_s']} (the bench child's own "
-            f"store, cold: the miss builds the library)")
     log(f"{label}: launches {json.dumps(m['launches'])}; the worker's "
         f"phase 14 took {t_prof:.1f} s")
     return m["launches"]
+
+
+def log_bench_phase(dev, bench_ref):
+    """Phase 14's bench child, logged in the main process: each config's
+    msgs/s, bytes per instance and ms per timed tick, and the merged
+    line."""
+    from maelstrom_tpu_torch.kernels.devtime import card_line
+    label = "phase 14 (bench)"
+    b, t_side = bench_ref.result()
+    if b is None:
+        log(f"{label}: the bench refused to run without a card")
+        return
+    card = card_line()
+    for name, (r, ms, lat) in b["configs"].items():
+        log(f"{label}: {name}: {r['value']} msgs/s ({r['instances']} "
+            f"instances, inbox_k {r['inbox_k']}, {r['pool_slots']} slots), "
+            f"{r['bytes_per_instance']} B/instance, {ms:.3f} ms per timed "
+            f"tick, {r['sim_ticks']} ticks, p50/p95/p99 {json.dumps(lat)} "
+            f"ticks-to-ack, check_valid "
+            f"{r['check_valid']}, first_dispatch_s "
+            f"{r.get('first_dispatch_s')} ({card})")
+    final = b["final"]
+    log(f"{label}: the headline is {final['config']}; funnel "
+        f"{json.dumps(b['configs']['k1'][0]['funnel'])}")
+    log(f"{label}: merged line ({b['wall-s']:.1f} s in the side card "
+        f"worker, after {b['waited-s']:.1f} s waiting for phase 14's "
+        f"runs; the side worker's bench phase {t_side:.1f} s): "
+        f"{json.dumps(final)}")
 
 
 def small(opts, n_instances=24, time_limit=0.3, interval=0.1):
@@ -2416,6 +2562,13 @@ def main(argv) -> int:
                            lanes_opts, sweep_model, sweep_opts, campaign,
                            mesh_refs, profile_ref, late_refs)
     finally:
+        # a failed phase cancels phase 14's queued runs: the marker ends
+        # the bench child's wait for them at once
+        done = os.path.join(root, PROFILE_DONE)
+        if not os.path.exists(done):
+            with open(done + ".tmp", "w") as f:
+                f.write(ABORTED)
+            os.replace(done + ".tmp", done)
         for pool in (shards, side, refs, lint_pool):
             pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
@@ -2631,8 +2784,8 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
                 sweep_opts, campaign, mesh_refs, profile_ref,
                 late_refs) -> int:
     """Phases 3-12 and the result lines. Phase 10's fuzz run and card
-    shrink, then phase 3's card runs, then phase 12's card work go to
-    the side card worker ``side``, and the CPU halves of phases 3, 10,
+    shrink, then phase 3's card runs, then phase 12's card work, then
+    phase 14's bench child go to the side card worker ``side``, and the CPU halves of phases 3, 10,
     11 (a) and 12 to the reference workers ``refs``, while this process
     drives phases 4-9; phase 3 is checked after phase 9, phase 12 after
     phase 11. ``campaign`` is phase 12's ``(item options, kill tick,
@@ -2669,6 +2822,9 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
         submit(side, campaign_phase, dev_name, root, item_opts, kill_at),
         submit(side, checkpoint_run, dev_name, root, small_ckpt),
         submit(refs, checkpoint_run, "cpu", root, small_ckpt))
+    # phase 14's bench child: the side worker's idle tail, after phase
+    # 14's profiled runs (it waits for their end)
+    bench_ref = submit(side, bench_phase, dev_name, root, BENCH)
     res, launches = run_path(dev, flagship,
                              dict(opts, fault_fuzz=BENCH_FUZZ_DIST),
                              "phase 4 (flagship, BENCH_FUZZ_DIST)")
@@ -2834,7 +2990,9 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     by_path.update(log_mesh_phase(dev, *mesh_refs))
     mark("phase 13 (its card work in a card worker of its own)")
     by_path.update(log_profile_phase(dev, profile_ref))
-    mark("phase 14 (its card work behind phase 13, in its card worker)")
+    log_bench_phase(dev, bench_ref)
+    mark("phase 14 (its card work behind phase 13, in its card worker; "
+         "the bench child in the side worker)")
     by_path.update(log_multiproc_phase(dev, late_refs[0], mesh_refs[0]))
     mark("phase 15 (two processes, behind phase 14 in its card worker)")
     log_lint_phase(late_refs[1])
@@ -2848,7 +3006,8 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
         "count dies with the process; the resumed suffix and the "
         "uninterrupted run of the same item are counted",
         "phase 14 bench module": "a child process of its own; its "
-        "launches are the ticks it runs"}
+        "launches are the ticks of its three configs and of k1's funnel "
+        "replays"}
     # the journaled bug hunt's rows: its shape's launches on the path
     record["shapes"]["bug-hunt-netid"]["launches"] = (
         h_launches["deliver"] + f_launches["triage"])

@@ -7,8 +7,16 @@ pn-counter, kafka, and txn-list-append and txn-rw-register over Raft;
 mutants) through :func:`harness.run_torch_test` and prints a JSON
 summary (verdict, invariants, network counters, throughput, the verdict
 stage's record, device, and the check, fail-fast, availability, funnel
-and fault blocks where the run has them). Unset flags take the harness defaults
-(``harness.TORCH_DEFAULTS``). ``--device-profile`` and
+and fault blocks where the run has them). Unset flags take the JAX CLI's
+defaults (``maelstrom_tpu/cli.py:76-272``: 1 node, one client per node,
+10 ops/s, 20 simulated seconds, no latency, a 10 s nemesis interval, 64
+instances, 8 recorded) and ``--recovery-time``, ``--rpc-timeout``,
+``--inbox-k`` and ``--pool-slots`` the harness's
+(``harness.TORCH_DEFAULTS``), so a JAX command line hands the harness
+the options it hands ``run_tpu_test``. ``--runtime tpu`` runs the
+device runtime; so does a run without ``--runtime``, where the JAX
+CLI's default is the process runtime, which is not ported yet
+(``process`` and ``native`` exit 2 by name). ``--device-profile`` and
 ``--profile-dir`` are the device profiler's (``telemetry/profiler.py``)
 and a ``torch.profiler`` trace's. The flags the JAX CLI's device runtime
 notes and ignores (``--txn``, ``--crash-clients`` off kafka,
@@ -18,8 +26,9 @@ and the run goes on without them; ``--max-txn-length``,
 used, as there; ``--aot-store DIR|auto|off`` picks the certified store
 of the kernel libraries (``aot_store.py``: a warm store loads them
 without ``nvcc``; ``MAELSTROM_AOT=0`` turns it off). Exit code 0 when
-the run is valid, 1 when it is not, 2 for a bad or missing schedule
-file.
+the run is valid, 1 when it is not, 2 when its verdict is ``"unknown"``
+(as the JAX CLI's), for a bad or missing schedule file and for a
+runtime that is not ported.
 
 The forensics commands work on a stored run's directory, with the JAX
 CLI's flags, messages and exit codes:
@@ -143,23 +152,32 @@ def _parser() -> argparse.ArgumentParser:
     p = sub.add_parser("test", help="run a workload on the device fleet")
     p.add_argument("-w", "--workload", required=True,
                    help="a ported workload; any other name raises")
-    p.add_argument("--node-count", type=int, default=3)
+    p.add_argument("--runtime", choices=("process", "tpu", "native"),
+                   default=None,
+                   help="tpu runs the device runtime (also when the flag "
+                        "is not given: the JAX CLI's default is process); "
+                        "process and native are not ported and exit 2")
+    p.add_argument("--node-count", type=int, default=1)
     p.add_argument("--topology", default="grid", choices=sorted(TOPOLOGIES),
                    help="gossip topology of broadcast and g-set")
-    p.add_argument("--concurrency", default=None,
+    p.add_argument("--concurrency", default="1n",
                    help="clients per instance: N, or Kn for K per node")
-    p.add_argument("--rate", type=float, help="ops/sec per instance")
-    p.add_argument("--time-limit", type=float, help="simulated seconds")
-    p.add_argument("--latency", type=float, help="mean latency, ms")
-    p.add_argument("--latency-dist",
+    p.add_argument("--rate", type=float, default=10.0,
+                   help="ops/sec per instance")
+    p.add_argument("--time-limit", type=float, default=20.0,
+                   help="simulated seconds")
+    p.add_argument("--latency", type=float, default=0.0,
+                   help="mean latency, ms")
+    p.add_argument("--latency-dist", default="exponential",
                    choices=("constant", "uniform", "exponential"))
     p.add_argument("--nemesis", action="append", default=[],
                    choices=("partition",) + FAULT_KINDS,
                    help="fault kinds, composable (repeat the flag): the "
                         "partition nemesis, and the fault-plan lanes "
                         "generated on the nemesis interval grid")
-    p.add_argument("--nemesis-interval", type=float)
+    p.add_argument("--nemesis-interval", type=float, default=10.0)
     p.add_argument("--nemesis-kind", choices=NEMESIS_KINDS,
+                   default="random-halves",
                    help="partition grudge shape (default random-halves; "
                         "scripted needs --nemesis-schedule-file)")
     p.add_argument("--nemesis-schedule-file", metavar="FILE",
@@ -184,16 +202,16 @@ def _parser() -> argparse.ArgumentParser:
                         "the plan's own snapshot_every, else 1)")
     p.add_argument("--recovery-time", type=float)
     p.add_argument("--rpc-timeout", type=float)
-    p.add_argument("--p-loss", type=float)
-    p.add_argument("--n-instances", type=int)
-    p.add_argument("--record-instances", type=int)
+    p.add_argument("--p-loss", type=float, default=0.0)
+    p.add_argument("--n-instances", type=int, default=64)
+    p.add_argument("--record-instances", type=int, default=8)
     p.add_argument("--journal-instances", type=int, default=0,
                    help="per-message journals for the first N instances "
                         "(messages.svg and results.net.journal; adds the "
                         "NETID lane to every row)")
     p.add_argument("--inbox-k", type=int)
     p.add_argument("--pool-slots", type=int)
-    p.add_argument("--ms-per-tick", type=int)
+    p.add_argument("--ms-per-tick", type=_positive_int, default=1)
     p.add_argument("--log-cap", type=int,
                    help="Raft log capacity per node (lin-kv and its "
                         "mutants; default 96)")
@@ -232,7 +250,7 @@ def _parser() -> argparse.ArgumentParser:
                         "scan trips (at most one chunk in flight runs "
                         "past it); needs a multi-chunk horizon or "
                         "--pipeline on")
-    p.add_argument("--scan-top-k", type=_positive_int,
+    p.add_argument("--scan-top-k", type=_positive_int, default=8,
                    help="violation-scan rows per chunk: the fail-fast "
                         "block names the K earliest tripping instances "
                         "(default 8)")
@@ -256,14 +274,15 @@ def _parser() -> argparse.ArgumentParser:
                         "instance was device-flagged. Flagged verdicts "
                         "are byte-identical across modes")
     p.add_argument("--no-telemetry", action="store_true")
-    p.add_argument("--telemetry-stride", type=int,
+    p.add_argument("--telemetry-stride", type=int, default=0,
                    help="ticks per fleet-series window (0 = auto, <= 256 "
                         "windows)")
-    p.add_argument("--event-capacity", type=_nonnegative_int,
+    p.add_argument("--event-capacity", type=_nonnegative_int, default=0,
                    help="compacted event rows per chunk (0 = auto from "
                         "the client rate; overflow is flagged in "
                         "results.perf.phases.pipeline)")
     p.add_argument("--device-profile", choices=("auto", "on", "off"),
+                   default="auto",
                    help="per-chunk device time by phase (telemetry/"
                         "profiler.py): auto (default) captures the first "
                         "chunks then every 8th, on every chunk, off none. "
@@ -273,20 +292,21 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir",
                    help="a torch.profiler session over the run, its "
                         "Chrome trace written into this directory")
-    p.add_argument("--compile-cache",
+    p.add_argument("--compile-cache", default=".jax_cache",
                    help="the JAX CLI's compile cache: accepted and not "
                         "used (the port compiles nothing per run)")
-    p.add_argument("--aot-store",
+    p.add_argument("--aot-store", default="auto",
                    help="the certified store of the kernel libraries "
                         "(aot_store.py): a directory, auto (default: "
                         "build/aot) or off; a warm store loads them "
                         "without nvcc (MAELSTROM_AOT=0 disables)")
     p.add_argument("--no-heartbeat", action="store_true",
                    help="do not stream heartbeat.jsonl into the run dir")
-    p.add_argument("--pipeline", choices=("auto", "on", "off"))
-    p.add_argument("--chunk-ticks", type=int)
+    p.add_argument("--pipeline", choices=("auto", "on", "off"),
+                   default="auto")
+    p.add_argument("--chunk-ticks", type=_positive_int, default=100)
     p.add_argument("--checkpoint-every", type=_nonnegative_int,
-                   default=None,
+                   default=0,
                    help="durable carry checkpoint every K chunks (0 = "
                         "off). A checkpointed run killed at any point "
                         "resumes in place with `campaign resume "
@@ -1030,24 +1050,34 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "check": cmd_check, "export": cmd_export,
                 "fleet-stats": cmd_fleet_stats,
                 "profile": cmd_profile, "lint": cmd_lint}[args.cmd](args)
+    if args.runtime in ("process", "native"):
+        print(f"error: --runtime {args.runtime} is not ported: "
+              f"maelstrom_tpu_torch runs the device runtime (--runtime "
+              f"tpu)", file=sys.stderr)
+        return 2
     from .harness import run_torch_test
     from .models import get_model
 
+    c = args.concurrency
+    # the options the JAX CLI hands run_tpu_test, at its defaults
     opts = {"node_count": args.node_count, "store_root": args.store,
-            "check_workers": args.check_workers,
-            "check_mode": args.check_mode}
-    if args.concurrency is not None:
-        c = args.concurrency
-        opts["concurrency"] = (int(c[:-1]) * args.node_count
-                               if c.endswith("n") else int(c))
-    for flag in ("rate", "time_limit", "latency", "latency_dist",
-                 "nemesis_interval", "nemesis_kind", "recovery_time",
-                 "rpc_timeout", "p_loss", "n_instances", "record_instances",
-                 "inbox_k", "pool_slots", "ms_per_tick", "pipeline",
-                 "chunk_ticks", "fault_snapshot_every", "scan_top_k",
-                 "journal_instances", "checkpoint_every", "seed",
-                 "telemetry_stride", "event_capacity", "device_profile",
-                 "profile_dir", "compile_cache", "aot_store"):
+            "concurrency": (int(c[:-1]) * args.node_count
+                            if c.endswith("n") else int(c)),
+            "seed": args.seed or 0, "heartbeat": not args.no_heartbeat,
+            "fail_fast": args.fail_fast,
+            "telemetry": not args.no_telemetry,
+            "availability": _availability(args.availability)}
+    for flag in ("rate", "time_limit", "latency", "latency_dist", "p_loss",
+                 "nemesis_interval", "nemesis_kind", "ms_per_tick",
+                 "n_instances", "record_instances", "journal_instances",
+                 "telemetry_stride", "pipeline", "chunk_ticks",
+                 "event_capacity", "scan_top_k", "checkpoint_every",
+                 "check_workers", "check_mode", "device_profile",
+                 "profile_dir", "compile_cache", "aot_store",
+                 "fault_snapshot_every"):
+        opts[flag] = getattr(args, flag)
+    # unset, these take the harness's defaults, as in the JAX CLI
+    for flag in ("recovery_time", "rpc_timeout", "inbox_k", "pool_slots"):
         v = getattr(args, flag)
         if v is not None:
             opts[flag] = v
@@ -1071,16 +1101,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("error: --nemesis-kind scripted needs "
               "--nemesis-schedule-file", file=sys.stderr)
         return 2
-    if args.nemesis:
-        opts["nemesis"] = args.nemesis
-    if args.availability is not None:
-        opts["availability"] = _availability(args.availability)
-    if args.fail_fast:
-        opts["fail_fast"] = True
-    if args.no_telemetry:
-        opts["telemetry"] = False
-    if args.no_heartbeat:
-        opts["heartbeat"] = False
+    opts["nemesis"] = args.nemesis
     raft_kw = {k: v for k, v in (("log_cap", args.log_cap),
                                  ("heartbeat", args.heartbeat_ticks))
                if v is not None}
@@ -1106,6 +1127,7 @@ def main(argv: Optional[List[str]] = None) -> int:
               "features; use --runtime native)", file=sys.stderr)
     model_opts = {k: True for k in ("crash_clients", "txn_dirty_apply")
                   if getattr(args, k)}
+    opts["crash_clients"] = args.crash_clients
     opts.update(model_opts)
     if args.consistency_models:
         opts["consistency_models"] = args.consistency_models
@@ -1128,7 +1150,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             summary[k] = res[k]
     summary["store-dir"] = res.get("store-dir")
     print(json.dumps(summary))
-    return 0 if res["valid?"] is True else 1
+    if res["valid?"] is True:
+        return 0
+    # an indeterminate analysis exits 2, as the JAX CLI's test does
+    return 2 if res["valid?"] == "unknown" else 1
 
 
 if __name__ == "__main__":

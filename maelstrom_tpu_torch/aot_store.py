@@ -234,18 +234,20 @@ def _model_sig(model) -> Dict[str, Any]:
                              if not k.startswith("_")}}
 
 
-def pipelined_signature(model, sim, instance_ids, cap: int, scan_k: int,
-                        length: int, carry, stats: bool,
+def pipelined_signature(model, sim, instance_ids, cap: Optional[int],
+                        scan_k: int, length: int, carry, stats: bool,
                         device_sig: Tuple[str, str]) -> Dict[str, Any]:
     """Everything that determines the single-device chunk dispatch of
     ``pipeline.run_sim_pipelined``. ``instance_ids`` (host ints) are
-    hashed by value, as JAX's are."""
+    hashed by value, as JAX's are; ``cap`` None is a buffer sized per
+    chunk length (the bench's), keyed as JAX keys it."""
     platform, kind = device_sig
     return {
         "store-version": STORE_VERSION, "kind": "pipelined",
         **_model_sig(model),
         "sim": sim, "instance-ids": np.asarray(instance_ids, np.int32),
-        "cap": int(cap), "scan-k": int(scan_k), "length": int(length),
+        "cap": None if cap is None else int(cap), "scan-k": int(scan_k),
+        "length": int(length),
         "stats": bool(stats), "carry": _aval_sig(carry),
         **toolchain(), "platform": platform, "device-kind": kind,
         "n-devices": 1, "src": source_digest(),
@@ -337,17 +339,20 @@ def entry_label(model, sim, kind: str,
     return base
 
 
-def record_dispatch(kind: str, model, sim, *, cap: int = 64,
+def record_dispatch(kind: str, model, sim, *, cap: Optional[int] = 64,
                     scan_k: int = 8, stats: bool = True,
                     mesh_size: int = 1, length: int = AOT_CHUNK_LEN):
     """The aten graph of the chunk dispatch on ``meta`` tensors at
     ``length`` ticks (``cost_model.record_call``): the pipelined
-    executor's ``pipeline.issue_chunk``, or shard 0's
-    ``mesh.shard_chunk`` at ``mesh_size`` shards."""
+    executor's ``pipeline.issue_chunk`` (``cap`` None: the buffer sized
+    for ``length``), or shard 0's ``mesh.shard_chunk`` at ``mesh_size``
+    shards."""
     from .analysis.cost_model import META, record_call
     from .runtime import init_carry, make_tick_fn
     if kind == "pipelined":
-        from .pipeline import issue_chunk
+        from .pipeline import event_capacity, issue_chunk
+        if cap is None:
+            cap = event_capacity(sim, model, length)
         ids = torch.arange(sim.n_instances, dtype=torch.int32, device=META)
         carry = init_carry(model, sim, 0, META, ids)
         tick = make_tick_fn(model, sim, ids, META)
@@ -697,13 +702,14 @@ def _guarded(record: Dict[str, Any], length: int, fn) -> None:
         record["error"] = repr(e)[:200]
 
 
-def wrap_pipelined(issue, *, model, sim, instance_ids, cap: int,
-                   scan_k: int, stats: bool, device,
+def wrap_pipelined(issue, *, model, sim, instance_ids,
+                   cap: Optional[int], scan_k: int, stats: bool, device,
                    store_dir: Optional[str]):
     """Wrap the chunked executor's ``issue(carry, t0, length)`` with the
     store: the first chunk of each length resolves that length's entry
     before it is issued (a hit loads the libraries, a miss populates
-    the entry), then every chunk is issued as without the store. A
+    the entry), then every chunk is issued as without the store.
+    ``cap`` None keys a dispatch whose buffer is sized per length. A
     store failure is recorded under ``error`` and the run goes on.
     Returns ``(wrapped, record)``; ``(None, None)`` when the store is
     disabled."""

@@ -439,29 +439,46 @@ def _write_jsonl(path: str, records) -> None:
             f.write(json.dumps(r) + "\n")
 
 
-def replay_instances(model: Model, opts: Dict[str, Any],
-                     instance_ids: List[int], device=None
-                     ) -> Dict[str, Any]:
-    """Re-simulate exactly ``instance_ids`` over the full planned horizon
-    (same seed and options) with every one recorded, check each, and
-    return ``{ids, replayed-violating, verdicts, histories}``. Draws are
-    pure functions of (seed, purpose, tick, instance id), so each
-    instance replays the trajectory it had in the fleet; the count of
-    replayed instances whose invariants trip again is the self-check.
-    The checks go through the checker farm with the run's
-    ``check_workers`` (serial for a small replay under auto)."""
+def replay_histories(model: Model, opts: Dict[str, Any],
+                     instance_ids: List[int], device=None,
+                     n_ticks: Optional[int] = None):
+    """Re-simulate exactly ``instance_ids`` (same seed and options) with
+    every one recorded, over ``n_ticks`` ticks (the full planned horizon
+    by default): ``(sim, histories, violations)``, the replay's
+    ``SimConfig``, then one history and one violation-tick count per
+    id, in order. Draws are pure functions of (seed, purpose, tick,
+    instance id), so each instance replays the trajectory it had in the
+    fleet."""
     opts = {**TORCH_DEFAULTS, **opts}
     dev = resolve_device(device or opts.get("device"))
     K = len(instance_ids)
     sim = make_sim_config(model, {**opts, "n_instances": K,
                                   "record_instances": K,
                                   "journal_instances": 0})
+    if n_ticks is not None:
+        sim = sim._replace(n_ticks=n_ticks)
     ids = torch.tensor(instance_ids, dtype=torch.int32, device=dev)
     carry, ys = run_sim(model, sim, int(opts["seed"]), dev, ids)
     histories = LazyHistories(model, decode_dense(model,
                                                   ys.events.cpu().numpy()),
                               K, sim.client.final_start,
                               opts["ms_per_tick"])
+    return sim, histories, carry.violations.cpu().numpy()
+
+
+def replay_instances(model: Model, opts: Dict[str, Any],
+                     instance_ids: List[int], device=None
+                     ) -> Dict[str, Any]:
+    """Re-simulate exactly ``instance_ids`` over the full planned horizon
+    (:func:`replay_histories`), check each, and return ``{ids,
+    replayed-violating, verdicts, histories}``; the count of replayed
+    instances whose invariants trip again is the self-check. The checks
+    go through the checker farm with the run's ``check_workers`` (serial
+    for a small replay under auto)."""
+    opts = {**TORCH_DEFAULTS, **opts}
+    K = len(instance_ids)
+    sim, histories, violations = replay_histories(model, opts,
+                                                  instance_ids, device)
     verdicts = check_instances(
         model, histories, opts,
         workers=resolve_check_workers(opts.get("check_workers"), K),
@@ -472,7 +489,7 @@ def replay_instances(model: Model, opts: Dict[str, Any],
         v["ops"] = sum(1 for r in h if r["type"] == "invoke")
     return {
         "ids": [int(i) for i in instance_ids],
-        "replayed-violating": int((carry.violations > 0).sum()),
+        "replayed-violating": int((violations > 0).sum()),
         "verdicts": verdicts,
         "histories": {int(i): h for i, h in zip(instance_ids, histories)},
     }

@@ -31,9 +31,13 @@ INT32_MAX = 2**31 - 1
 # carry the trailing NETID lane, one lane past the body (``wire.lanes(
 # body, netid=True)``); the kernel knows no lanes but L, so its NETID
 # shapes are written with one more body lane: the journaled bug hunt
-# (L = 21, the 4-byte path; timed)
+# (L = 21, the 4-byte path; timed); and the bench's other two configs
+# (bench.py's k1-16k: the flagship at 16,384 instances; k3: inbox_k 3,
+# 48 slots; timed)
 SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
           "flagship": (3, 6, 16, 1, 12, 4096),
+          "k1-16k": (3, 6, 16, 1, 12, 16384),
+          "k3": (3, 6, 48, 3, 12, 4096),
           "defaults": (3, 6, 128, 8, 12, 4096),
           "broadcast-25": (25, 25, 256, 8, 2, 4096),
           "txn-list-append": (3, 6, 16, 1, 58, 4096),
@@ -41,8 +45,8 @@ SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
           "txn-rw-register": (3, 6, 16, 1, 18, 4096),
           "bug-hunt": (3, 3, 128, 8, 12, 4096),
           "bug-hunt-netid": (3, 3, 128, 8, 13, 4096)}
-TIMED = ("flagship", "defaults", "broadcast-25", "txn-list-append",
-         "kafka", "bug-hunt", "bug-hunt-netid")
+TIMED = ("flagship", "k1-16k", "k3", "defaults", "broadcast-25",
+         "txn-list-append", "kafka", "bug-hunt", "bug-hunt-netid")
 # edge-case pools go through the kernel at small I: the shapes above, an
 # S that is no power of two, where wrapped priorities can tie, and the
 # tutorial workloads' rows on the 4-byte path (L = 9, 10, 14), and the

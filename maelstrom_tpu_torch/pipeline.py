@@ -167,6 +167,13 @@ def finish_fetch(fetch) -> Tuple[torch.Tensor, ...]:
     return host
 
 
+def compact_payload_bytes(rows: np.ndarray) -> int:
+    """Fetched bytes of one compacted chunk, as the JAX executor counts
+    them: its ``cap`` rows (the spill row left out) plus the count
+    scalar and the stats vector's share."""
+    return rows.nbytes + 8
+
+
 def expand_compact_events(model: Model, sim: SimConfig,
                           chunks: List[Tuple[np.ndarray, int]],
                           n_ticks: Optional[int] = None,

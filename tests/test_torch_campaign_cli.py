@@ -216,7 +216,8 @@ def test_test_checkpoint_every_and_run_dir_resume(tmp_path):
     its tail from the checkpoint to the same verdict (exit 0)."""
     store = str(tmp_path)
     rc, out = _cli("test", "-w", "echo", "--node-count", "2",
-                   "--concurrency", "2", "--n-instances", "8",
+                   "--concurrency", "2", "--rate", "100", "--n-instances",
+                   "8",
                    "--record-instances", "2", "--time-limit", "0.2",
                    "--latency", "5", "--seed", "3", "--chunk-ticks", "50",
                    "--checkpoint-every", "1", "--store", store,

@@ -374,6 +374,7 @@ def test_cli_fault_flags_on_cpu(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cmd = [sys.executable, "-m", "maelstrom_tpu_torch", "test", "-w",
            "lin-kv", "--node-count", "3", "--concurrency", "2",
+           "--rate", "100", "--latency", "10",
            "--n-instances", "4", "--record-instances", "1",
            "--time-limit", "0.2", "--nemesis", "partition",
            "--nemesis-interval", "0.05", "--nemesis-kind", "isolated-node",

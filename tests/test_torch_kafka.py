@@ -166,7 +166,8 @@ def test_kafka_checker_matches_jax(name, mark):
 def test_cli_runs_kafka(flags, tmp_path, capsys):
     from maelstrom_tpu_torch.__main__ import main
     rc = main(["test", "-w", "kafka", *flags, "--node-count", "1",
-               "--concurrency", "4", "--n-instances", "2",
+               "--concurrency", "4", "--rate", "100", "--latency", "10",
+               "--n-instances", "2",
                "--record-instances", "2", "--time-limit", "0.15",
                "--rpc-timeout", "0.25", "--store", str(tmp_path),
                "--device", "cpu"])

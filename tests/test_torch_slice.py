@@ -131,6 +131,7 @@ def test_cli_runs_on_cpu(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cmd = [sys.executable, "-m", "maelstrom_tpu_torch", "test", "-w",
            "lin-kv", "--node-count", "3", "--concurrency", "2",
+           "--rate", "100", "--latency", "10",
            "--n-instances", "4", "--record-instances", "2",
            "--time-limit", "0.2", "--nemesis", "partition",
            "--nemesis-interval", "0.05", "--p-loss", "0.05",

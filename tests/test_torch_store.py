@@ -147,7 +147,8 @@ def test_cli_schedule_file(tmp_path, capsys):
     assert _parse_schedule_file(str(fig8), 5) == \
         jcli._parse_schedule_file(str(fig8), 5)
     rc = main(["test", "-w", "lin-kv-bug-no-term-guard", "--node-count",
-               "5", "--concurrency", "4", "--n-instances", "4",
+               "5", "--concurrency", "4", "--rate", "100", "--latency",
+               "10", "--n-instances", "4",
                "--record-instances", "2", "--time-limit", "0.2",
                "--recovery-time", "0.03", "--nemesis-schedule-file",
                str(fig8), "--availability", "0.1", "--store",
@@ -184,6 +185,7 @@ def test_cli_runs_each_mutant(kind, tmp_path, capsys):
     """Every lin-kv mutant through the command line on the CPU: the exit
     code follows the verdict."""
     rc = main(["test", "-w", f"lin-kv-bug-{kind}", "--node-count", "3",
+               "--concurrency", "2", "--rate", "100", "--latency", "10",
                "--n-instances", "2", "--record-instances", "1",
                "--time-limit", "0.1", "--recovery-time", "0.05",
                "--store", str(tmp_path), "--device", "cpu"])

@@ -245,6 +245,7 @@ def test_test_flags_taken(tmp_path, capsys):
     JAX's note, the process-runtime generator knobs and the lifecycle
     options ignored, the telemetry stride and event capacity taken."""
     rc = main(["test", "-w", "echo", "--node-count", "2",
+               "--concurrency", "2", "--rate", "100", "--latency", "10",
                "--n-instances", "2", "--record-instances", "1",
                "--time-limit", "0.05", "--log-stderr", "--log-net-send",
                "--log-net-recv", "--max-txn-length", "3",

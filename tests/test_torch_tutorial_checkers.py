@@ -76,7 +76,8 @@ def test_run_matches_jax_harness(case, tmp_path):
 def test_cli_runs_tutorial_workloads(tmp_path):
     cmd = [sys.executable, "-m", "maelstrom_tpu_torch", "test", "-w",
            "broadcast", "--topology", "tree4", "--node-count", "5",
-           "--concurrency", "1n", "--n-instances", "2",
+           "--concurrency", "1n", "--rate", "100", "--latency", "10",
+           "--n-instances", "2",
            "--record-instances", "1", "--time-limit", "0.1", "--nemesis",
            "partition", "--nemesis-interval", "0.03", "--store",
            str(tmp_path), "--device", "cpu"]
@@ -93,6 +94,7 @@ def test_cli_runs_tutorial_workloads(tmp_path):
 def test_cli_main_runs_each_workload(workload, tmp_path, capsys):
     from maelstrom_tpu_torch.__main__ import main
     rc = main(["test", "-w", workload, "--node-count", "3",
+               "--concurrency", "2", "--rate", "100", "--latency", "10",
                "--n-instances", "2", "--record-instances", "1",
                "--time-limit", "0.1", "--recovery-time", "0.05",
                "--store", str(tmp_path), "--device", "cpu"])

@@ -76,7 +76,8 @@ def test_run_matches_jax_harness(name, tmp_path):
 ])
 def test_cli_runs_txn_workloads(argv, tmp_path, capsys):
     from maelstrom_tpu_torch.__main__ import main
-    rc = main(["test", *argv, "--node-count", "3", "--n-instances", "2",
+    rc = main(["test", *argv, "--node-count", "3", "--concurrency", "2",
+               "--rate", "100", "--latency", "10", "--n-instances", "2",
                "--record-instances", "1", "--time-limit", "0.15",
                "--recovery-time", "0.05", "--store", str(tmp_path),
                "--device", "cpu"])
@@ -93,7 +94,8 @@ def test_cli_txn_dirty_apply_flag(tmp_path, capsys):
     """The flag selects the mutant, which carries its own name."""
     from maelstrom_tpu_torch.__main__ import main
     main(["test", "-w", "txn-list-append", "--txn-dirty-apply",
-          "--node-count", "3", "--n-instances", "2", "--record-instances",
+          "--node-count", "3", "--concurrency", "2", "--rate", "100",
+          "--latency", "10", "--n-instances", "2", "--record-instances",
           "1", "--time-limit", "0.15", "--recovery-time", "0.05", "--store",
           str(tmp_path), "--device", "cpu"])
     out = json.loads(capsys.readouterr().out)

@@ -240,18 +240,29 @@ Phases (any failure exits non-zero and prints no result line):
     a foreign device kind in the entry is refused by name at load. It prints each leg's ``first-dispatch-s``,
     ``load-s``, ``nvcc-s`` and the certificate's seconds.
 
-18. the process runtime (``runner.py``, ``host/``, ``net/net.py``, the
-    workloads), which holds no device state: the port's ``demo`` (all
-    30 entries of ``DEMOS`` at ``--time-limit 3``, cut from its default
-    5 s) through
-    the port's CLI in a child process with a temporary store, behind
-    phase 16's lint in its reference worker (no card visible): the
-    child must exit 0, every process entry must be valid (the
-    ``kafka_txn.py --no-atomic`` mutant caught) and the six
-    native-engine entries skipped by name, and neither the child nor
-    the worker may have initialised CUDA. It prints each entry's label,
-    verdict and wall seconds, the demo's last line and the phase's
-    wall time.
+18. the host runtimes, which hold no device state: the process runtime
+    (``runner.py``, ``host/``, ``net/net.py``, the workloads) and the
+    native C++ engine (``native/``, ``cpp/engine/sim.cpp``, built with
+    ``g++`` into ``build/engine/`` by a thread of the main process from
+    phase 2's end on; phase 16's lint checks the built library under
+    LNE610; the build's seconds are printed). The port's ``demo`` (all
+    30 entries of ``DEMOS``, the process entries at ``--time-limit 3``,
+    cut from the default 5 s; the six native entries at their own
+    settings, one engine thread each) runs through the port's CLI in a
+    child process with a temporary store, behind phase 16's lint in its
+    reference worker (no card visible): the child must exit 0, every
+    entry must be valid but the mutants, which must be caught
+    (``kafka_txn.py --no-atomic``, and the native engine's
+    txn-list-append dirty-apply, unique-ids collision and kafka
+    poll-skip), and neither the child nor the worker may have
+    initialised CUDA. It prints each entry's
+    label, verdict and wall seconds, the demo's last line and the
+    phase's wall time. (b) Behind it in the same worker, one lin-kv run
+    of ``native.harness.run_native_test`` at the native bench's ``k1``
+    shape (``bench.native_base_opts``: 3 nodes, 6 clients, 16 slots, 5%
+    loss, partitions every 0.4 s; 2,048 instances, 4 recorded, 4
+    simulated seconds, two engine threads): valid, no instance
+    violating; it prints the host engine's msgs/s, wall and verdict.
 
 The store is off (``MAELSTROM_AOT=0``) but where a phase exercises it:
 the side card worker first prewarms one shared store for phase 9's bug
@@ -285,7 +296,8 @@ the timed source, and its bench child checks that the bench module
 refuses to run; its
 phase 17 plants a library into the CPU entry, whose dispatch launches
 none, for the tamper steps; its phase 18 runs the demo's echo and lin-kv
-proxy entries at ``--time-limit 1``).
+proxy entries and its native lin-kv entry at ``--time-limit 1``, and
+(b) at 64 instances for 0.5 simulated seconds).
 ``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
 simulated seconds instead (a quicker check; the broadcast fleet for at
 least 1 s, which it needs to converge after the heal).
@@ -560,17 +572,24 @@ BENCH = dict(seconds=0.2, dispatch_s=0.5)
 # within this ratio (launched / static)
 STATIC_RATIO = (0.75, 1.33)
 # phase 18: the port's `demo` through its CLI in a child process, behind
-# phase 16's lint in its reference worker: every entry at --time-limit 3
-# (cut from the demo's default 5 s: at 5 s the demo took 207.8 s beside
-# phases 7-9 and the last mark came at 721.7 s on an NVIDIA H100 80GB
-# HBM3's host; at 3 s both packages catch the --no-atomic mutant,
-# tests/test_torch_process_trace.py); the rehearsal runs entries 0 and 9
-# (echo, the lin-kv proxy) at 1 s. The child is killed after
-# DEMO_TIMEOUT_S
+# phase 16's lint in its reference worker: every process entry at
+# --time-limit 3 (cut from the demo's default 5 s: at 5 s the demo took
+# 207.8 s beside phases 7-9 and the last mark came at 721.7 s on an
+# NVIDIA H100 80GB HBM3's host; at 3 s both packages catch the
+# --no-atomic mutant, tests/test_torch_process_trace.py); the native
+# entries take their own settings. The rehearsal runs entries 0, 9 and
+# 24 (echo, the lin-kv proxy, the native lin-kv) at 1 s. The child is
+# killed after DEMO_TIMEOUT_S
 DEMO_ARGV = ["--time-limit", "3"]
-DEMO_REHEARSAL = dict(picks=[0, 9], argv=["--time-limit", "1"])
+DEMO_REHEARSAL = dict(picks=[0, 9, 24], argv=["--time-limit", "1"])
 DEMO_TIMEOUT_S = 600.0
-DEMO_SKIP = "   skipped (the native runtime is not ported)"
+# phase 18 (b): the native bench's k1 shape (bench.py:895-899, 954-958)
+# on two engine threads (the engine's default, 0, takes every core, and
+# the main process's phases are launch-bound on the host); the
+# rehearsal's cut
+NATIVE_K1 = dict(workload="lin-kv", n_instances=2048, record_instances=4,
+                 time_limit=4.0, threads=2)
+NATIVE_K1_REHEARSAL = dict(n_instances=64, time_limit=0.5)
 DEMO_CHILD = """
 import json, sys
 picks, argv = json.loads(sys.argv[1]), sys.argv[2:]
@@ -1761,6 +1780,36 @@ def lint_phase():
     return finish_lint(start_lint())
 
 
+def native_build_phase():
+    """The native engine built (or found built) in a thread of the main
+    process, from phase 2's end on: the seconds, and whether this call
+    compiled it (phase 16's LNE610 and phase 18 load the library; a
+    build still running makes them wait on its lock)."""
+    import os
+    from maelstrom_tpu_torch.native import engine
+    built = not os.path.exists(engine.library_path())
+    t0 = time.monotonic()
+    engine.native_available()
+    return {"seconds": time.monotonic() - t0, "compiled": built,
+            "flags": " ".join(engine.CXX_FLAGS),
+            "library": os.path.relpath(engine.library_path(),
+                                       os.path.dirname(
+                                           os.path.abspath(__file__)))}
+
+
+def native_phase(rehearse):
+    """Phase 18 (b) behind the demo in its reference worker: one lin-kv
+    run of the native engine at the native bench's ``k1`` shape; its
+    options and results."""
+    from maelstrom_tpu_torch.bench import native_base_opts
+    from maelstrom_tpu_torch.native.harness import run_native_test
+    opts = dict(native_base_opts(), **NATIVE_K1)
+    if rehearse:
+        opts.update(NATIVE_K1_REHEARSAL)
+    return {"opts": opts, "results": run_native_test(opts),
+            "worker-cuda": torch.cuda.is_initialized()}
+
+
 def demo_phase(root, rehearse):
     """Phase 18 behind phase 16 in its reference worker (no card
     visible): the port's ``demo`` as a child process with a store under
@@ -2615,10 +2664,17 @@ def main(argv) -> int:
     shared = os.path.join(root, SHARED_STORE)
     hunt_opts["aot_store"] = shared
     campaign = (dict(campaign[0], aot_store=shared),) + campaign[1:]
+    # the native engine's g++ in a thread of this process, alongside the
+    # rest (phase 16's LNE610 and phase 18 load the library it builds)
+    from concurrent.futures import ThreadPoolExecutor
+    engine_pool = ThreadPoolExecutor(1)
+    build_ref = engine_pool.submit(_timed, native_build_phase)
     lint_pool = worker_pool(1, cuda=False)
     lint_ref = submit(lint_pool, lint_phase)
-    # phase 18: behind the lint, in the same reference worker
+    # phase 18: behind the lint, in the same reference worker; (b) behind
+    # the demo
     demo_ref = submit(lint_pool, demo_phase, root, rehearse)
+    native_ref = submit(lint_pool, native_phase, rehearse)
     refs, side = worker_pool(2, cuda=False), worker_pool(1, cuda=True)
     # phase 13's card work: a card worker of its own, alongside the rest
     shards = worker_pool(1, cuda=True)
@@ -2641,7 +2697,7 @@ def main(argv) -> int:
                      # phase 17: behind phase 15, in the same card worker
                      submit(shards, store_phase, str(dev), root,
                             store_opts),
-                     demo_ref)
+                     demo_ref, build_ref, native_ref)
         return drive_paths(dev, full, rehearse, record, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
@@ -2655,7 +2711,7 @@ def main(argv) -> int:
             with open(done + ".tmp", "w") as f:
                 f.write(ABORTED)
             os.replace(done + ".tmp", done)
-        for pool in (shards, side, refs, lint_pool):
+        for pool in (shards, side, refs, lint_pool, engine_pool):
             pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2841,10 +2897,8 @@ def log_demo_phase(demo_ref):
         bad.append(f"{len(got)} entries printed, {len(demos)} expected")
     native = 0
     for entry, ((t_label, text), (t_verdict, verdict)) in zip(demos, got):
-        if entry[2].get("runtime") == "native":
-            want = DEMO_SKIP
-            native += 1
-        elif len(entry) > 3 and entry[3] is False:
+        native += entry[2].get("runtime") == "native"
+        if len(entry) > 3 and entry[3] is False:
             want = "   caught (mutant flagged invalid)"
         else:
             want = "   valid!"
@@ -2854,9 +2908,7 @@ def log_demo_phase(demo_ref):
             bad.append(f"{text[3:].strip()}: {verdict.strip()!r}, want "
                        f"{want.strip()!r}")
     last = lines[-1][1] if lines else ""
-    want_last = (f"{len(demos) - native} demos passed, {native} skipped "
-                 f"(the native runtime is not ported). ヽ(‘ー`)ノ"
-                 if native else f"All {len(demos)} demos passed. ヽ(‘ー`)ノ")
+    want_last = f"All {len(demos)} demos passed. ヽ(‘ー`)ノ"
     if r["rc"] != 0 or last != want_last:
         bad.append(f"exit {r['rc']}, last line {last!r}")
     if r["child-cuda"] is not False or r["worker-cuda"]:
@@ -2866,10 +2918,46 @@ def log_demo_phase(demo_ref):
         raise AssertionError(f"{label}: " + "; ".join(bad) + "\n"
                              + r["stderr"])
     log(f"{label}: `python -m maelstrom_tpu_torch demo "
-        f"{' '.join(r['argv'])}` ({len(demos)} entries, {native} skipped "
-        f"by name) exit 0 in "
+        f"{' '.join(r['argv'])}` ({len(demos)} entries, {native} on the "
+        f"native engine) exit 0 in "
         f"{t_demo:.1f} s in phase 16's reference worker: {last}; "
         f"torch.cuda.is_initialized() False in the child and the worker")
+
+
+def log_native_build(build_ref):
+    """The native engine's build, logged before the demo's entries."""
+    r, _ = build_ref.result()
+    how = "compiled" if r["compiled"] else "found built, loaded"
+    log(f"phase 18: native engine {how} in {r['seconds']:.1f} s "
+        f"(g++ {r['flags']} cpp/engine/sim.cpp -> "
+        f"{r['library']}) in a thread of the main process, from phase "
+        f"2's end on")
+
+
+def log_native_phase(native_ref):
+    """Phase 18 (b)'s result, checked and logged in the main process."""
+    label = "phase 18 (b) (native lin-kv)"
+    r, t_native = native_ref.result()
+    res, o = r["results"], r["opts"]
+    perf = res["perf"]
+    bad = []
+    if res["valid?"] is not True:
+        bad.append(f"verdict {res['valid?']!r}")
+    if res["invariants"]["violating-instances"]:
+        bad.append(f"violating instances {res['invariants']}")
+    if r["worker-cuda"]:
+        bad.append("CUDA initialised in the reference worker")
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    log(f"{label}: run_native_test at the native bench's k1 shape, "
+        f"{o['n_instances']} instances x {perf['ticks']} ticks on "
+        f"{perf['threads']} engine threads: {perf['msgs-per-sec']:,.1f} "
+        f"msgs/s ({res['net']['delivered']} delivered in "
+        f"{perf['wall-s']:.3f} s of engine wall), harness wall "
+        f"{perf['harness-wall-s']:.3f} s, check "
+        f"{perf['check']['check-s']} s, phase {t_native:.1f} s; verdict "
+        f"{res['valid?']} ({res['valid-instances']}/"
+        f"{res['checked-instances']} recorded instances valid)")
 
 
 def phase3_runs(opts, bopts, paths):
@@ -2922,7 +3010,7 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     drives phases 4-9; phase 3 is checked after phase 9, phase 12 after
     phase 11. ``campaign`` is phase 12's ``(item options, kill tick,
     small checkpointed run's options)``; ``late_refs`` phases 15, 16,
-    17 and 18's futures."""
+    17 and 18's futures, the native engine's build and phase 18 (b)'s."""
     import os
     from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
     dev_name = str(dev)
@@ -3131,8 +3219,12 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     mark("phase 16 (lint, in a reference worker of its own)")
     by_path.update(log_store_phase(dev, late_refs[2]))
     mark("phase 17 (the store, behind phase 15 in its card worker)")
+    log_native_build(late_refs[4])
     log_demo_phase(late_refs[3])
     mark("phase 18 (demo, behind phase 16 in its reference worker)")
+    log_native_phase(late_refs[5])
+    mark("phase 18 (b) (native lin-kv, behind the demo in its reference "
+         "worker)")
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
     record["launches_not_counted"] = {

@@ -1,7 +1,7 @@
 """Command line of the port: ``python -m maelstrom_tpu_torch test -w echo
 --bin examples/python/echo.py``.
 
-``test`` runs one workload test on one of two runtimes, as the JAX
+``test`` runs one workload test on one of three runtimes, as the JAX
 CLI's ``test`` (``maelstrom_tpu/cli.py``) does:
 
 - ``--runtime process`` (the default, as in the JAX CLI) spawns
@@ -37,19 +37,26 @@ CLI's ``test`` (``maelstrom_tpu/cli.py``) does:
   used, as there; ``--aot-store DIR|auto|off`` picks the certified store
   of the kernel libraries (``aot_store.py``: a warm store loads them
   without ``nvcc``; ``MAELSTROM_AOT=0`` turns it off).
-- ``--runtime native`` is the one runtime not ported: it exits 2 by
-  name.
+- ``--runtime native`` runs the workload's fleet on the native C++
+  engine (``cpp/engine/sim.cpp``, built with ``g++`` into
+  ``build/engine/`` at first use) through
+  :func:`native.harness.run_native_test`, with the JAX CLI's refusals
+  (a workload outside ``NATIVE_WORKLOADS``, a bad schedule file), its
+  ``note:`` lines, options, results print and exit codes, and the store
+  under ``<workload>-native``. ``--device`` means nothing to it: given,
+  it prints a ``note:`` line and the run goes on.
 
 Exit code 0 when the run is valid, 1 when it is not, 2 when its verdict
-is ``"unknown"`` (as the JAX CLI's), for a bad or missing schedule file
-and for a runtime that is not ported.
+is ``"unknown"`` (as the JAX CLI's) and for a bad or missing schedule
+file.
 
 ``demo`` runs the JAX CLI's self-test matrix (``DEMOS``, its 30 entries
-in order) over the bundled nodes under ``examples/python/`` on the
-process runtime, with its verdict lines, failure list and exit code (1
-when an entry is not valid or a mutant is not caught); the six
-native-engine entries print that they are skipped, by name, and the
-last line counts them.
+in order): 24 over the bundled nodes under ``examples/python/`` on the
+process runtime and six on the native engine, with its verdict lines,
+failure list and exit code (1 when an entry is not valid or a mutant is
+not caught). ``serve`` browses the store over HTTP (:mod:`serve`),
+``doc`` writes ``workloads.md`` and ``protocol.md`` from the RPC schema
+registry (:mod:`doc`), with the JAX CLI's flags.
 
 The forensics commands work on a stored run's directory, with the JAX
 CLI's flags, messages and exit codes:
@@ -195,7 +202,8 @@ def _parser() -> argparse.ArgumentParser:
                    default="process",
                    help="process (default) spawns --bin as node "
                         "processes on a host network; tpu runs the "
-                        "device runtime; native is not ported and exits 2")
+                        "device runtime; native runs the C++ engine "
+                        "(cpp/engine) on the host")
     p.add_argument("--node-count", type=int, default=1)
     p.add_argument("--topology", default="grid", choices=sorted(TOPOLOGIES),
                    help="gossip topology of broadcast and g-set")
@@ -357,11 +365,18 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="device runtime: torch device (default cuda); "
                         "'cpu' runs the plain versions. The process "
-                        "runtime notes and ignores it")
+                        "and native runtimes note and ignore it")
 
     p_demo = sub.add_parser("demo", help="run the self-test demo matrix")
     p_demo.add_argument("--time-limit", type=float, default=5.0)
     p_demo.add_argument("--store", default="store")
+
+    p_serve = sub.add_parser("serve", help="browse the store over HTTP")
+    p_serve.add_argument("--port", type=int, default=8080)
+    p_serve.add_argument("--store", default="store")
+
+    p_doc = sub.add_parser("doc", help="regenerate schema-driven docs")
+    p_doc.add_argument("--out", default="doc")
 
     p_check = sub.add_parser(
         "check", help="re-run checkers offline on a stored history")
@@ -1188,33 +1203,38 @@ DEMOS = [
 
 
 def cmd_demo(args) -> int:
-    """Self-test: the matrix against the bundled example nodes. Its
-    native-engine entries are skipped by name: the native runtime is not
-    ported."""
+    """Self-test: the matrix against the bundled example nodes, and the
+    native engine's entries on the engine (built at the first one)."""
     from .runner import run_test
     failures = []
-    skipped = 0
     for entry in DEMOS:
         workload, node, extra = entry[0], entry[1], entry[2]
         expect_valid = entry[3] if len(entry) > 3 else True
         if extra.get("runtime") == "native":
-            print(f"== {workload} / {node}")
-            print("   skipped (the native runtime is not ported)")
-            skipped += 1
-            continue
-        node_file, *node_args = node.split()
-        bin_, bin_args = _bin_cmd(
-            os.path.join(REPO, "examples", "python", node_file), node_args)
-        opts = dict(bin=bin_, bin_args=bin_args, node_count=1,
-                    concurrency=4, rate=10.0, time_limit=args.time_limit,
-                    recovery_time=1.0, store_root=args.store, seed=1)
-        opts.update(extra)
-        if "availability" in opts:
-            opts["availability"] = _availability(opts["availability"])
-        label = f"{workload} / {node} {extra or ''}"
-        print(f"== {label}")
+            # the engine is the cluster: no node binary to spawn
+            label = f"{workload} / {node}"
+            print(f"== {label}")
+            from .native.harness import run_native_test
+            opts = {k: v for k, v in extra.items() if k != "runtime"}
+            opts.update(workload=workload, seed=1, store_root=args.store)
+            runner = lambda: run_native_test(opts)
+        else:
+            node_file, *node_args = node.split()
+            bin_, bin_args = _bin_cmd(
+                os.path.join(REPO, "examples", "python", node_file),
+                node_args)
+            opts = dict(bin=bin_, bin_args=bin_args, node_count=1,
+                        concurrency=4, rate=10.0,
+                        time_limit=args.time_limit, recovery_time=1.0,
+                        store_root=args.store, seed=1)
+            opts.update(extra)
+            if "availability" in opts:
+                opts["availability"] = _availability(opts["availability"])
+            label = f"{workload} / {node} {extra or ''}"
+            print(f"== {label}")
+            runner = lambda: run_test(workload, opts)
         try:
-            verdict = run_test(workload, opts).get("valid?")
+            verdict = runner().get("valid?")
         except Exception as e:
             print(f"   crashed: {e!r}")
             verdict = None
@@ -1235,13 +1255,33 @@ def cmd_demo(args) -> int:
         for f in failures:
             print(f"  - {f}")
         return 1
-    if skipped:
-        # a skip is not a pass: say so, so that 'all passed' is never
-        # read off a run that left the native entries out
-        print(f"{len(DEMOS) - skipped} demos passed, {skipped} "
-              f"skipped (the native runtime is not ported). ヽ(‘ー`)ノ")
-    else:
-        print(f"All {len(DEMOS)} demos passed. ヽ(‘ー`)ノ")
+    print(f"All {len(DEMOS)} demos passed. ヽ(‘ー`)ノ")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """The store over HTTP (``maelstrom_tpu/cli.py:726-737``): the
+    results browser of :mod:`serve` on ``--port``."""
+    import functools
+    import http.server
+    from .serve import ResultsHandler
+    os.makedirs(args.store, exist_ok=True)
+    handler = functools.partial(ResultsHandler, directory=args.store)
+    with http.server.ThreadingHTTPServer(("", args.port), handler) as srv:
+        print(f"Serving {args.store}/ on http://localhost:{args.port}")
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+    return 0
+
+
+def cmd_doc(args) -> int:
+    """``doc/workloads.md`` and ``doc/protocol.md`` (under ``--out``)
+    from the RPC schema registry (``maelstrom_tpu/cli.py:739-743``)."""
+    from .doc import write_docs
+    for path in write_docs(args.out):
+        print(f"wrote {path}")
     return 0
 
 
@@ -1280,6 +1320,76 @@ def cmd_test_process(args) -> int:
         log_net_send=args.log_net_send,
         log_net_recv=args.log_net_recv, seed=args.seed,
         store_root=args.store))
+    return _print_results(results)
+
+
+def cmd_test_native(args) -> int:
+    """``test --runtime native``: the workload's fleet on the native C++
+    engine through :func:`native.harness.run_native_test`, with the JAX
+    CLI's refusals, notes, options, results print and exit codes
+    (``maelstrom_tpu/cli.py:396-456``). It touches no device."""
+    from .native.engine import NATIVE_WORKLOADS
+    if args.workload not in NATIVE_WORKLOADS:
+        print("error: --runtime native implements "
+              f"{', '.join(sorted(NATIVE_WORKLOADS))} only; use "
+              "--runtime tpu for the full model set", file=sys.stderr)
+        return 2
+    if args.nemesis_kind == "scripted" and not args.nemesis_schedule_file:
+        print("error: --nemesis-kind scripted needs "
+              "--nemesis-schedule-file", file=sys.stderr)
+        return 2
+    node_count = args.node_count
+    schedule = ()
+    if args.nemesis_schedule_file:
+        err, schedule = _parse_schedule_file(args.nemesis_schedule_file,
+                                             node_count)
+        if err:
+            print(err, file=sys.stderr)
+            return 2
+        if "partition" not in args.nemesis:
+            args.nemesis = list(args.nemesis) + ["partition"]
+    if args.device is not None:
+        print("note: --device has no effect on the native runtime (a C++ "
+              "engine on the host)", file=sys.stderr)
+    notes = [(args.availability, "--availability", None),
+             (args.latency_dist, "--latency-dist", "exponential")]
+    if args.workload != "kafka":
+        notes.append((args.crash_clients or None, "--crash-clients", None))
+    if args.workload not in ("txn-list-append", "txn-rw-register"):
+        notes.append((args.consistency_models, "--consistency-models",
+                      None))
+    for val, name, default in notes:
+        if val != default:
+            print(f"note: {name} has no effect on the native "
+                  f"{args.workload} runtime (exponential latency; "
+                  f"lin-kv is WGL-checked)", file=sys.stderr)
+    from .native.harness import run_native_test
+    results = run_native_test(dict(
+        workload=args.workload,
+        consistency_models=args.consistency_models,
+        topology=args.topology,
+        crash_clients=args.crash_clients,
+        txn=args.txn,
+        node_count=node_count,
+        concurrency=parse_concurrency(args.concurrency, node_count),
+        rate=args.rate, time_limit=args.time_limit,
+        latency=args.latency, p_loss=args.p_loss,
+        nemesis=args.nemesis,
+        nemesis_interval=args.nemesis_interval,
+        nemesis_schedule=schedule,
+        n_instances=args.n_instances,
+        record_instances=args.record_instances,
+        check_workers=args.check_workers,
+        seed=args.seed if args.seed is not None else 0,
+        store_root=args.store,
+        **({} if args.recovery_time is None
+           else {"recovery_time": args.recovery_time})))
+    return _print_results(results)
+
+
+def _print_results(results) -> int:
+    """The JAX CLI's results print and exit code of a host runtime: 0
+    valid, 2 ``"unknown"``, 1 invalid."""
     print(json.dumps(results, indent=2, default=repr))
     print()
     verdict = results.get("valid?")
@@ -1301,7 +1411,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "check": cmd_check, "export": cmd_export,
                 "fleet-stats": cmd_fleet_stats,
                 "profile": cmd_profile, "lint": cmd_lint,
-                "demo": cmd_demo}[args.cmd](args)
+                "demo": cmd_demo, "serve": cmd_serve,
+                "doc": cmd_doc}[args.cmd](args)
     fault_kinds = [k for k in args.nemesis if k in FAULT_KINDS]
     if args.runtime != "tpu" and (fault_kinds or args.fault_plan
                                   or args.fault_fuzz):
@@ -1313,10 +1424,7 @@ def main(argv: Optional[List[str]] = None) -> int:
               file=sys.stderr)
         return 2
     if args.runtime == "native":
-        print("error: --runtime native is not ported: maelstrom_tpu_torch "
-              "runs the process runtime (the default) and the device "
-              "runtime (--runtime tpu)", file=sys.stderr)
-        return 2
+        return cmd_test_native(args)
     if args.runtime == "process":
         return cmd_test_process(args)
     from .harness import run_torch_test

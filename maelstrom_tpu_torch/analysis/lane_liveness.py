@@ -40,9 +40,11 @@ Where it differs from the JAX pass, and why:
   dead in every one.
 - **No loops.** Eager loops unroll, so the JAX pass's scan and while
   rules have nothing to apply to.
-- **LNE610** checks the native C++ engine's per-family widths against
-  the model registry. The port has no native engine; the rule waits
-  with it (ROADMAP).
+- **LNE610** checks the native C++ engine's per-family widths
+  (``cpp/engine/sim.cpp``) against the port's width table
+  (``native/wire.py``), its model registry and the built library, which
+  the port always builds (``native/engine.py``): the JAX pass skips the
+  library where it cannot build it.
 
 Rules (LNE6xx):
 
@@ -78,6 +80,12 @@ LNE608   lane-manifest-stale      warning   a manifest entry matches no
                                             registered model
 LNE609   lane-analysis-failure    error     ``get_model`` or the lane
                                             analysis itself raised
+LNE610   native-width-divergence  error     the native engine's templated
+                                            per-family constants, the
+                                            Python width table
+                                            (``native/wire.py``), the
+                                            model registry's lane math,
+                                            or the built library disagree
 =======  =======================  ========  ===============================
 
 Safety direction: the live set OVERAPPROXIMATES — every transfer rule
@@ -1124,6 +1132,54 @@ def compare_manifest(live: Dict[str, LaneReport],
     return findings
 
 
+# --- LNE610: native width-class conformance --------------------------------
+
+
+_NATIVE_WIRE_PATH = "maelstrom_tpu_torch/native/wire.py"
+
+
+def native_width_findings(cpp_src: Optional[str] = None,
+                          table: Optional[Dict[str, int]] = None,
+                          include_fixture: bool = True) -> List[Finding]:
+    """LNE610: cross-check the native engine's templated per-family
+    width constants (parsed from ``cpp/engine/sim.cpp``), the Python
+    width table (``native/wire.py``), the registry's per-family lane
+    math and the built library. The fixture table
+    (:data:`..native.wire.FIXTURE_DIVERGENT_WIDTHS`) is audited
+    alongside on full runs, so the rule is seen to fire (its
+    expected-status baseline entry)."""
+    from ..native import wire as nwire
+    from ..native.engine import native_msg_lanes
+
+    findings: List[Finding] = []
+    try:
+        registry = nwire.registry_width_facts()
+    except Exception as e:
+        registry = None
+        findings.append(_finding(
+            "LNE610", "native-width-divergence", SEV_ERROR,
+            _NATIVE_WIRE_PATH, "registry_width_facts",
+            f"registry width facts unavailable: {e!r}"))
+    # the library is built here if it is not yet: a build failure raises
+    compiled = {wl: native_msg_lanes(wl) for wl in nwire.NATIVE_BODY_LANES}
+    for symbol, message in nwire.check_native_widths(
+            cpp_src=cpp_src, table=table,
+            registry_entry_lanes=registry, compiled_lanes=compiled):
+        findings.append(_finding(
+            "LNE610", "native-width-divergence", SEV_ERROR,
+            "cpp/engine/sim.cpp", symbol, message))
+    if include_fixture and table is None:
+        fixture_table = dict(nwire.NATIVE_BODY_LANES,
+                             **nwire.FIXTURE_DIVERGENT_WIDTHS)
+        for symbol, message in nwire.check_native_widths(
+                cpp_src=cpp_src, table=fixture_table):
+            findings.append(_finding(
+                "LNE610", "native-width-divergence", SEV_ERROR,
+                _NATIVE_WIRE_PATH, "FIXTURE_DIVERGENT_WIDTHS",
+                f"[fixture] {message}"))
+    return findings
+
+
 # --- orchestration ---------------------------------------------------------
 
 
@@ -1190,6 +1246,9 @@ def run_lane_lint(repo_root: str = ".",
                     f"{type(e).__name__}: {e}"))
                 continue
             findings.extend(findings_of_report(model, rep))
+
+    if full:
+        findings.extend(native_width_findings())
 
     if update_manifest:
         path = save_lane_manifest(

@@ -19,6 +19,22 @@ On ``--device cpu`` only ``k1`` runs, as the JAX child runs on the CPU
 (``bench.py:184-188``); there the delivery wrapper takes its plain
 version. ``cuda`` (the default) with no card refuses by name.
 
+On ``--device cpu`` the native C++ engine (``native/``) runs first,
+unless ``BENCH_NO_NATIVE=1``, as the JAX child runs it
+(``bench.py:137-149, 861-1016``): four checked family runs
+(txn-list-append, g-set, pn-counter, kafka at 1,024 instances for 1.5
+simulated seconds; ``BENCH_FAMILIES=0`` skips them), then its ``k1`` and
+``k3`` lines (``BENCH_NATIVE_INSTANCES``, 2,048, for
+``BENCH_NATIVE_SIM_SECONDS``, 4.0, ``k3`` half of it; four recorded
+instances checked by WGL, the funnel replayed by the engine) with the
+families block and ``host_spin_s`` (a timed pure-Python loop before
+and after, :func:`_host_spin_s`) on ``k1``. The device engine's ``k1``
+then runs as ``torch-k1`` (the JAX child's ``jax-k1``) at
+``BENCH_JAX_INSTANCES`` (256) for ``BENCH_JAX_SIM_SECONDS`` (0.5), and
+the merged line carries it as ``torch_engine`` (the JAX parent's
+``jax_engine``); every other field keeps JAX's name. A native build
+that fails exits 1 with no merged line.
+
 Each config runs chunk by chunk through the chunked executor's dispatch
 (``pipeline.issue_chunk``) with the JAX child's chunk plan
 (``bench.py:663-766``): a 32-tick warm-up chunk, a second one that
@@ -71,7 +87,8 @@ Environment knobs, those of ``bench.py`` that mean something here:
 ``BENCH_CHECK_MODE`` (``farm``; ``device`` or ``both`` add the device
 verdict lanes to the tick), ``BENCH_CHECK_WORKERS`` (auto; 0 serial),
 ``BENCH_FUNNEL_MAX`` (8), ``BENCH_WIDE=1`` (the NETID lane on every
-row), and the switches ``BENCH_TELEMETRY=0``, ``BENCH_FUZZ=0``,
+row; the native engine's widest rows), the native engine's above, and
+the switches ``BENCH_TELEMETRY=0``, ``BENCH_FUZZ=0``,
 ``BENCH_PIPELINE=0`` (the monolithic path: no event stream, a sync on
 the carry per chunk), ``BENCH_HEARTBEAT=0``, ``BENCH_CHECK=0`` (no
 verdict stage and no rows kept), ``BENCH_FUNNEL=0``,
@@ -89,8 +106,6 @@ What has no counterpart here, and is not emulated:
   (``utils/driver_guard.py``), with their ``attempt`` and ``partial``
   fields: one process runs every config here, and a failure exits 1;
 - ``tpu_best``, which reads a TPU artifact (``BENCH_TPU_BEST.json``);
-- ``jax_engine``, the ``jax-k1`` config, ``host_spin_s`` and
-  ``_native_bench``: the native engine's line (ROADMAP A.15);
 - ``--compile-cache`` and ``MAELSTROM_COMPILE_CACHE``: XLA's
   compilation cache.
 """
@@ -122,6 +137,14 @@ SECONDARY_KEYS = ("value", "vs_baseline", "config", "inbox_k", "pool_slots",
 ALT_SCALE_KEYS = ("value", "vs_baseline", "config", "instances", "platform",
                   "partial", "provisional", "sim_ticks", "delivered_timed",
                   "wall_s")
+# the device engine's config on the CPU once the native engine owns "k1"
+# (the JAX child's "jax-k1"), and the fields of its line that the merged
+# line keeps as "torch_engine" (the JAX parent's "jax_engine",
+# bench.py:1296-1306)
+TORCH_K1 = "torch-k1"
+ENGINE_KEYS = ("value", "vs_baseline", "config", "instances", "layout",
+               "platform", "partial", "provisional", "sim_ticks",
+               "delivered_timed", "wall_s", "funnel")
 
 
 def log(msg: str) -> None:
@@ -304,10 +327,11 @@ def _preference(result) -> tuple:
 
 def merge_lines(by_cfg: dict) -> dict:
     """The last line of the run from each config's last line, by the JAX
-    parent's rules (``bench.py:1164-1179, 1275-1295``): the headline is
+    parent's rules (``bench.py:1164-1179, 1275-1306``): the headline is
     the ``k1``-family line that wins :func:`_preference`, ``k3``'s
-    fields ride as ``secondary`` and the other scale's as
-    ``alt_scale``."""
+    fields ride as ``secondary``, the other scale's as ``alt_scale``
+    and, where the native engine ran, the device engine's ``torch-k1``
+    as ``torch_engine``."""
     best = None
     for name, rec in by_cfg.items():
         if name != "k3" and (best is None
@@ -318,10 +342,14 @@ def merge_lines(by_cfg: dict) -> dict:
         best["secondary"] = {k: by_cfg["k3"][k] for k in SECONDARY_KEYS
                              if k in by_cfg["k3"]}
     for name, alt in by_cfg.items():
-        if name not in ("k3", best["config"]):
+        if name not in ("k3", TORCH_K1, best["config"]):
             best["alt_scale"] = {k: alt[k] for k in ALT_SCALE_KEYS
                                  if k in alt}
             break
+    engine = by_cfg.get(TORCH_K1)
+    if engine is not None and engine["config"] != best["config"]:
+        best["torch_engine"] = {k: engine[k] for k in ENGINE_KEYS
+                                if k in engine}
     return best
 
 
@@ -642,7 +670,7 @@ def run_config(name: str, knobs, sim_seconds: float, n_instances: int,
 
     # the funnel on k1: the trippers and a sample replayed over exactly
     # the ticks the fleet ran (the loop drops a short tail), checked
-    if (name == "k1" and ticks + W > n_ticks and wall > 0
+    if (name in ("k1", TORCH_K1) and ticks + W > n_ticks and wall > 0
             and _on("BENCH_FUNNEL")):
         t_f = time.monotonic()
 
@@ -665,6 +693,164 @@ def run_config(name: str, knobs, sim_seconds: float, n_instances: int,
     log(f"{name}: done")
 
 
+def _native_bench(print_line) -> bool:
+    """The native C++ engine's lines on the CPU (``bench.py:861-1016``):
+    four checked family runs (``BENCH_FAMILIES=0`` skips them), then the
+    ``k1`` and ``k3`` regimes of the flagship at
+    ``BENCH_NATIVE_INSTANCES`` (2,048) for ``BENCH_NATIVE_SIM_SECONDS``
+    (4.0; ``k3`` half of it), each recorded instance checked by WGL and
+    the funnel replayed, a line each (``print_line``). False when the
+    engine refused the ``k1`` configuration; the engine is built on
+    first use, and a build that fails raises."""
+    from .checkers.elle import check_list_append
+    from .checkers.kafka import kafka_checker
+    from .checkers.linearizable import linearizable_kv_checker
+    from .checkers.pn_counter import pn_counter_checker
+    from .checkers.set_full import set_full_checker
+    from .native import native_available, run_native_sim
+
+    native_available()
+    n_instances = int(os.environ.get("BENCH_NATIVE_INSTANCES", 2048))
+    sim_seconds = float(os.environ.get("BENCH_NATIVE_SIM_SECONDS", 4.0))
+    # host-speed calibration around the whole native phase
+    spin_before = _host_spin_s()
+    # the one base config every native run derives from; BENCH_WIDE=1
+    # instantiates the engine at the widest Msg/Entry rows
+    bench_wide = os.environ.get("BENCH_WIDE") == "1"
+    base_opts = native_base_opts(bench_wide)
+
+    families = {}
+    if os.environ.get("BENCH_FAMILIES") != "0":
+        for wname, wopts, chk in (
+                ("txn-list-append", {}, check_list_append),
+                ("g-set", {"read_prob": 0.1, "rpc_timeout": 0.25},
+                 set_full_checker),
+                ("pn-counter", {"read_prob": 0.15, "rpc_timeout": 0.25},
+                 pn_counter_checker),
+                ("kafka", {"node_count": 1, "nemesis": [],
+                           "rpc_timeout": 0.25}, kafka_checker)):
+            fam_opts = dict(base_opts, n_instances=1024,
+                            record_instances=2, time_limit=1.5,
+                            workload=wname, **wopts)
+            try:
+                fres = run_native_sim(fam_opts)
+            except Exception as e:
+                families[wname] = {"error": repr(e)[:160]}
+                continue
+            if fres is None:
+                # the engine refused it: not coverage
+                families[wname] = {"error": "engine rejected config"}
+                continue
+            fverd = []
+            for h in fres["histories"]:
+                try:
+                    fverd.append(chk(h)["valid?"])
+                except Exception as e:
+                    fverd.append(f"checker-error: {e!r}"[:120])
+            p = fres["perf"]
+            families[wname] = {
+                "msgs_per_sec": round(p["msgs-per-sec"], 1),
+                "instances": fam_opts["n_instances"],
+                "sim_ticks": p["ticks"],
+                "violating_instances": fres["violating-instances"],
+                "recorded_checker_verdicts": fverd,
+                "msg_lanes": p.get("msg-lanes"),
+                "bytes_per_msg_row": p.get("bytes-per-msg-row"),
+            }
+            log(f"native family {wname}: {p['msgs-per-sec']:,.0f} "
+                f"msgs/s, verdicts={fverd}")
+
+    # the two regimes of the device configs: k1 and k3's inbox pressure
+    ran_any = False
+    for cfg_name, inbox_k, pool_slots, secs in (
+            ("k1", 1, 16, sim_seconds),
+            ("k3", 3, 48, sim_seconds / 2)):
+        opts = dict(base_opts, n_instances=n_instances,
+                    record_instances=4, inbox_k=inbox_k,
+                    pool_slots=pool_slots, time_limit=secs)
+        log(f"native {cfg_name}: C++ engine, {n_instances} instances x "
+            f"{int(secs * 1000)} ticks")
+        res = run_native_sim(opts)
+        if res is None:
+            break
+        ran_any = True
+        # a checker that raises is a verdict: the line still prints
+        verdicts = []
+        for h in res["histories"]:
+            try:
+                verdicts.append(linearizable_kv_checker(h)["valid?"])
+            except Exception as e:
+                verdicts.append(f"checker-error: {e!r}"[:120])
+        funnel = _funnel_block(
+            res["violations"],
+            lambda ids: _native_replay_histories(opts, ids),
+            linearizable_kv_checker)
+        p = res["perf"]
+        value = p["msgs-per-sec"]
+        print_line({
+            "metric": "simulated_msgs_per_sec",
+            "value": round(value, 1),
+            "unit": "msgs/s",
+            "vs_baseline": round(value / BASELINE_MSGS_PER_SEC, 3),
+            "platform": "cpu",
+            "engine": "native-cpp",
+            "config": cfg_name,
+            "inbox_k": inbox_k, "pool_slots": pool_slots,
+            "instances": n_instances,
+            "sim_ticks": p["ticks"],
+            "delivered": res["stats"]["delivered"],
+            "delivered_timed": res["stats"]["delivered"],
+            "sent": res["stats"]["sent"],
+            "dropped_overflow": res["stats"]["dropped-overflow"],
+            "wall_s": round(p["wall-s"], 3),
+            "threads": p.get("threads", 1),
+            "msg_lanes": p.get("msg-lanes"),
+            "bytes_per_msg_row": p.get("bytes-per-msg-row"),
+            "wide": bench_wide,
+            "violating_instances": res["violating-instances"],
+            "recorded_checker_verdicts": verdicts,
+            "funnel": funnel,
+            **({"families": families} if families
+               and cfg_name == "k1" else {}),
+            **({"host_spin_s": {"before": spin_before,
+                                "after": _host_spin_s()}}
+               if cfg_name == "k1" else {}),
+            "events_truncated": bool(res.get("events-truncated")),
+            "complete": True,
+        })
+        log(f"native {cfg_name}: {value:,.0f} msgs/s, verdicts={verdicts}, "
+            f"funnel={funnel}")
+    return ran_any
+
+
+def native_base_opts(wide: bool = False) -> dict:
+    """The options every native bench run derives from
+    (``bench.py:895-899``): the flagship's shape on the engine."""
+    return dict(node_count=3, concurrency=6, inbox_k=1, pool_slots=16,
+                rate=200.0, latency=5.0, rpc_timeout=1.0,
+                nemesis=["partition"], nemesis_interval=0.4, p_loss=0.05,
+                recovery_time=0.3, seed=7, wide=wide)
+
+
+def _host_spin_s() -> float:
+    """A fixed pure-Python integer loop, timed (``bench.py:1018``): a
+    crude host-speed calibration on the native line, so msgs/s can be
+    read against the host's state."""
+    t0 = time.monotonic()
+    x = 0
+    for i in range(20_000_000):
+        x += i
+    return round(time.monotonic() - t0, 3)
+
+
+def _native_replay_histories(opts, ids):
+    """``(histories, violations, truncated)`` keyed by instance id, by
+    the native engine's bit-exact replay of each id."""
+    from .native.engine import replay_native_instances
+    rep = replay_native_instances(opts, ids)
+    return rep["histories"], rep["violations"], rep["truncated"]
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(prog="python -m maelstrom_tpu_torch.bench")
@@ -684,16 +870,34 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         log(devtime.card_line())
     store_dir = resolve_store_dir(args.aot_store)
-    n_instances = int(os.environ.get("BENCH_INSTANCES", 4096))
-    sim_seconds = float(os.environ.get("BENCH_SIM_SECONDS", 4.0))
+    on_cpu = dev.type == "cpu"
     last: dict = {}
 
     def print_line(rec):
         last[rec["config"]] = rec
         print(json.dumps(rec), flush=True)
 
+    native_ran = False
+    if on_cpu and os.environ.get("BENCH_NO_NATIVE") != "1":
+        # the native engine first on the CPU, as the JAX child runs it
+        # (bench.py:137-149); it owns "k1" and "k3"
+        try:
+            native_ran = _native_bench(print_line)
+        except Exception:
+            import traceback
+            traceback.print_exc()
+            log("native engine failed: no merged line")
+            return 1
+    n_instances = int(os.environ.get("BENCH_INSTANCES", 4096))
+    sim_seconds = float(os.environ.get("BENCH_SIM_SECONDS", 4.0))
+    if native_ran:
+        # the device engine on a shorter horizon beside the native lines
+        n_instances = int(os.environ.get("BENCH_JAX_INSTANCES", 256))
+        sim_seconds = float(os.environ.get("BENCH_JAX_SIM_SECONDS", 0.5))
     for name, knobs, seconds, n in plan_configs(n_instances, sim_seconds,
-                                                dev.type == "cpu"):
+                                                on_cpu):
+        if native_ran:
+            name = TORCH_K1
         try:
             run_config(name, knobs, seconds, n, dev, store_dir, print_line)
         except Exception:

@@ -18,7 +18,10 @@ worker processes:
 - verdicts are assembled in instance order, so pooled verdicts equal
   the serial path's byte for byte; ``check_workers=0`` is the serial
   path, and any pool failure (a dead worker, a timeout) falls back to
-  it: a broken pool changes the time taken, never a verdict.
+  it: a broken pool changes the time taken, never a verdict;
+- the native engine's histories arrive decoded and go to the workers
+  as they are (:meth:`CheckerPool.feed_records`,
+  :func:`check_native_histories`).
 
 Workers never touch CUDA: they fork from a forkserver whose preload is
 this module (no CUDA state), hide the cards from themselves, and only
@@ -169,15 +172,25 @@ def _worker_main(widx: int, spec: Dict[str, Any], task_q,
     serially."""
     # host checkers only: a worker must never create a CUDA context
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    native = spec.get("engine") == "native"
     try:
-        from ..decode import materialize_records
-        model = _rebuild_model(spec)
-        checker = model.checker()
-        name = checker_name(model)
-        final_start = spec["final-start"]
-        mpt = spec["ms-per-tick"]
-        check_opts = spec["opts"]
-        inc_cls = INCREMENTAL_CHECKERS.get(spec["workload"])
+        if native:
+            # the native engine's farm: histories arrive decoded, as
+            # "records" tasks, and the harness's one-argument checker
+            # of the workload checks them
+            from ..native.harness import _checker_for
+            checker = _checker_for(spec["workload"],
+                                   spec.get("consistency"))
+            inc_cls = None
+        else:
+            from ..decode import materialize_records
+            model = _rebuild_model(spec)
+            checker = model.checker()
+            name = checker_name(model)
+            final_start = spec["final-start"]
+            mpt = spec["ms-per-tick"]
+            check_opts = spec["opts"]
+            inc_cls = INCREMENTAL_CHECKERS.get(spec["workload"])
         result_q.put((_READY, widx, None))
     except BaseException:
         result_q.put((_FAILED, widx, traceback.format_exc()[-2000:]))
@@ -202,9 +215,23 @@ def _worker_main(widx: int, spec: Dict[str, Any], task_q,
                         incremental[inst].feed(records)
                     else:
                         histories.setdefault(inst, []).extend(records)
+            elif kind == "records":
+                # the native twin of "chunk": dict records, appended
+                for inst, records in task[1].items():
+                    histories.setdefault(inst, []).extend(records)
             elif kind == "finalize":
                 verdicts: Dict[int, dict] = {}
                 for inst in task[1]:
+                    if native:
+                        try:
+                            verdicts[inst] = checker(
+                                histories.get(inst, []))
+                        except Exception as e:
+                            # the native harness's shape of a checker
+                            # that raised: a failing verdict
+                            verdicts[inst] = {"valid?": False,
+                                              "error": repr(e)}
+                        continue
                     try:
                         if inc_cls is not None:
                             acc = incremental.get(inst)
@@ -297,15 +324,24 @@ class CheckerPool:
 
     def feed(self, slabs: Dict[int, Any]) -> None:
         """Route one chunk's per-instance slabs to their owners."""
+        self._route("chunk", slabs)
+
+    def feed_records(self, records_by_inst: Dict[int, List[dict]]
+                     ) -> None:
+        """The native twin of :meth:`feed`: route decoded dict records
+        (whole or partial histories) to their owners."""
+        self._route("records", records_by_inst)
+
+    def _route(self, kind: str, by_inst: Dict[int, Any]) -> None:
         if self.broken:
             return
         t0 = time.monotonic()
         per_worker: Dict[int, Dict[int, Any]] = {}
-        for inst, slab in slabs.items():
-            per_worker.setdefault(self.owner(inst), {})[inst] = slab
+        for inst, payload in by_inst.items():
+            per_worker.setdefault(self.owner(inst), {})[inst] = payload
         try:
             for w, batch in per_worker.items():
-                self._task_qs[w].put(("chunk", batch))
+                self._task_qs[w].put((kind, batch))
         except Exception:
             self.broken = True
         self.feed_s += time.monotonic() - t0
@@ -481,6 +517,40 @@ class VerdictPipeline:
     def close(self) -> None:
         if self.pool is not None:
             self.pool.close()
+
+
+def check_native_histories(workload: str, histories,
+                           consistency: Optional[str] = None,
+                           workers: int = 0) -> List[dict]:
+    """The native engine's check loop, farmed: the decoded histories of
+    ``native/harness.py`` go to the workers verbatim as ``"records"``
+    tasks, each checked by the harness's one-argument checker of the
+    workload. Verdicts come back in instance order, and any pool
+    failure checks serially: they are byte-identical either way, a
+    checker that raises included (``{"valid?": False, "error":
+    repr(e)}``)."""
+    n = len(histories)
+    if workers > 0 and n > 0:
+        pool = CheckerPool({"engine": "native", "workload": workload,
+                            "consistency": consistency}, workers)
+        try:
+            if not pool.broken:
+                pool.feed_records(dict(enumerate(histories)))
+                verdicts = pool.finalize(list(range(n)))
+                if verdicts is not None:
+                    return [verdicts[i] for i in range(n)]
+        finally:
+            pool.close()
+    from ..native.harness import _checker_for
+    checker = _checker_for(workload, consistency)
+    out = []
+    for h in histories:
+        try:
+            v = checker(h)
+        except Exception as e:
+            v = {"valid?": False, "error": repr(e)}
+        out.append(v)
+    return out
 
 
 def check_instances(model, histories, opts: Dict[str, Any],

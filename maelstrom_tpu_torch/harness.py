@@ -334,14 +334,16 @@ def device_info(device: torch.device) -> Dict[str, Any]:
 
 
 def prepare_store_dir(name: str, store_root: str,
-                      tag: Optional[str] = None) -> str:
-    """A fresh run directory ``<store_root>/<name>-torch/<timestamp>``
+                      tag: Optional[str] = None,
+                      suffix: str = "-torch") -> str:
+    """A fresh run directory ``<store_root>/<name><suffix>/<timestamp>``
     (``<timestamp>-<tag>`` with a ``tag``: campaign items pass
-    ``item<k>``) with a ``latest`` symlink repointed atomically."""
+    ``item<k>``; the native engine's runs pass ``suffix="-native"``)
+    with a ``latest`` symlink repointed atomically."""
     from datetime import datetime
     ts = datetime.now().strftime("%Y%m%d-%H%M%S-%f")
     base = f"{ts}-{tag}" if tag else ts
-    parent = os.path.join(store_root, f"{name}-torch")
+    parent = os.path.join(store_root, f"{name}{suffix}")
     d = os.path.join(parent, base)
     for attempt in range(2, 100):
         try:

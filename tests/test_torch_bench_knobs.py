@@ -17,8 +17,10 @@ import pytest
 from test_torch_bench import ENV, finish_benches, start_benches
 from torch_tutorial_cases import one_torch_thread  # noqa: F401
 
-SMALL = dict(ENV, BENCH_INSTANCES="64", BENCH_SIM_SECONDS="0.15",
-             BENCH_DISPATCH_S="0.0001")
+# the device engine alone: the native engine's lines are held to JAX's
+# in tests/test_torch_bench.py
+SMALL = dict(ENV, BENCH_NO_NATIVE="1", BENCH_INSTANCES="64",
+             BENCH_SIM_SECONDS="0.15", BENCH_DISPATCH_S="0.0001")
 VARIANTS = {
     "monolithic": dict(BENCH_PIPELINE="0"),
     "device-lanes-wide": dict(BENCH_CHECK_MODE="device", BENCH_WIDE="1",

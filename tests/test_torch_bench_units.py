@@ -256,6 +256,8 @@ def test_a_config_that_raises_leaves_its_line_and_no_merge(
         bench_env, monkeypatch, capsys):
     """The run stops at the failing config with exit 1: its last line
     stays the last line printed, and no merged line hides the failure."""
+    bench_env.setenv("BENCH_NO_NATIVE", "1")   # the device configs alone
+
     def run_config(name, knobs, seconds, n, dev, store_dir, print_line):
         print_line(_line(name, 1000.0))
         if name == "k1-16k":

@@ -344,9 +344,11 @@ def test_prepare_store_dir_concurrent_collision_free(tmp_path):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
     stop[0] = True
-    watcher.join()
+    watcher.join(timeout=60)
+    assert not any(t.is_alive() for t in threads + [watcher]), \
+        "a store-dir thread hung past its 60 s bound"
     assert not errors and not seen_bad
     assert len(dirs) == len(set(dirs)) == 32
     assert os.path.isdir(os.path.realpath(latest))

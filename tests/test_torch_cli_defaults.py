@@ -10,9 +10,8 @@
   and with every process flag set (both ``run_test``s patched).
 - The process runtime's refusals, in the JAX CLI's words and exit code
   2: a missing ``--bin``, and a fault-plan kind, ``--fault-plan`` or
-  ``--fault-fuzz``; ``--runtime native`` is not ported and exits 2 by
-  name. ``--device`` on the process runtime prints one note and the run
-  goes on.
+  ``--fault-fuzz``. ``--device`` on the process runtime prints one note
+  and the run goes on.
 - A run whose verdict is ``"unknown"`` (a WGL state budget of 0) exits 2
   in both CLIs.
 """
@@ -86,17 +85,15 @@ def test_unset_flags_hand_the_harness_jax_s_options(workload, captured,
     assert captured["port"][0] == captured["port"][1]
 
 
-@pytest.mark.parametrize("runtime", ["process", "native"])
+@pytest.mark.parametrize("runtime", ["process"])
 def test_unported_runtime_exits_2_by_name(runtime, captured, capsys):
-    """``native`` is not ported: exit 2, naming it. ``process`` is, and
-    without ``--bin`` exits 2 with the JAX CLI's error."""
+    """``process`` without ``--bin`` exits 2 with the JAX CLI's error
+    (``native``, ported since, is held to the JAX CLI in
+    ``tests/test_torch_native.py``)."""
     argv = ["test", "-w", "lin-kv", "--runtime", runtime]
     assert main([*argv, "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "port" not in captured
-    if runtime == "native":
-        assert f"--runtime {runtime}" in err
-        return
     assert err == "error: --bin is required for the process runtime\n"
     assert jcli.main(argv) == 2
     assert capsys.readouterr().err == err

@@ -2,13 +2,14 @@
 its own, side by side (a demo entry mostly waits on the wall clock).
 
 - With ``DEMOS`` patched in both CLIs to one subset (echo, the lin-kv
-  proxy and one native-engine entry), the port prints the same label
-  and verdict lines, except that it skips the native entry by name (the
-  JAX child is told it has no native engine, so it skips the entry as
-  well, in its own words).
-- The whole matrix (``slow``): the same verdict for every process
-  entry, each valid or, for the mutant, caught; the port skips the six
-  native entries by name and exits 0.
+  proxy and the native engine's lin-kv entry), the port prints the same
+  label and verdict lines and the same last line.
+- The whole matrix (``slow``): the same verdict for every entry, each
+  valid or, for the mutants, caught (the process runtime's and the
+  native engine's); both exit 0.
+
+(``tests/test_torch_native.py`` holds the six native entries to JAX's
+verdicts in tier 1.)
 """
 
 import json
@@ -24,15 +25,12 @@ from maelstrom_tpu_torch import __main__ as tcli
 from torch_process_cases import REPO
 from torch_tutorial_cases import one_torch_thread  # noqa: F401
 
-# a child that runs one CLI's demo, DEMOS cut to the given indices and
-# the JAX package's native engine hidden
+# a child that runs one CLI's demo, DEMOS cut to the given indices
 CHILD = """
 import json, sys
 pkg, picks, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
 if pkg == "jax":
-    import maelstrom_tpu.native as native
     from maelstrom_tpu import cli
-    native.native_available = lambda: False
 else:
     from maelstrom_tpu_torch import __main__ as cli
 if picks is not None:
@@ -83,14 +81,9 @@ def test_demo_subset_matches_jax(tmp_path):
     assert jrc == trc == 0, (jerr[-2000:], terr[-2000:])
     je, te = entries(jlines), entries(tlines)
     assert [label for label, _ in te] == [label for label, _ in je]
-    assert je[:2] == te[:2] == [
-        (je[0][0], "   valid!"), (je[1][0], "   valid!")]
-    assert je[2][1] == "   skipped (no native engine on this host)"
-    assert te[2][1] == "   skipped (the native runtime is not ported)"
-    assert tlines[-1] == ("2 demos passed, 1 skipped (the native runtime "
-                          "is not ported). ヽ(‘ー`)ノ")
-    assert jlines[-1] == ("2 demos passed, 1 skipped (no native engine). "
-                          "ヽ(‘ー`)ノ")
+    assert je == te == [(label, "   valid!") for label, _ in je]
+    assert te[2][0] == "== lin-kv / (native engine)"
+    assert tlines[-1] == jlines[-1] == "All 3 demos passed. ヽ(‘ー`)ノ"
 
 
 @pytest.mark.slow
@@ -101,12 +94,8 @@ def test_whole_demo_matches_jax(tmp_path):
     assert [label for label, _ in te] == [label for label, _ in je]
     assert len(te) == 30
     for i, ((label, jv), (_, tv)) in enumerate(zip(je, te)):
-        if i in NATIVE:
-            assert tv == "   skipped (the native runtime is not ported)"
-            continue
         want = ("   valid!" if len(tcli.DEMOS[i]) < 4 else
                 "   caught (mutant flagged invalid)")
         assert tv == jv == want, (label, jv, tv)
     assert jrc == trc == 0, (jerr[-2000:], terr[-2000:])
-    assert tlines[-1] == ("24 demos passed, 6 skipped (the native runtime "
-                          "is not ported). ヽ(‘ー`)ノ")
+    assert tlines[-1] == jlines[-1] == "All 30 demos passed. ヽ(‘ー`)ノ"

@@ -264,6 +264,18 @@ Phases (any failure exits non-zero and prints no result line):
     simulated seconds, two engine threads): valid, no instance
     violating; it prints the host engine's msgs/s, wall and verdict.
 
+19. the batch-minor carry layout (``layout="minor"``, the default a run
+    on the card resolves "auto" to), in phase 13's card worker right
+    behind phase 14's off run: the same flagship with ``layout="minor"``
+    (4,096 instances, 300 ticks, ``BENCH_FUZZ_DIST``): its pool must lie
+    ``[S, L, I]``, its canonical final carry (every leaf), counters and
+    verdict must equal the off run's, and ``deliver_minor`` must launch
+    once per tick and ``deliver`` never. Behind phase 14's stretches the
+    worker steps the minor fleet to tick 240 and counts its kernels per
+    tick by phase over ticks 220-239 as phase 14 counts the lead
+    fleet's. It prints the minor run's ms/tick beside the off run's and
+    both fleets' kernels and host ms per tick.
+
 The store is off (``MAELSTROM_AOT=0``) but where a phase exercises it:
 the side card worker first prewarms one shared store for phase 9's bug
 hunt and phase 12's campaign item (their runs hit it and record the
@@ -272,6 +284,14 @@ port's ``aot-fingerprint``), phase 10's triage on the card and phase
 14's bench child has a store of its own (its line carries
 ``collectives_per_tick``, ``ici_bytes_est``, ``first_dispatch_s``,
 ``aot`` and ``aot_load_s``), and phase 17 its own.
+
+Phase 2 holds both delivery entries: ``deliver`` (the lead pool ``[I,
+S, L]``) against ``netsim.deliver_reference`` and ``deliver_minor`` (the
+same pools batch-last, ``[S, L, I]``) against
+``netsim.deliver_reference_minor``, at every shape and on every edge
+pool, and times both at the timed shapes (the minor entry without the
+warm-L2 time). Phase 3 also checks a 150-tick minor-layout lin-kv run
+under a crash, links and skew plan, card against CPU.
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
@@ -287,7 +307,7 @@ shape's ``device_ms``, ``wrapper_ms``, ``plain_ms``, ``bound_ms`` and
 path; ``timing`` states the method); the last line is ``{"ok": true,
 "device": {...}}``.
 
-``--rehearse-on-cpu`` runs phases 2 and 4-18 at a tiny size with the
+``--rehearse-on-cpu`` runs phases 2 and 4-19 at a tiny size with the
 plain versions (no card, no nvcc) to check the script's own logic
 (phase 15 with two CPU processes); it
 exits 2 and prints no result line (its broadcast runs 5 nodes, not 25;
@@ -348,6 +368,15 @@ CRASH_LINKS_PLAN = {"phases": [
                              {"dst": 0, "src": 2, "delay": 6},
                              {"dst": 2, "src": 1, "loss": 0.5}]},
     {"until": 145, "crash": [1, 2]}]}
+# crashes, degraded links and skewed clocks: phase 3's minor-layout run
+# (150 ticks, healed at tick 145)
+CRASH_LINKS_SKEW_PLAN = {"phases": [
+    {"until": 30},
+    {"until": 80, "crash": [0], "skew": {"1": 2.0, "2": 0.75}},
+    {"until": 120, "links": [{"dst": 1, "src": 0, "block": True},
+                             {"dst": 0, "src": 2, "delay": 6},
+                             {"dst": 2, "src": 1, "loss": 0.5}]},
+    {"until": 145, "crash": [1, 2], "skew": {"0": 1.5}}]}
 TUTORIAL = ("echo", "unique-ids", "broadcast", "g-set", "g-counter",
             "pn-counter")
 # phase 3's txn and kafka runs: (label, workload, model flags, plan)
@@ -377,7 +406,7 @@ FUZZ_SHRINK = dict(
     node_count=3, concurrency=4, n_instances=1, record_instances=1,
     time_limit=0.3, rate=300.0, latency=5.0, rpc_timeout=0.08,
     recovery_time=0.1, seed=17, inbox_k=2, pool_slots=24, pipeline="on",
-    funnel=False, device_profile="off",
+    funnel=False, device_profile="off", layout="lead",
     fault_fuzz={"windows": [2, 2], "gap": [150, 260],
                 "duration": [50, 90],
                 "crash": {"rate": 1.0, "victims": [2, 2]},
@@ -641,96 +670,127 @@ TIMING = ("device_ms: mean kernel duration recorded by CUPTI under "
           "back-to-back Python calls (host issue included)")
 
 
-def _check(dev, label, pools, parts, t, cfg):
-    """Kernel vs plain version on one input, bit for bit."""
+def _entries():
+    """The delivery entries: ``(name, entry, plain version, layout of
+    its pool)``: the lead kernel and the batch-last one."""
     from maelstrom_tpu_torch import netsim
     from maelstrom_tpu_torch.kernels import delivery
+    return (("deliver", delivery.deliver, netsim.deliver_reference,
+             "lead"),
+            ("deliver_minor", delivery.deliver_minor,
+             netsim.deliver_reference_minor, "minor"))
+
+
+def _check(dev, label, pools, parts, t, cfg, entry, plain, layout):
+    """Kernel vs plain version on one input, bit for bit; the minor
+    entry takes the same pools batch-last, ``[S, L, I]``."""
     pool = torch.from_numpy(pools).to(dev)
     part = torch.from_numpy(parts).to(dev)
-    before = delivery.deliver.launches
-    got = delivery.deliver(pool, part, t, cfg)
-    ref = netsim.deliver_reference(pool, part, t, cfg)
+    if layout == "minor":
+        pool = pool.movedim(0, -1).contiguous()
+    before = entry.launches
+    got = entry(pool, part, t, cfg)
+    ref = plain(pool, part, t, cfg)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-        if delivery.deliver.launches != before + 1:
-            raise AssertionError("deliver did not launch its kernel")
+        if entry.launches != before + 1:
+            raise AssertionError(f"{entry.__name__} did not launch its "
+                                 f"kernel")
     err = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
               for g, r in zip(got, ref))
     if err != 0:
-        raise AssertionError(f"delivery kernel != plain version at "
+        raise AssertionError(f"{entry.__name__} kernel != plain version at "
                              f"{label}: max abs err {err}")
     return pool, part, err
 
 
 def check_delivery(dev, shapes, iters):
-    """Kernel vs plain version at each shape and on every edge-case
-    pool; device, wrapper and plain times with the bound at the timed
-    shapes. Returns the kernel's record for the JSON line."""
-    from maelstrom_tpu_torch import netsim
+    """Each delivery entry (the lead kernel and the batch-last one) vs
+    its plain version at each shape and on every edge-case pool; device,
+    wrapper and plain times with the bound at the timed shapes (the
+    batch-last entry without the warm-L2 time). Returns the entries'
+    records for the JSON line."""
     from maelstrom_tpu_torch.kernels import delivery, devtime
     from maelstrom_tpu_torch.kernels import delivery_cases as dc
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: 0)
-    max_err = 0
+    kernel_names = {"deliver": delivery.KERNEL_NAME,
+                    "deliver_minor": delivery.MINOR_KERNEL_NAME}
+    max_err = {name: 0 for name, _, _, _ in _entries()}
     for name, (n, c, S, K, body, I) in dc.EDGE_SHAPES.items():
         cfg = dc.net_config(n, c, S, K, body)
         cases = dc.edge_pools(cfg, I, 3)
-        for case, (pools, parts, t) in cases.items():
-            max_err = max(max_err, _check(dev, f"{name}/{case}", pools,
-                                          parts, t, cfg)[2])
-        log(f"phase 2: deliver edge pools at {name} I={I} S={S} K={K} "
-            f"L={cfg.lanes}: {', '.join(cases)} bit-equal to "
-            f"deliver_reference (tolerance 0)")
-    per_shape = {}
+        for ename, entry, plain, layout in _entries():
+            for case, (pools, parts, t) in cases.items():
+                max_err[ename] = max(max_err[ename], _check(
+                    dev, f"{name}/{case}", pools, parts, t, cfg, entry,
+                    plain, layout)[2])
+            log(f"phase 2: {ename} edge pools at {name} I={I} S={S} K={K} "
+                f"L={cfg.lanes}: {', '.join(cases)} bit-equal to "
+                f"{plain.__name__} (tolerance 0)")
+    per_shape = {name: {} for name, _, _, _ in _entries()}
     for name, (n, c, S, K, body, I) in shapes.items():
         cfg = dc.net_config(n, c, S, K, body)
         L, NT, t = cfg.lanes, cfg.n_total, 15
         pools, parts = dc.random_pools(np.random.RandomState(5), I, cfg)
-        pool, part, err = _check(dev, name, pools, parts, t, cfg)
-        max_err = max(max_err, err)
-        log(f"phase 2: deliver {name} I={I} S={S} K={K} NT={NT} L={L}: "
-            f"bit-equal to deliver_reference (tolerance 0)")
-        if name not in dc.TIMED:
-            continue
-        call = lambda: delivery.deliver(pool, part, t, cfg)
-        rec = {"I": I, "S": S, "K": K, "NT": NT, "L": L}
-        if on_card:
-            rec["device_ms"] = devtime.device_ms(
-                call, delivery.KERNEL_NAME, iters)
-            rec["device_warm_ms"] = devtime.device_ms(
-                call, delivery.KERNEL_NAME, iters, flush_l2=False)
-        else:
-            rec["device_ms"] = rec["device_warm_ms"] = None
-        rec["wrapper_ms"] = time_ms(call, iters, sync)
-        rec["plain_ms"] = time_ms(
-            lambda: netsim.deliver_reference(pool, part, t, cfg),
-            max(1, iters // 4), sync)
-        rec["bound_ms"], rec["bound_by"], nbytes, ops = dc.bound(
-            pool, part, t, cfg)
-        rec["bound_share"] = (rec["bound_ms"] / rec["device_ms"]
-                              if rec["device_ms"] else None)
-        rec["library_ms"] = None
-        dev_txt = ("not measured (no card)" if rec["device_ms"] is None
-                   else f"{rec['device_ms']:.6f} ms device time "
-                        f"({rec['bound_share']:.1%} of bound; "
-                        f"{rec['device_warm_ms']:.6f} ms with warm L2)")
-        log(f"phase 2: deliver {name}: kernel {dev_txt}, wrapper "
-            f"{rec['wrapper_ms']:.6f} ms per call, plain version "
-            f"{rec['plain_ms']:.6f} ms, bound {rec['bound_ms']:.6f} ms "
-            f"({rec['bound_by']}: {nbytes} B, {ops} int ops), library "
-            f"call: none")
-        per_shape[name] = rec
+        for ename, entry, plain, layout in _entries():
+            pool, part, err = _check(dev, name, pools, parts, t, cfg, entry,
+                                     plain, layout)
+            max_err[ename] = max(max_err[ename], err)
+            log(f"phase 2: {ename} {name} I={I} S={S} K={K} NT={NT} L={L}: "
+                f"bit-equal to {plain.__name__} (tolerance 0)")
+            if name not in dc.TIMED:
+                continue
+            call = lambda: entry(pool, part, t, cfg)
+            rec = {"I": I, "S": S, "K": K, "NT": NT, "L": L}
+            if on_card:
+                rec["device_ms"] = devtime.device_ms(
+                    call, kernel_names[ename], iters)
+                rec["device_warm_ms"] = (devtime.device_ms(
+                    call, kernel_names[ename], iters, flush_l2=False)
+                    if layout == "lead" else None)
+            else:
+                rec["device_ms"] = rec["device_warm_ms"] = None
+            rec["wrapper_ms"] = time_ms(call, iters, sync)
+            rec["plain_ms"] = time_ms(lambda: plain(pool, part, t, cfg),
+                                      max(1, iters // 4), sync)
+            # the same bytes and operations in both orientations
+            rec["bound_ms"], rec["bound_by"], nbytes, ops = dc.bound(
+                torch.from_numpy(pools).to(dev), part, t, cfg)
+            rec["bound_share"] = (rec["bound_ms"] / rec["device_ms"]
+                                  if rec["device_ms"] else None)
+            rec["library_ms"] = None
+            dev_txt = ("not measured (no card)" if rec["device_ms"] is None
+                       else f"{rec['device_ms']:.6f} ms device time "
+                            f"({rec['bound_share']:.1%} of bound"
+                            + (f"; {rec['device_warm_ms']:.6f} ms with "
+                               f"warm L2)" if rec["device_warm_ms"]
+                               else ")"))
+            log(f"phase 2: {ename} {name}: kernel {dev_txt}, wrapper "
+                f"{rec['wrapper_ms']:.6f} ms per call, plain version "
+                f"{rec['plain_ms']:.6f} ms, bound {rec['bound_ms']:.6f} ms "
+                f"({rec['bound_by']}: {nbytes} B, {ops} int ops), library "
+                f"call: none")
+            per_shape[ename][name] = rec
     # the launches above were comparisons, not the main path
-    delivery.deliver.launches = 0
-    main = per_shape["flagship"]
-    return {"name": "deliver", "route": "cuda",
+    delivery.reset_launches()
+    records = []
+    for ename, _, _, layout in _entries():
+        main = per_shape[ename]["flagship"]
+        records.append({
+            "name": ename, "route": "cuda",
             "source": "maelstrom_tpu_torch/csrc/deliver.cu",
-            "replaces": "maelstrom_tpu/ops/delivery.py:51",
-            "launches": None, "max_abs_err": max_err,
+            # the batch-last entry replaces no Pallas kernel: JAX's
+            # minor layout runs XLA's netsim.deliver under vmap
+            "replaces": ("maelstrom_tpu/ops/delivery.py:51"
+                         if layout == "lead" else
+                         "maelstrom_tpu/tpu/runtime.py:1234"),
+            "launches": None, "max_abs_err": max_err[ename],
             "ms": main["device_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "timing": TIMING.format(n=iters),
-            "shapes": per_shape}
+            "shapes": per_shape[ename]})
+    return records
 
 
 def _make_model(spec):
@@ -2057,32 +2117,78 @@ def store_phase(dev_name, root, opts):
     return out
 
 
-def _profiled_run(model, opts, dev_name, root, name):
+def _profiled_run(model, opts, dev_name, root, name, both=False):
     """``run_torch_test`` stored under ``root``, the delivery launches
     set to 0 just before and read just after: ``(results, final carry
-    with numpy leaves, launches, wall s)``. The carry is the one the
-    chunked executor returns to the harness."""
+    with numpy leaves in the canonical (lead) orientation, launches, wall
+    s)``, the lead entry's launches, or with ``both`` each entry's
+    (``{"deliver": n, "deliver_minor": m, "pool": the carry's pool
+    shape}``). The carry is the one the chunked executor returns to the
+    harness."""
     import os
-    from maelstrom_tpu_torch import convert, harness, pipeline
+    from maelstrom_tpu_torch import convert, harness, pipeline, runtime
     from maelstrom_tpu_torch.kernels import delivery
     run = pipeline.run_sim_pipelined
     kept = {}
 
     def keep(*args, **kw):
         res = run(*args, **kw)
-        kept["carry"] = convert.carry_to_numpy(res.carry)
+        kept["pool"] = tuple(res.carry.pool.shape)
+        kept["carry"] = convert.carry_to_numpy(
+            runtime.canonical_carry(res.carry, args[1]))
         return res
 
     pipeline.run_sim_pipelined = keep
-    delivery.deliver.launches = 0
+    delivery.reset_launches()
     t0 = time.monotonic()
     try:
         res = harness.run_torch_test(model, dict(
             opts, store_root=os.path.join(root, name)), device=dev_name)
     finally:
         pipeline.run_sim_pipelined = run
-    return (res, kept.get("carry"), delivery.deliver.launches,
-            time.monotonic() - t0)
+    launches = ({"deliver": delivery.deliver.launches,
+                 "deliver_minor": delivery.deliver_minor.launches,
+                 "pool": kept.get("pool")} if both
+                else delivery.deliver.launches)
+    return res, kept.get("carry"), launches, time.monotonic() - t0
+
+
+def minor_flagship(model, base, dev_name, root, ref):
+    """Phase 19 in phase 13's card worker, behind phase 14's off run:
+    the same flagship run with ``layout="minor"`` (300 ticks, 4096
+    instances on the card). Its canonical final carry (every leaf),
+    counters and verdict must equal the off run's ``ref`` (a lead run of
+    the same seed and ticks), its pool must lie batch-last, and the
+    batch-last entry must launch once per tick and the lead entry never.
+    Returns what the main process logs."""
+    from maelstrom_tpu_torch import convert
+    label = "phase 19 (minor layout)"
+    res, carry, launches, wall = _profiled_run(
+        model, dict(base, device_profile="off", layout="minor"), dev_name,
+        root, "minor", both=True)
+    ticks = res["perf"]["ticks"]
+    I, S, L = ref[1].pool.shape
+    if launches["pool"] != (S, L, I):
+        raise AssertionError(f"{label}: the pool lies {launches['pool']}, "
+                             f"not batch-last ({S}, {L}, {I})")
+    if dev_name != "cpu" and (launches["deliver_minor"] != ticks
+                              or launches["deliver"] != 0):
+        raise AssertionError(f"{label}: launches {launches} for {ticks} "
+                             f"ticks")
+    if (res["valid?"], res["net"], res["invariants"]) != ref[0]:
+        raise AssertionError(f"{label}: verdict or counters differ from "
+                             f"the lead run's")
+    want = dict(convert.carry_leaves(ref[1]))
+    for name, x in convert.carry_leaves(carry):
+        if not np.array_equal(x, want.pop(name)):
+            raise AssertionError(f"{label}: the canonical carry differs "
+                                 f"from the lead run's: {name}")
+    if want:
+        raise AssertionError(f"{label}: leaves missing: {sorted(want)}")
+    return {"ticks": ticks, "ticks-per-s": res["perf"]["ticks-per-sec"],
+            "wall-s": wall, "launches": launches["deliver_minor"],
+            "pool": launches["pool"], "instances": I,
+            "leaves": len(list(convert.carry_leaves(carry)))}
 
 
 def _profile_phase(dev_name, root, opts):
@@ -2119,6 +2225,8 @@ def _profile_phase(dev_name, root, opts):
         view = (res["valid?"], res["net"], res["invariants"])
         if ref is None:
             ref = (view, carry)
+            # phase 19: the minor layout against this lead run
+            out["minor"] = minor_flagship(model, base, dev_name, root, ref)
         else:
             if view != ref[0]:
                 raise AssertionError(f"{label}: the {mode} run's verdict or "
@@ -2403,6 +2511,22 @@ def static_vs_launched(dev_name, opts):
             out[st["variant"]] = rec
     out["ranges"] = carry_inside_ranges(model, fleet)
     out["instances"] = fleet.sim.n_instances
+    if on_card:
+        # phase 19: the first stretch again in the minor layout
+        mfleet = profile_tick._Fleet(model, dict(fleet_opts, layout="minor"),
+                                     torch.device(dev_name))
+        with torch.no_grad():
+            mfleet.run(opts["stretches"][0] - n)
+            wall = mfleet.wall_ms(n)
+            b = profile_tick._breakdown(mfleet, n, wall,
+                                        delivery.MINOR_KERNEL_NAME)
+        out["minor"] = {
+            "from_tick": mfleet.t - n, "wall_ms_per_tick": wall,
+            "launched_total": b["device_kernels_per_tick"],
+            "launched": {ph: d["device_kernels_per_tick"]
+                         for ph, d in b["phases"].items()},
+            "busy_ms_per_tick": b["device_busy_ms_per_tick"],
+            "deliver_ms": b["deliver_kernel_device_ms"]}
     out["wall-s"] = time.monotonic() - t0
     return out
 
@@ -2466,7 +2590,7 @@ def log_profile_phase(dev, profile_ref):
         f"{t['bytes']} B Chrome trace; the run took {t['wall-s']:.1f} s")
     st = m["static"]
     for variant, r in st.items():
-        if variant in ("wall-s", "ranges", "instances"):
+        if variant in ("wall-s", "ranges", "instances", "minor"):
             continue
         span = f"ticks {r['from_tick']}-{r['from_tick'] + 19} ({variant})"
         if r["launched"] is None:
@@ -2500,6 +2624,43 @@ def log_profile_phase(dev, profile_ref):
     log(f"{label}: launches {json.dumps(m['launches'])}; the worker's "
         f"phase 14 took {t_prof:.1f} s")
     return m["launches"]
+
+
+def log_minor_phase(dev, profile_ref):
+    """Phase 19's results, logged in the main process: the minor
+    flagship against phase 14's off run (ms/tick), and its kernels per
+    tick against the lead fleet's over the same stretch. Returns the
+    batch-last entry's launches in its run."""
+    from maelstrom_tpu_torch.kernels.devtime import card_line
+    label = "phase 19 (minor layout)"
+    m, _ = profile_ref.result()
+    card = card_line() if dev.type == "cuda" else "no card (rehearsal)"
+    r, off = m["minor"], m["runs"]["off"]
+    log(f"{label}: the flagship with layout='minor' ({r['instances']} "
+        f"instances, {r['ticks']} ticks, pool {list(r['pool'])}) ends with "
+        f"the lead run's canonical carry ({r['leaves']} leaves, each "
+        f"bit-equal), counters and verdict; deliver_minor launched "
+        f"{r['launches']} times, deliver 0")
+    log(f"{label}: ms/tick minor {1e3 / r['ticks-per-s']:.3f}, lead (phase "
+        f"14 off) {1e3 / off['ticks-per-s']:.3f} (ticks/s "
+        f"{r['ticks-per-s']:.3f} / {off['ticks-per-s']:.3f}; {card})")
+    mn = m["static"].get("minor")
+    if mn is not None:
+        lead = next(v for v in m["static"].values()
+                    if isinstance(v, dict) and v.get("from_tick")
+                    == mn["from_tick"])
+        log(f"{label}: ticks {mn['from_tick']}-{mn['from_tick'] + 19}: "
+            f"kernels per tick minor {mn['launched_total']:.2f}, lead "
+            f"{lead['launched_total']:.2f} "
+            f"({mn['launched_total'] / lead['launched_total']:.4f}x); "
+            f"host ms/tick minor {mn['wall_ms_per_tick']:.3f}, lead "
+            f"{lead['wall_ms_per_tick']:.3f}; minor busy "
+            f"{mn['busy_ms_per_tick']:.3f} ms/tick, deliver_minor "
+            f"{mn['deliver_ms']} ms per launch; by phase, minor / lead: "
+            + ", ".join(f"{ph} {mn['launched'][ph]:.2f} / "
+                        f"{lead['launched'][ph]:.2f}"
+                        for ph in mn["launched"]) + f" ({card})")
+    return r["launches"]
 
 
 def log_bench_phase(dev, bench_ref):
@@ -2653,7 +2814,7 @@ def main(argv) -> int:
         log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
             f"on {torch.cuda.get_device_name(0)}")
 
-    record = check_delivery(dev, shapes, 5 if rehearse else 200)
+    records = check_delivery(dev, shapes, 5 if rehearse else 200)
     mark("phase 2")
     lanes_spec = ("model", "lin-kv-bug-double-vote", 3,
                   {"raft_kw": LANES_MUTANT_KW})
@@ -2698,7 +2859,7 @@ def main(argv) -> int:
                      submit(shards, store_phase, str(dev), root,
                             store_opts),
                      demo_ref, build_ref, native_ref)
-        return drive_paths(dev, full, rehearse, record, mark, refs, side,
+        return drive_paths(dev, full, rehearse, records, mark, refs, side,
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
                            lanes_opts, sweep_model, sweep_opts, campaign,
@@ -2969,7 +3130,10 @@ def phase3_runs(opts, bopts, paths):
              | dict(fault_fuzz=ACTIVE_FUZZ)),
             ("an active fault plan (crash, links, skew, membership)",
              ("fleet", "lin-kv", None), small(opts, time_limit=0.25)
-             | dict(fault_plan=ACTIVE_PLAN))]
+             | dict(fault_plan=ACTIVE_PLAN)),
+            ("the minor layout under a crash, links and skew plan",
+             ("fleet", "lin-kv", None), small(opts, time_limit=0.15)
+             | dict(fault_plan=CRASH_LINKS_SKEW_PLAN, layout="minor"))]
     for w in TUTORIAL:
         o = bopts if w == "broadcast" else paths[w][1]
         label = w
@@ -2998,7 +3162,7 @@ def phase3_runs(opts, bopts, paths):
     return runs
 
 
-def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
+def drive_paths(dev, full, rehearse, records, mark, refs, side, root, opts,
                 flagship, bopts, bmodel, paths, txn_paths, hunt_model,
                 hunt_opts, lanes_spec, lanes_opts, sweep_model,
                 sweep_opts, campaign, mesh_refs, profile_ref,
@@ -3213,6 +3377,9 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     log_bench_phase(dev, bench_ref)
     mark("phase 14 (its card work behind phase 13, in its card worker; "
          "the bench child in the side worker)")
+    minor_launches = log_minor_phase(dev, profile_ref)
+    mark("phase 19 (the minor layout, behind phase 14's off run in its "
+         "card worker)")
     by_path.update(log_multiproc_phase(dev, late_refs[0], mesh_refs[0]))
     mark("phase 15 (two processes, behind phase 14 in its card worker)")
     log_lint_phase(late_refs[1])
@@ -3225,8 +3392,12 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
     log_native_phase(late_refs[5])
     mark("phase 18 (b) (native lin-kv, behind the demo in its reference "
          "worker)")
+    record, minor_record = records
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path
+    minor_record["launches"] = minor_launches
+    minor_record["launches_by_path"] = {
+        "phase 19 minor flagship, BENCH_FUZZ_DIST": minor_launches}
     record["launches_not_counted"] = {
         "phase 12 campaign run child": "SIGKILLed mid-run: its launch "
         "count dies with the process; the resumed suffix and the "
@@ -3247,12 +3418,25 @@ def drive_paths(dev, full, rehearse, record, mark, refs, side, root, opts,
             f"{r['plain_ms']:.6f} ms, library call: none")
     log(f"kernel deliver: {record['launches']} launches on the main path, "
         f"by path {json.dumps(by_path)}")
+    for name, r in minor_record["shapes"].items():
+        lead = record["shapes"][name]
+        dev_txt = ("not measured" if r["device_ms"] is None
+                   else f"{r['device_ms']:.6f} ms device time per launch "
+                        f"({r['bound_share']:.1%} of the bound; the lead "
+                        f"entry {lead['device_ms']:.6f} ms, "
+                        f"{r['device_ms'] / lead['device_ms']:.3f}x)")
+        log(f"kernel deliver_minor at {name}: {dev_txt}, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), wrapper "
+            f"{r['wrapper_ms']:.6f} ms per call, plain version "
+            f"{r['plain_ms']:.6f} ms, library call: none")
+    log(f"kernel deliver_minor: {minor_launches} launches on its path "
+        f"(phase 19)")
     if rehearse:
         log("chip_smoke: CPU rehearsal passed (no card: no result line)")
         return 2
     from maelstrom_tpu_torch.kernels.devtime import card_line
     log(card_line())
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": [record, minor_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,10 +10,10 @@ them without loading a library and without creating a CUDA context:
 
 - For the audit subjects (``echo`` at two nodes, the pipelined chunk
   dispatch and one shard's chunk on a one-shard mesh, the lead layout:
-  the batch-minor layout is not ported) it re-records the dispatch on
-  ``meta`` tensors at ``aot_store.AOT_CHUNK_LEN`` ticks and derives its
-  certificate (``aot_store.graph_digest``), pinned in the checked-in,
-  torch-version-stamped ``analysis/aot_manifest.json``.
+  the passes do not audit the batch-minor one yet) it re-records the
+  dispatch on ``meta`` tensors at ``aot_store.AOT_CHUNK_LEN`` ticks and
+  derives its certificate (``aot_store.graph_digest``), pinned in the
+  checked-in, torch-version-stamped ``analysis/aot_manifest.json``.
 - Every entry of the store (``build/aot`` by default, or ``--aot-store
   DIR``) is audited: its libraries re-hashed against the recorded sha256
   (the bytes are read, never loaded), its recorded toolchain matched

@@ -141,7 +141,7 @@ def _tree_mismatches(a, b) -> List[str]:
 def _audit_opts(node_count: int) -> dict:
     return dict(node_count=node_count, concurrency=2, time_limit=0.25,
                 rate=50.0, latency=5.0, n_instances=4,
-                record_instances=2, journal_instances=0)
+                record_instances=2, journal_instances=0, layout="lead")
 
 
 def audit_model(model, node_count: int, label: Optional[str] = None,

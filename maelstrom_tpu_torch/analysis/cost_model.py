@@ -102,7 +102,7 @@ DEFAULT_COST_BASELINE = os.path.join(
 # baseline figures before COST501 fails the gate
 DEFAULT_TOLERANCE = 0.10
 
-# the port runs the batch-leading layout only
+# the passes audit the batch-leading layout (not the batch-minor one yet)
 AUDIT_LAYOUTS = ("lead",)
 
 META = torch.device("meta")
@@ -863,7 +863,7 @@ def tick_lane_stats(model, sim, cost: Optional[CostReport] = None,
 def cost_specs() -> List[Tuple[str, int]]:
     """Every registered model: the contract audit's workload table plus
     the registered mutants (the universe CON2xx audits), in the lead
-    layout (the port has no batch-minor layout)."""
+    layout (the passes do not audit the batch-minor one yet)."""
     from .contract_audit import AUDIT_WORKLOADS, _buggy_workloads
     return list(AUDIT_WORKLOADS) + _buggy_workloads()
 

@@ -8,8 +8,8 @@ per-instance table smuggled into the params every shard holds whole,
 a wire-carry leaf without a reshard kind. This pass finds them without
 a device:
 
-- For every registered model (lead layout; the batch-minor layout is
-  not ported) it takes a **collective census** of the recorded graphs
+- For every registered model (lead layout; the passes do not audit the
+  batch-minor one yet) it takes a **collective census** of the recorded graphs
   (``cost_model.record_tick`` / ``record_call`` on ``meta`` tensors):
   *tick* holds each ``torch.distributed`` operator (the functional
   collectives ``_c10d_functional.*`` and the ``c10d.*`` ops behind the

@@ -329,11 +329,11 @@ def graph_digest(g) -> str:
 
 def entry_label(model, sim, kind: str,
                 mesh_size: Optional[int] = None) -> str:
-    """The coarse identity of an entry — ``<workload>/n=<nodes>/lead/
-    <kind>[/s=<mesh>]`` — with which the audit pairs store entries with
-    its subjects even after the content hash drifted."""
+    """The coarse identity of an entry — ``<workload>/n=<nodes>/
+    <layout>/<kind>[/s=<mesh>]`` — with which the audit pairs store
+    entries with its subjects even after the content hash drifted."""
     base = (f"{getattr(model, 'name', type(model).__name__)}"
-            f"/n={sim.net.n_nodes}/lead/{kind}")
+            f"/n={sim.net.n_nodes}/{sim.layout}/{kind}")
     if mesh_size is not None:
         base += f"/s={mesh_size}"
     return base
@@ -546,7 +546,7 @@ def build_meta(sig: Dict[str, Any], cache_key: str, entry: str,
             "graph-digest": digest,
             "src-digest": sig["src"],
             "config-digest": config_digest(sig),
-            "carry-layout": "lead",
+            "carry-layout": getattr(sig.get("sim"), "layout", None),
             "chunk-length": AOT_CHUNK_LEN,
             "dispatch-length": sig["length"],
             "mesh": sig.get("mesh"),

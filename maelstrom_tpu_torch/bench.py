@@ -170,10 +170,12 @@ def plan_configs(n_instances: int, sim_seconds: float, on_cpu: bool):
 
 def config_options(n_instances: int, sim_seconds: float, knobs):
     """``(model, opts)`` of one config: the flagship's options with the
-    bench's knobs (``bench.py:239-261``)."""
+    bench's knobs (``bench.py:239-261``). As there, the layout is the
+    harness's "auto": minor on the card, lead on the CPU."""
     from . import fleets
     from .faults.fuzz import BENCH_FUZZ_DIST
     model, opts = fleets.fleet("lin-kv")
+    del opts["layout"]
     opts.update(n_instances=n_instances, time_limit=sim_seconds,
                 record_instances=int(os.environ.get(
                     "BENCH_RECORD_INSTANCES", "1")),
@@ -193,9 +195,11 @@ def static_fields(model, sim) -> dict:
     unless ``BENCH_LANES=0`` the lane pass's (``lanes_live``,
     ``lanes_dead``, ``lanes_dead_bytes``), unless ``BENCH_RANGES=0`` the
     ranges pass's ``ovf_margin_bits`` and unless ``BENCH_SHARD=0`` the
-    shard pass's ``collectives_per_tick`` and ``ici_bytes_est``. A
-    failure logs and leaves its fields ``None``: it never stops the
-    bench."""
+    shard pass's ``collectives_per_tick`` and ``ici_bytes_est``. The
+    lane and ranges passes read the lead layout only, so a minor ``sim``
+    hands them its lead twin: which lanes are live and what values a
+    leaf takes do not depend on the layout. A failure logs and leaves
+    its fields ``None``: it never stops the bench."""
     from .analysis import cost_model
     out = dict(ir_eqns=None, ir_bytes_est=None, lanes_live=None,
                lanes_dead=None, lanes_dead_bytes=None,
@@ -212,10 +216,13 @@ def static_fields(model, sim) -> dict:
             f"per tick, traced in {time.monotonic() - t0:.1f} s")
     except Exception as e:
         log(f"tick_cost unavailable: {e!r}")
+    lead, lead_cache = sim, cache
+    if sim.layout != "lead":
+        lead, lead_cache, cost = sim._replace(layout="lead"), {}, None
     if _on("BENCH_LANES"):
         try:
-            out.update(cost_model.tick_lane_stats(model, sim, cost=cost,
-                                                  cache=cache))
+            out.update(cost_model.tick_lane_stats(model, lead, cost=cost,
+                                                  cache=lead_cache))
             log(f"lane liveness: {out['lanes_live']} live / "
                 f"{out['lanes_dead']} dead lanes, "
                 f"~{out['lanes_dead_bytes'] / 1e3:.0f} kB/tick dead")
@@ -224,7 +231,8 @@ def static_fields(model, sim) -> dict:
     if _on("BENCH_RANGES"):
         t0 = time.monotonic()
         try:
-            out.update(cost_model.tick_range_stats(model, sim, cache=cache))
+            out.update(cost_model.tick_range_stats(model, lead,
+                                                   cache=lead_cache))
             log(f"value ranges: {out['ovf_margin_bits']} bit(s) of proven "
                 f"counter headroom at the production horizon "
                 f"({time.monotonic() - t0:.1f} s)")
@@ -373,7 +381,7 @@ def run_config(name: str, knobs, sim_seconds: float, n_instances: int,
     fuzz_on = _on("BENCH_FUZZ")
     model, opts = config_options(n_instances, sim_seconds, knobs)
     check_mode = opts["check_mode"]
-    sim = harness.make_sim_config(model, opts)
+    sim = harness.make_sim_config(model, {**opts, "device": dev.type})
     R, C, V = sim.record_instances, sim.client.n_clients, model.ev_vals
     ids = runtime.default_instance_ids(sim, dev)
     carry = runtime.init_carry(model, sim, int(opts["seed"]), dev, ids)
@@ -491,7 +499,7 @@ def run_config(name: str, knobs, sim_seconds: float, n_instances: int,
             "vs_baseline": round(value / BASELINE_MSGS_PER_SEC, 3),
             "platform": "gpu" if dev.type == "cuda" else "cpu",
             "engine": "torch",
-            "layout": "lead",
+            "layout": sim.layout,
             "config": name,
             "inbox_k": sim.net.inbox_k,
             "pool_slots": sim.net.pool_slots,

@@ -232,7 +232,7 @@ def triage_run(run_dir: str, ids: Optional[List[int]] = None,
     sub_opts = {**info["opts"], "n_instances": K, "record_instances": K,
                 "journal_instances": K}
     ms_per_tick = float(sub_opts.get("ms_per_tick", 1) or 1)
-    sim = make_sim_config(model, sub_opts)
+    sim = make_sim_config(model, {**sub_opts, "device": dev.type})
     # fuzz runs: each instance's schedule is a pure function of (seed,
     # instance id); sim.faults is the run's own compiled distribution
     fuzz_fx = sim.faults if info["opts"].get("fault_fuzz") else None

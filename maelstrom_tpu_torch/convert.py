@@ -1,6 +1,7 @@
 """State carried across: a JAX-runtime carry <-> the port's :class:`Carry`.
 
-The JAX package's ``Carry`` (lead layout) with its leaves turned into
+The JAX package's ``Carry`` (in either layout: the leaves as they lie,
+so a minor carry maps onto a minor one) with its leaves turned into
 numpy arrays — keys as uint32 — maps field by field onto the port's
 carry on any device, and back. Fields are matched by name (NamedTuple
 ``_fields``), so this module needs nothing of the JAX package: the

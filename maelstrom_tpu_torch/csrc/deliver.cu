@@ -297,6 +297,162 @@ cudaError_t launch(const int32_t* pool, const uint8_t* part, int t,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The batch-last entry: the same function over the minor carry layout's
+// pool [S, L, I] (instances minormost, contiguous), read and written in
+// that orientation. It replaces no Pallas kernel: the JAX package's minor
+// layout runs XLA's netsim.deliver under vmap. It exists because the
+// card's main path runs no plain version, and a transpose of the pool to
+// [I, S, L] and back each tick would move the pool three times more.
+// Partitions stay batch-leading [I, NT, NT] (the tick builds them so);
+// the inbox comes out [I, NT, K, L] and the counts [I], as the JAX minor
+// tick's batch-leading outputs. Its bound is the lead kernel's: the pool
+// and the partition plane read once, pool', the inbox and the counts
+// written once.
+//
+// Design: a block of kMinorWarps warps owns 32 neighbouring instances,
+// one per lane, so a warp's loads of pool[s, l, i0..i0+31] are 128
+// contiguous bytes.
+//   1. Classify: warp w walks slots w, w + kMinorWarps, ... of its
+//      lane's instance (four coalesced header loads a slot). Dropped
+//      slots set bits in the instance's cleared mask; eligible ones
+//      append (priority, dest << 16 | slot) to the instance's column of
+//      shared memory (entry e of instance x at [e * 32 + x]: a warp's
+//      accesses are consecutive words) through a shared counter, in an
+//      order that does not matter: the rank below reads none.
+//   2. Rank: warp w takes entries w, w + kMinorWarps, ... of its lane's
+//      instance. An entry is taken iff fewer than K entries of its
+//      endpoint rank above it (higher priority, or equal priority and a
+//      lower slot): E * E compares for E eligible slots in all, its rank
+//      its inbox row. The (endpoint, k) -> slot table goes to shared
+//      memory, and taken slots join the cleared mask.
+//   3. Every warp moves data: pool' by rows (s, l) of 32 instances, warp
+//      w taking rows w, w + kMinorWarps, ... (a coalesced 128-byte load
+//      and store a row, 0 for a cleared slot); the inbox of the 32
+//      instances, one contiguous stretch of the output, word by word over
+//      the block's threads, each word gathered from the pool through the
+//      row table.
+//   Three block barriers separate the steps.
+
+constexpr int kMinorWarps = 32;
+
+// Shared memory of one block (the Python geometry helper computes the
+// same): compacted entries, cleared masks, the row table, and three
+// counters, for 32 instances.
+size_t minor_block_smem(int S, int NT, int K) {
+  const size_t b = 32 * (8 * static_cast<size_t>(S) +
+                         4 * static_cast<size_t>((S + 31) / 32) + 4 * 3 +
+                         2 * static_cast<size_t>(NT) * K);
+  return (b + 15) / 16 * 16;
+}
+
+__global__ void __launch_bounds__(32 * kMinorWarps) deliver_minor_kernel(
+    const int32_t* __restrict__ pool, const uint8_t* __restrict__ part,
+    int t, int32_t* __restrict__ pool_out, int32_t* __restrict__ inbox,
+    int32_t* __restrict__ n_del, int32_t* __restrict__ n_drop, int I,
+    int S, int L, int NT, int K) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int x = threadIdx.x;
+  const int lane = x & 31;
+  const int warp = x >> 5;
+  const int i0 = blockIdx.x * 32;   // the block's first instance
+  const int nw = min(32, I - i0);   // instances of this block
+  const int i = i0 + lane;
+  const bool own = lane < nw;
+  const int R = NT * K;
+  const int W = (S + 31) / 32;
+  int2* ckey = reinterpret_cast<int2*>(smem);                    // [S][32]
+  uint32_t* cleared = reinterpret_cast<uint32_t*>(ckey + 32 * S);  // [W][32]
+  int* n_elig = reinterpret_cast<int*>(cleared + 32 * W);          // [32]
+  int* ndel = n_elig + 32;                                         // [32]
+  int* ndrop = ndel + 32;                                          // [32]
+  int16_t* src = reinterpret_cast<int16_t*>(ndrop + 32);           // [R][32]
+  const size_t plane = static_cast<size_t>(L) * I;   // one slot's words
+
+  for (int k = x; k < 32 * (W + 3); k += 32 * kMinorWarps)
+    cleared[k] = 0u;   // the masks and the three counters
+  for (int k = x; k < 32 * R; k += 32 * kMinorWarps) src[k] = -1;
+  __syncthreads();
+
+  // 1. classify
+  if (own) {
+    const uint8_t* ipart = part + static_cast<size_t>(i) * NT * NT;
+#pragma unroll 4
+    for (int s = warp; s < S; s += kMinorWarps) {
+      const int32_t* col = pool + s * plane + i;
+      const int valid = col[static_cast<size_t>(kValid) * I];
+      const int dtick = col[static_cast<size_t>(kDtick) * I];
+      const int dest = col[static_cast<size_t>(kDest) * I];
+      const int origin = col[static_cast<size_t>(kOrigin) * I];
+      if (valid != 1 || dtick > t) continue;
+      const bool blocked =
+          __ldg(ipart + jax_index(dest, NT) * NT + jax_index(origin, NT)) !=
+          0;
+      if (blocked) {
+        atomicOr(&cleared[(s >> 5) * 32 + lane], 1u << (s & 31));
+        atomicAdd(&ndrop[lane], 1);
+        continue;
+      }
+      // int32 wrap, as the JAX priority arithmetic
+      const int32_t prio = static_cast<int32_t>(
+          (static_cast<uint32_t>(1 << 20) - static_cast<uint32_t>(dtick)) *
+              static_cast<uint32_t>(S) +
+          static_cast<uint32_t>(S - s));
+      if (dest >= 0 && dest < NT && prio > 0)
+        ckey[atomicAdd(&n_elig[lane], 1) * 32 + lane] =
+            make_int2(prio, (dest << 16) | s);
+    }
+  }
+  __syncthreads();
+
+  // 2. rank
+  if (own) {
+    const int n = n_elig[lane];
+    for (int a = warp; a < n; a += kMinorWarps) {
+      const int2 ka = ckey[a * 32 + lane];
+      const int da = ka.y >> 16, sa = ka.y & 0xffff;
+      int rank = 0;
+      for (int b = 0; b < n && rank < K; ++b) {
+        const int2 kb = ckey[b * 32 + lane];
+        rank += ((kb.y >> 16) == da) &
+                ((kb.x > ka.x) | ((kb.x == ka.x) & ((kb.y & 0xffff) < sa)));
+      }
+      if (rank < K) {
+        src[(da * K + rank) * 32 + lane] = static_cast<int16_t>(sa);
+        atomicOr(&cleared[(sa >> 5) * 32 + lane], 1u << (sa & 31));
+        atomicAdd(&ndel[lane], 1);
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && own) {
+    n_del[i] = ndel[lane];
+    n_drop[i] = ndrop[lane];
+  }
+
+  // 3a. pool' by rows (s, l) of the block's instances
+  if (own) {
+    for (int row = warp; row < S * L; row += kMinorWarps) {
+      const int s = row / L;
+      const size_t at = s * plane + static_cast<size_t>(row - s * L) * I + i;
+      const bool gone = (cleared[(s >> 5) * 32 + lane] >> (s & 31)) & 1u;
+      pool_out[at] = gone ? 0 : pool[at];
+    }
+  }
+  // 3b. the block's inbox stretch [nw * R * L] words, thread by word
+  const int RL = R * L;
+  int32_t* out = inbox + static_cast<size_t>(i0) * RL;
+  for (int u = x; u < nw * RL; u += 32 * kMinorWarps) {
+    const int n = u / RL;
+    const int rem = u - n * RL;
+    const int r = rem / L;
+    const int q = rem - r * L;
+    const int sl = src[r * 32 + n];
+    out[u] = sl >= 0 ? pool[sl * plane + static_cast<size_t>(q) * I + i0 + n]
+                     : 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -334,6 +490,32 @@ int deliver_launch(const int32_t* pool, const uint8_t* part, int t,
   }
 #undef DELIVER_LAUNCH
   return static_cast<int>(e);
+}
+
+// The batch-last entry on `stream`: pool and pool_out [S, L, I], inbox
+// [I, NT, K, L], partitions [I, NT, NT]; a block of 32 * kMinorWarps
+// threads for each 32 instances, with minor_block_smem(S, NT, K) bytes of
+// shared memory. Returns the launch's cudaError_t: cudaErrorInvalidValue
+// for a geometry the kernel does not take.
+int deliver_minor_launch(const int32_t* pool, const uint8_t* part, int t,
+                         int32_t* pool_out, int32_t* inbox, int32_t* n_del,
+                         int32_t* n_drop, int I, int S, int L, int NT,
+                         int K, void* stream) {
+  const size_t smem = minor_block_smem(S, NT, K);
+  if (S < 1 || S > 256 || K < 1 || K > S || NT < 1 || L < 8 || I < 1 ||
+      smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        deliver_minor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int blocks = (I + 31) / 32;
+  deliver_minor_kernel<<<blocks, 32 * kMinorWarps, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      pool, part, t, pool_out, inbox, n_del, n_drop, I, S, L, NT, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -176,7 +176,7 @@ def make_replayer(model, opts: Dict[str, Any], instance_id: int,
     ids = torch.tensor([int(instance_id)], dtype=torch.int32, device=dev)
 
     def replay(plan: Optional[Dict[str, Any]]) -> bool:
-        sim = make_sim_config(model, {**base,
+        sim = make_sim_config(model, {**base, "device": dev.type,
                                       "fault_plan": plan or None})
         res = run_sim_pipelined(model, sim, seed, dev, instance_ids=ids,
                                 chunk=chunk)

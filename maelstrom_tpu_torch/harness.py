@@ -70,7 +70,10 @@ TORCH_DEFAULTS = dict(
     pool_slots=128,
     inbox_k=8,
     ms_per_tick=MS_PER_TICK,
-    layout="lead",           # the port implements the batch-leading layout
+    layout="auto",           # the carry's instance axis: "minor" last,
+                             # "lead" first; "auto" picks minor on a
+                             # card and lead on the CPU (resolve_layout);
+                             # trajectories are bit-identical either way
     telemetry=True,
     telemetry_stride=0,      # 0 = auto (<= 256 windows)
     telemetry_hist_buckets=16,
@@ -154,19 +157,34 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
+def resolve_layout(layout: str, device=None) -> str:
+    """The ``layout`` option as a concrete ``SimConfig.layout``: "auto"
+    is "minor" for a run on a card and "lead" on the CPU (the JAX
+    harness's rule: minor on an accelerator); with no ``device`` the
+    run's default device decides, a card when one is present."""
+    layout = layout.strip()
+    if layout == "auto":
+        if device is None:
+            return "minor" if torch.cuda.is_available() else "lead"
+        return "minor" if torch.device(device).type == "cuda" else "lead"
+    if layout not in ("lead", "minor"):
+        raise ValueError(f"unknown carry layout {layout!r} "
+                         "(expected auto/lead/minor)")
+    return layout
+
+
 def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
     """The static run configuration from CLI-style options. An option
     the port does not implement raises, naming it: nothing is dropped
-    silently."""
+    silently. ``opts["device"]``, when given, is the device "auto"
+    resolves the layout for."""
     unknown = sorted(set(opts) - KNOWN_OPTS)
     if unknown:
         raise ValueError(f"option(s) {', '.join(unknown)} not implemented "
                          f"by maelstrom_tpu_torch")
     _check_model_opts(model, opts)
     o = {**TORCH_DEFAULTS, **opts}
-    if o.get("layout", "lead") not in ("lead", "auto"):
-        raise ValueError("maelstrom_tpu_torch implements the batch-leading "
-                         "carry layout only (layout='lead')")
+    layout = resolve_layout(o["layout"], o.get("device"))
     mpt = o["ms_per_tick"]
     n_ticks = int(o["time_limit"] * 1000 / mpt)
     # the delivery priority encodes the deadline as ((1 << 20) - dtick) * S
@@ -253,7 +271,7 @@ def make_sim_config(model: Model, opts: Dict[str, Any]) -> SimConfig:
                      record_instances=min(o["record_instances"],
                                           o["n_instances"]),
                      journal_instances=journal_instances,
-                     telemetry=telemetry, faults=faults,
+                     layout=layout, telemetry=telemetry, faults=faults,
                      check_summary=check_mode in ("device", "both"))
 
 
@@ -456,7 +474,8 @@ def replay_histories(model: Model, opts: Dict[str, Any],
     K = len(instance_ids)
     sim = make_sim_config(model, {**opts, "n_instances": K,
                                   "record_instances": K,
-                                  "journal_instances": 0})
+                                  "journal_instances": 0,
+                                  "device": dev.type})
     if n_ticks is not None:
         sim = sim._replace(n_ticks=n_ticks)
     ids = torch.tensor(instance_ids, dtype=torch.int32, device=dev)
@@ -538,7 +557,7 @@ def heartbeat_meta(model: Model, sim: SimConfig, opts: Dict[str, Any],
         "journal-instances": sim.journal_instances,
         "wire-format": sim.net.wire_format,
         "chunk-ticks": int(opts.get("chunk_ticks") or 100),
-        "layout": "lead",
+        "layout": sim.layout,
         "seed": int(opts.get("seed") or 0),
         "opts": repro,
         # scalar model knobs: the replay rebuilds the same automaton
@@ -575,7 +594,10 @@ def aot_fingerprint_for(model: Model, opts: Dict[str, Any],
         return None
     try:
         from .aot_store import pipelined_fingerprint
-        sim = make_sim_config(model, full)
+        platform = (torch.device(device).type if device is not None
+                    else device_sig[0] if device_sig else None)
+        sim = make_sim_config(model, full if platform is None
+                              else {**full, "device": platform})
         return pipelined_fingerprint(
             model, sim, chunk=int(full.get("chunk_ticks") or 100),
             event_cap=int(full.get("event_capacity") or 0) or None,
@@ -588,11 +610,14 @@ def aot_fingerprint_for(model: Model, opts: Dict[str, Any],
 def _resume_state(model: Model, sim: SimConfig, seed: int, run_dir: str,
                   dev: torch.device):
     """The cut a killed run left in ``<run_dir>/checkpoint/``, its carry
-    rebuilt on ``dev`` in the structure of the port's own init carry."""
+    rebuilt on ``dev`` in the structure of the port's own init carry.
+    The checkpoint holds its run's layout (``meta["layout"]``); a run
+    resumed on a device whose "auto" layout is the other one continues
+    in the resumed run's layout, its carry turned over once here."""
     from .campaign.checkpoint import (KIND_PIPELINED, CheckpointError,
                                       load_checkpoint, restore_carry)
     from .pipeline import ResumeState
-    from .runtime import init_carry
+    from .runtime import canonical_carry, carry_from_canonical, init_carry
     ck = load_checkpoint(run_dir)
     if ck is None:
         raise CheckpointError(
@@ -602,9 +627,11 @@ def _resume_state(model: Model, sim: SimConfig, seed: int, run_dir: str,
         raise CheckpointError(
             f"{run_dir} holds a {ck['kind']!r} checkpoint; "
             f"run_torch_test resumes single-device runs only")
-    template = init_carry(model, sim, seed, dev)
-    return ResumeState(carry=restore_carry(template, ck["carry"],
-                                           device=dev),
+    saved = sim._replace(layout=ck["meta"].get("layout", sim.layout))
+    carry = restore_carry(init_carry(model, saved, seed, dev), ck["carry"],
+                          device=dev)
+    return ResumeState(carry=carry_from_canonical(
+                           canonical_carry(carry, saved), sim),
                        ticks=int(ck["ticks"]), chunks=int(ck["chunks"]),
                        compact=tuple(ck["compact"]),
                        journal=tuple(ck["journal"]))
@@ -630,7 +657,7 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
     uninterrupted run's."""
     opts = {**TORCH_DEFAULTS, **(opts or {})}
     dev = resolve_device(device or opts.get("device"))
-    sim = make_sim_config(model, opts)
+    sim = make_sim_config(model, {**opts, "device": dev.type})
     run_dir = None
     resume = None
     phases: Dict[str, Any] = {}
@@ -691,7 +718,7 @@ def run_torch_test(model: Model, opts: Optional[Dict[str, Any]] = None,
             checkpoint_cb = make_checkpoint_cb(
                 run_dir, kind=KIND_PIPELINED,
                 meta={"workload": model.name, "seed": int(opts["seed"]),
-                      "layout": "lead",
+                      "layout": sim.layout,
                       "chunk-ticks": int(opts.get("chunk_ticks") or 100)})
         else:
             # durability the caller asked for would not exist: say so,

@@ -12,6 +12,11 @@ Counterpart of ``maelstrom_tpu/tpu/netsim.py``, written over the whole
 - :func:`enqueue` places newly sent rows into free slots with a sampled
   latency deadline and probabilistic loss (zero latency on client
   links); pool overflow drops and counts.
+- With ``minor=True`` both take the batch-last pool ``[S, L, I]`` of
+  the minor carry layout: they read it through a ``movedim`` view and
+  write the new pool batch-last, with no transpose of the pool.
+  :func:`deliver_reference_minor` is the plain version of the
+  batch-last delivery kernel.
 
 Both are bit-identical to ``vmap`` of their JAX counterparts: the
 stable empty-slots-first ``argsort``, first-maximum ``argmax``, the
@@ -100,14 +105,19 @@ def jax_index(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def deliver_reference(pool: torch.Tensor, partitions: torch.Tensor, t: int,
-                      cfg: NetConfig
+                      cfg: NetConfig, minor: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """One delivery round for the batch, in plain PyTorch.
 
     ``pool [I, S, L]`` int32, ``partitions [I, NT, NT]`` bool
     (``partitions[i, dest, src]`` True = dest refuses src). Returns
-    ``(pool', inbox [I, NT, K, L], n_delivered [I], n_dropped [I])``."""
+    ``(pool', inbox [I, NT, K, L], n_delivered [I], n_dropped [I])``.
+    With ``minor`` the pool is batch-last, ``[S, L, I]``, and so is
+    ``pool'`` (:func:`deliver_reference_minor`)."""
+    pool_m = pool
+    if minor:
+        pool = pool.movedim(-1, 0)
     I, S, L = pool.shape
     NT, K = cfg.n_total, cfg.inbox_k
     dev = pool.device
@@ -147,9 +157,23 @@ def deliver_reference(pool: torch.Tensor, partitions: torch.Tensor, t: int,
                            torch.ones((I, NT * K), dtype=torch.int32,
                                       device=dev)))[:, :S] > 0
     cleared = taken | drop_mask
-    pool_out = torch.where(cleared[..., None], 0, pool)
+    if minor:
+        pool_out = torch.where(cleared.t().contiguous()[:, None, :], 0,
+                               pool_m)
+    else:
+        pool_out = torch.where(cleared[..., None], 0, pool)
     return (pool_out, inbox, sum_i32(take, dim=(1, 2)),
             sum_i32(drop_mask, dim=1))
+
+
+def deliver_reference_minor(pool: torch.Tensor, partitions: torch.Tensor,
+                            t: int, cfg: NetConfig
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """:func:`deliver_reference` over the batch-last ``pool [S, L, I]``:
+    ``(pool' [S, L, I] contiguous, inbox [I, NT, K, L], n_delivered
+    [I], n_dropped [I])``, the inbox and counts batch-leading."""
+    return deliver_reference(pool, partitions, t, cfg, minor=True)
 
 
 def latency_from_bits(bits: torch.Tensor, cfg: NetConfig) -> torch.Tensor:
@@ -171,7 +195,8 @@ def latency_from_bits(bits: torch.Tensor, cfg: NetConfig) -> torch.Tensor:
 def enqueue(pool: torch.Tensor, msgs: torch.Tensor, t: int,
             key: torch.Tensor, cfg: NetConfig,
             edge_delay: Optional[torch.Tensor] = None,
-            edge_loss_pm: Optional[torch.Tensor] = None
+            edge_loss_pm: Optional[torch.Tensor] = None,
+            minor: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                        torch.Tensor]:
     """Insert outgoing rows ``msgs [I, M, L]`` (invalid rows ignored)
@@ -185,10 +210,15 @@ def enqueue(pool: torch.Tensor, msgs: torch.Tensor, t: int,
 
     Slot ``j`` of the empty-slots-first order receives the ``j``-th live
     message; each slot gathers the one message aimed at it, as in the
-    JAX placement."""
+    JAX placement. With ``minor`` the pool is batch-last, ``[S, L, I]``,
+    and each slot's row is gathered straight into the batch-last
+    ``pool'``; ``msgs`` and the counts stay batch-leading."""
     I, M, L = msgs.shape
     S = cfg.pool_slots
     dev = pool.device
+    pool_m = pool
+    if minor:
+        pool = pool.movedim(-1, 0)
     msg_valid = msgs[..., wire.VALID] == 1
 
     # k_lat, k_loss = split(key) and the edge-loss key fold_in(key, 2)
@@ -235,9 +265,17 @@ def enqueue(pool: torch.Tensor, msgs: torch.Tensor, t: int,
     has = hit.any(dim=2)                                      # [I, S]
     src = hit.to(torch.int32).argmax(dim=2)                   # [I, S]
     msg_src = live_order.gather(1, src)
-    placed = msgs.gather(1, msg_src[..., None].expand(I, S, L)).clone()
-    placed[..., wire.DTICK] = dtick.gather(1, msg_src)
-    pool = torch.where(has[..., None], placed, pool)
+    if minor:
+        src_m = msg_src.t()                                   # [S, I]
+        placed = msgs.permute(1, 2, 0).gather(
+            0, src_m[:, None, :].expand(S, L, I))             # [S, L, I]
+        placed[:, wire.DTICK] = dtick.gather(1, msg_src).t()
+        pool = torch.where(has.t().contiguous()[:, None, :], placed, pool_m)
+    else:
+        placed = msgs.gather(1, msg_src[..., None].expand(I, S, L)).clone()
+        placed[..., wire.DTICK] = dtick.gather(1, msg_src)
+        pool = torch.where(has[..., None], placed, pool)
     n_placed = can_place.sum(dim=1)
     return (pool, sum_i32(msg_valid, dim=1), sum_i32(lost, dim=1),
             (n_live - n_placed).to(torch.int32))
+

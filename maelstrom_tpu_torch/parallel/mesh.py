@@ -56,7 +56,8 @@ from ..netsim import NetStats
 from ..pipeline import (DEFAULT_SCAN_TOP_K, finish_fetch, resume_plans,
                         plan_chunks, scan_source, start_fetch,
                         violation_scan)
-from ..runtime import Carry, Model, SimConfig, init_carry, make_tick_fn
+from ..runtime import (Carry, Model, SimConfig, canonical_carry,
+                       carry_from_canonical, init_carry, make_tick_fn)
 from ..telemetry.recorder import Telemetry
 from ..telemetry.stream import (combine_shard_scans, scan_to_violation,
                                 scan_to_violations, stats_vec_to_net)
@@ -409,11 +410,13 @@ def run_sim_sharded(model: Model, sim: SimConfig, seed: int, params=None,
     return stats, violations, events, tel
 
 
-def _carry_to_wire(c: Carry) -> Carry:
+def _carry_to_wire(c: Carry, sim: SimConfig) -> Carry:
     """A shard's carry with EVERY leaf leading with a shard-divisible
     axis: scalars -> ``[1]``, the key ``[2] -> [1, 2]``, the telemetry
-    series ``[W, lanes] -> [1, W, lanes]``; the instance leaves as they
-    are (the port's carry is batch-leading)."""
+    series ``[W, lanes] -> [1, W, lanes]``; the instance leaves in the
+    canonical (batch-leading) orientation whatever ``sim.layout`` is,
+    so the wire is the same for both layouts."""
+    c = canonical_carry(c, sim)
     tel = c.telemetry
     if tel is not None:
         tel = tel._replace(series=tel.series.reshape(
@@ -423,14 +426,14 @@ def _carry_to_wire(c: Carry) -> Carry:
                       telemetry=tel)
 
 
-def _carry_from_wire(w: Carry) -> Carry:
+def _carry_from_wire(w: Carry, sim: SimConfig) -> Carry:
     tel = w.telemetry
     if tel is not None:
         tel = tel._replace(series=tel.series.reshape(
             tuple(tel.series.shape[1:])))
-    return w._replace(stats=NetStats(*(x.reshape(()) for x in w.stats)),
-                      key=w.key.reshape(tuple(w.key.shape[1:])),
-                      telemetry=tel)
+    return carry_from_canonical(w._replace(
+        stats=NetStats(*(x.reshape(()) for x in w.stats)),
+        key=w.key.reshape(tuple(w.key.shape[1:])), telemetry=tel), sim)
 
 
 def _shard_wire_structure(model: Model, sim: SimConfig):
@@ -440,7 +443,7 @@ def _shard_wire_structure(model: Model, sim: SimConfig):
     one = sim._replace(n_instances=1, record_instances=0,
                        journal_instances=0)
     return convert.carry_to_numpy(_carry_to_wire(
-        init_carry(model, one, 0, torch.device("cpu"))))
+        init_carry(model, one, 0, torch.device("cpu")), one))
 
 
 def _leaf_kind(name: str) -> str:
@@ -484,22 +487,23 @@ def _row_type(carry: Carry):
     return type(ns) if hasattr(ns, "_fields") else None
 
 
-def _gather_wire(carries: List[Carry]) -> Carry:
+def _gather_wire(carries: List[Carry], sim: SimConfig) -> Carry:
     """The wire (numpy leaves, key uint32) of the shards' carries: each
     leaf joined shard-major. Copies each shard to the host."""
-    wires = [convert.carry_to_numpy(_carry_to_wire(c)) for c in carries]
+    wires = [convert.carry_to_numpy(_carry_to_wire(c, sim))
+             for c in carries]
     leaves = [np.concatenate(xs, axis=0) for xs in zip(*(
         [a for _, a in convert.carry_leaves(w)] for w in wires))]
     return convert.carry_with_leaves(wires[0], leaves)
 
 
-def _exchange_wire(mesh: Mesh, carries: List[Carry],
+def _exchange_wire(mesh: Mesh, carries: List[Carry], sim: SimConfig,
                    root_only: bool = False) -> Optional[Carry]:
     """The GLOBAL wire of the mesh: this process's shards joined, then
     every process's rows joined in rank order (a process's shards are
     consecutive global shards). With ``root_only`` only rank 0 gets it
     (None elsewhere)."""
-    local = _gather_wire(carries)
+    local = _gather_wire(carries, sim)
     if mesh.process_count == 1:
         return local
     leaves = [a for _, a in convert.carry_leaves(local)]
@@ -510,7 +514,7 @@ def _exchange_wire(mesh: Mesh, carries: List[Carry],
         local, [np.concatenate(xs, axis=0) for xs in zip(*rows)])
 
 
-def _split_wire(wire: Carry, mesh: Mesh, n_instances: int,
+def _split_wire(wire: Carry, mesh: Mesh, sim: SimConfig,
                 shards: Optional[Sequence[int]] = None) -> List[Carry]:
     """A global wire (numpy or tensor leaves) into one carry per shard of
     ``shards`` (global indices; default all), each on its shard's
@@ -518,6 +522,7 @@ def _split_wire(wire: Carry, mesh: Mesh, n_instances: int,
     if isinstance(wire.pool, torch.Tensor):
         wire = convert.carry_to_numpy(wire)
     S = mesh.size
+    n_instances = sim.n_instances
     named = list(convert.carry_leaves(wire))
     for name, a in named:
         want = (n_instances if _leaf_kind(name) == SHARD_LEAF_INSTANCE
@@ -535,7 +540,7 @@ def _split_wire(wire: Carry, mesh: Mesh, n_instances: int,
                   for _, a in named]
         part = convert.carry_with_leaves(wire, leaves)
         out.append(_carry_from_wire(convert.carry_from_numpy(
-            part, _row_type(wire), mesh.devices[s])))
+            part, _row_type(wire), mesh.devices[s]), sim))
     return out
 
 
@@ -662,7 +667,7 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
     ids = [torch.from_numpy(all_ids[s]).to(d) for s, d in zip(local, devs)]
     ticks = [make_tick_fn(model, sim, i, d) for i, d in zip(ids, devs)]
     if resume is not None:
-        carries = _split_wire(resume.carry, mesh, I, local)
+        carries = _split_wire(resume.carry, mesh, sim, local)
     else:
         carries = [init_carry(model, sim, seed32, d, i)
                    for i, d in zip(ids, devs)]
@@ -778,7 +783,7 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
             tripped = consume(*pending) or tripped
             pending = None
             t_c = time.monotonic()
-            wire = _exchange_wire(mesh, carries, root_only=True)
+            wire = _exchange_wire(mesh, carries, sim, root_only=True)
             if wire is not None and checkpoint_cb is not None:
                 checkpoint_cb(wire, ticks_dispatched,
                               {"events": list(events_chunks),
@@ -789,7 +794,7 @@ def run_sim_sharded_chunked(model: Model, sim: SimConfig, seed: int,
             break
     if pending is not None:
         consume(*pending)
-    wire = _exchange_wire(mesh, carries)
+    wire = _exchange_wire(mesh, carries, sim)
     rows = _all_rows(mesh, (stats["issue-s"], round(stats["gather-s"], 4)))
     if perf is not None and root:
         perf.update({

@@ -1,10 +1,9 @@
 """The tick loop: vectorized protocol instances stepped in lockstep.
 
-Counterpart of ``maelstrom_tpu/tpu/runtime.py`` in its batch-leading
-(``lead``) layout. One *instance* is one simulated cluster (N server
-nodes + C clients) with its own message pool, partition matrix and RNG
-stream; the runtime stacks ``n_instances`` of them on a leading axis
-and steps them all each tick:
+Counterpart of ``maelstrom_tpu/tpu/runtime.py``. One *instance* is one
+simulated cluster (N server nodes + C clients) with its own message
+pool, partition matrix and RNG stream; the runtime stacks
+``n_instances`` of them on one axis and steps them all each tick:
 
     nemesis     : per-instance partition matrices from the schedule
     faults      : the fault planes (faults/): crash and park wipes,
@@ -24,6 +23,18 @@ id) through ``rng.fold_in``, exactly as in JAX, so an instance's
 trajectory is a pure function of (seed, its id) and bit-identical to
 the JAX runtime's. Tensors are updated out of place; nothing here is
 jitted — PyTorch runs eagerly.
+
+The carry has JAX's two layouts (``SimConfig.layout``). ``lead`` keeps
+the instance axis first on every leaf. ``minor`` keeps it last on the
+pool ``[S, L, I]``, the node state, the client state, the snapshot slab
+and the fuzzed schedules, each contiguous between ticks; the telemetry,
+the verdict lanes, the violations and the tick's outputs lead in both.
+The minor tick runs the same batch-leading phases on ``movedim`` views
+of those leaves and writes their new values back batch-last; delivery
+and enqueue read and write the batch-last pool as it lies
+(``kernels/delivery.deliver_minor``, ``netsim.enqueue(minor=True)``).
+:func:`canonical_carry` gives any carry in the lead orientation, so the
+two layouts' trajectories compare bit for bit.
 """
 
 from __future__ import annotations
@@ -498,6 +509,9 @@ class SimConfig(NamedTuple):
     journal_instances: int = 0   # instances whose sent rows and inboxes
                                  # the tick returns (the per-message
                                  # journal); needs the NETID lane
+    layout: str = "minor"        # the instance axis of the carry: "minor"
+                                 # last, "lead" first (the JAX default;
+                                 # make_sim_config resolves "auto")
     telemetry: TelemetryConfig = TelemetryConfig()
     faults: FaultConfig = FaultConfig()   # the fault plan or fuzz
                                           # distribution (faults/)
@@ -514,8 +528,10 @@ class TickOutputs(NamedTuple):
 
 
 class Carry(NamedTuple):
-    """The whole simulation state (lead layout, leaves ``[I, ...]``)."""
-    pool: torch.Tensor          # [I, S, L]
+    """The whole simulation state. The shapes are the lead layout's; in
+    the minor layout ``pool``, ``node_state``, ``client_state``,
+    ``snapshots`` and ``fault_sched`` carry the instance axis last."""
+    pool: torch.Tensor          # [I, S, L]  (minor: [S, L, I])
     node_state: Any             # a tensor or row tuple, leaves [I, N, ...]
     client_state: ClientState   # [I, C, ...]
     stats: NetStats             # int32 scalars (fleet sums)
@@ -596,7 +612,7 @@ def init_carry(model: Model, sim: SimConfig, seed: int, device=None,
     fault_sched = (faults_fuzz.draw_schedule(
         instance_keys(key, _RNG_FAULTS, instance_ids), fx, cfg.n_nodes)
         if fx.has_fuzz else None)
-    return Carry(
+    return carry_from_canonical(Carry(
         pool=torch.zeros((I, cfg.pool_slots, cfg.lanes), dtype=_I32,
                          device=device),
         node_state=node_state,
@@ -610,7 +626,42 @@ def init_carry(model: Model, sim: SimConfig, seed: int, device=None,
         fault_sched=fault_sched,
         check_summary=(device_summary.init_summary(I, device)
                        if sim.check_summary else None),
-    )
+    ), sim)
+
+
+def _to_lead(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(-1, 0)
+
+
+def _to_minor(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(0, -1).contiguous()
+
+
+def canonical_carry(carry: Carry, sim: SimConfig) -> Carry:
+    """The carry with the instance axis leading on every batched leaf,
+    whatever ``sim.layout`` is: views, no copy, values untouched (JAX's
+    ``canonical_carry``)."""
+    if sim.layout != "minor":
+        return carry
+    return carry._replace(
+        pool=_to_lead(carry.pool),
+        node_state=tree_map(_to_lead, carry.node_state),
+        client_state=tree_map(_to_lead, carry.client_state),
+        snapshots=tree_map(_to_lead, carry.snapshots),
+        fault_sched=tree_map(_to_lead, carry.fault_sched))
+
+
+def carry_from_canonical(carry: Carry, sim: SimConfig) -> Carry:
+    """The inverse of :func:`canonical_carry`: a lead-oriented carry in
+    ``sim.layout``, every batch-last leaf contiguous."""
+    if sim.layout != "minor":
+        return carry
+    return carry._replace(
+        pool=_to_minor(carry.pool),
+        node_state=tree_map(_to_minor, carry.node_state),
+        client_state=tree_map(_to_minor, carry.client_state),
+        snapshots=tree_map(_to_minor, carry.snapshots),
+        fault_sched=tree_map(_to_minor, carry.fault_sched))
 
 
 def _update_telemetry(tel, sim: SimConfig, t: int, events, invoked_prev,
@@ -635,11 +686,14 @@ def _update_telemetry(tel, sim: SimConfig, t: int, events, invoked_prev,
 def make_tick_fn(model: Model, sim: SimConfig,
                  instance_ids: Optional[torch.Tensor] = None,
                  device=None) -> Callable:
-    """The lead-layout tick: ``tick_fn(carry, t) -> (carry', outputs)``
-    with :class:`TickOutputs`: the recorded instances' events ``[R, C,
-    2, 2 + ev_vals]`` and the journaled instances' sent rows and
-    inboxes. The model's static params are built here, once for the
-    run."""
+    """The tick: ``tick_fn(carry, t) -> (carry', outputs)`` with
+    :class:`TickOutputs`: the recorded instances' events ``[R, C, 2, 2 +
+    ev_vals]`` and the journaled instances' sent rows and inboxes. The
+    model's static params are built here, once for the run. In the minor
+    layout the phases see ``movedim`` views of the batch-last leaves,
+    the pool is delivered and refilled batch-last, and each new
+    batch-last leaf is written back contiguous in the phase that made
+    it."""
     params = model.make_params(sim.net.n_nodes, device)
     cfg = sim.net
     ccfg = sim.client
@@ -652,12 +706,18 @@ def make_tick_fn(model: Model, sim: SimConfig,
     tables = (faults_engine.plan_tables(fx, cfg, device)
               if fx.active and not fx.has_fuzz else None)
     wipes = fx.has_crash or fx.has_members
+    minor = sim.layout == "minor"
+    to_lead = (lambda tree: tree_map(_to_lead, tree)) if minor else \
+        (lambda tree: tree)
+    to_minor = (lambda tree: tree_map(_to_minor, tree)) if minor else \
+        (lambda tree: tree)
+    deliver = delivery.deliver_minor if minor else delivery.deliver
 
     def fault_planes(carry: Carry, t: int):
         if fx.has_fuzz:
             # a lane configured at rate 0 stays in the tick
-            return faults_fuzz.schedule_planes(carry.fault_sched, fx, cfg,
-                                               t)
+            return faults_fuzz.schedule_planes(to_lead(carry.fault_sched),
+                                               fx, cfg, t)
         if tables is not None:
             return faults_engine.tick_planes(fx, tables, t, I)
         return NO_PLANES
@@ -671,7 +731,8 @@ def make_tick_fn(model: Model, sim: SimConfig,
             nem_keys, node_keys, client_keys, enq_keys = keys[:4]
             partitions = partition_matrix(sim.nemesis, cfg, t, nem_keys)
 
-        node_state = carry.node_state
+        node_state = to_lead(carry.node_state)
+        snapshots = to_lead(carry.snapshots)
         m_bits = park = None
         with phase("faults"):
             planes = fault_planes(carry, t)
@@ -683,7 +744,7 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 # crashed nodes are held in reset, non-(stable-)members
                 # parked at their join rows, both rebuilt from the slab
                 fresh = faults_engine.restart_rows(
-                    model, carry.snapshots,
+                    model, snapshots,
                     t if planes.t_nodes is None else planes.t_nodes,
                     keys[4], N)
                 if planes.crash is not None:
@@ -697,19 +758,22 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 partitions = partitions | planes.block
 
         with phase("deliver"):
-            pool, inbox, n_del, n_dropp = delivery.deliver(
-                carry.pool, partitions, t, cfg)
+            pool, inbox, n_del, n_dropp = deliver(carry.pool, partitions,
+                                                  t, cfg)
 
         with phase("node_phase"):
             node_state, node_outs = node_phase(
                 model, node_state, inbox[:, :N], t, node_keys, cfg,
                 t_nodes=planes.t_nodes, m_bits=m_bits, params=params)
+            node_state_out = to_minor(node_state)
 
-        invoked_prev = carry.client_state.invoked
+        client_in = to_lead(carry.client_state)
+        invoked_prev = client_in.invoked
         with phase("client_step"):
             client_state, reqs, events = client_step(
-                model, carry.client_state, inbox[:, N:], t, client_keys,
-                cfg, ccfg, params)
+                model, client_in, inbox[:, N:], t, client_keys, cfg, ccfg,
+                params)
+            client_state = to_minor(client_state)
 
         with phase("enqueue"):
             sends = None if planes.crash is None else ~planes.crash
@@ -730,9 +794,8 @@ def make_tick_fn(model: Model, sim: SimConfig,
                     t * M + torch.arange(M, dtype=_I32, device=outs.device))
             pool, n_sent, n_lost, n_ovf = netsim.enqueue(
                 pool, outs, t, enq_keys, cfg, edge_delay=planes.delay,
-                edge_loss_pm=planes.loss_pm)
+                edge_loss_pm=planes.loss_pm, minor=minor)
 
-        snapshots = carry.snapshots
         if snapshots is not None:
             with phase("faults"):
                 # held nodes never overwrite their slab row: it keeps the
@@ -740,9 +803,9 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 hold = planes.crash
                 if park is not None:
                     hold = park if hold is None else hold | park
-                snapshots = faults_engine.update_snapshots(
+                snapshots = to_minor(faults_engine.update_snapshots(
                     model, node_state, snapshots, hold, t,
-                    fx.snapshot_every)
+                    fx.snapshot_every))
 
         with phase("telemetry"):
             s = carry.stats
@@ -759,12 +822,14 @@ def make_tick_fn(model: Model, sim: SimConfig,
                 model, carry.check_summary, node_state, events, n_sent,
                 n_del, cfg, params)
         with phase("telemetry"):
+            # each layout sums its own VALID lane: no [I, S, L] copy
             tel = _update_telemetry(
                 carry.telemetry, sim, t, events, invoked_prev,
-                netsim.pool_occupancy(pool), inbox,
+                (sum_i32(pool[:, wire.VALID] & 1, dim=0) if minor
+                 else netsim.pool_occupancy(pool)), inbox,
                 (n_sent, n_del, n_dropp, n_lost, n_ovf),
                 partitions.any(dim=2).any(dim=1), violated)
-        new_carry = Carry(pool=pool, node_state=node_state,
+        new_carry = Carry(pool=pool, node_state=node_state_out,
                           client_state=client_state, stats=stats,
                           violations=carry.violations + violated.to(_I32),
                           key=key, telemetry=tel, snapshots=snapshots,

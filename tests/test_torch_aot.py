@@ -162,6 +162,35 @@ def test_fingerprint_stable_and_sensitive_to_static_knobs():
     assert len(set(variants.values())) == len(variants)
 
 
+def test_fingerprint_and_entry_follow_the_layout():
+    """A minor dispatch is certified under its own key and label, and
+    "auto" keys a run as the device it runs on resolves it: lead on the
+    CPU, minor on a card (JAX's entry key and ``carry-layout``)."""
+    model, sim = _setup()
+    assert sim.layout == "lead"
+    minor = sim._replace(layout="minor")
+    assert pipelined_fingerprint(model, minor) != \
+        pipelined_fingerprint(model, sim)
+    assert aot_store.entry_label(model, minor, "pipelined") == \
+        jstore.entry_label(model, minor, "pipelined") == \
+        "echo/n=2/minor/pipelined"
+    assert aot_store.entry_label(model, minor, "sharded", 2) == \
+        jstore.entry_label(model, minor, "sharded", 2)
+    card = ("cuda", "a card")
+    fp = {lay: harness.aot_fingerprint_for(model, dict(RUN, layout=lay),
+                                           device_sig=card)
+          for lay in ("auto", "lead", "minor")}
+    assert fp["auto"] == fp["minor"] != fp["lead"]
+    assert harness.aot_fingerprint_for(model, RUN, device="cpu") == \
+        harness.aot_fingerprint_for(model, dict(RUN, layout="lead"),
+                                    device="cpu")
+    sig = aot_store.pipelined_signature(
+        model, minor, np.arange(4), 64, 8, 50,
+        aot_store._meta_carry(model, minor), True, card)
+    meta = aot_store.build_meta(sig, "key", "entry", "digest", {}, [])
+    assert meta["fingerprint"]["carry-layout"] == "minor"
+
+
 _CHILD = """
 import json, sys
 from maelstrom_tpu_torch import harness

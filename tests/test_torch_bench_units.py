@@ -89,15 +89,15 @@ def test_config_plan_is_bench_py_s(bench_env):
 
 @pytest.mark.parametrize("name", ["k1", "k1-16k", "k3"])
 def test_config_sim_equals_jax(bench_env, name):
-    """Each config's options give JAX's ``make_sim_config`` (its layout
-    field aside: the port has the lead layout only)."""
+    """Each config's options give JAX's ``make_sim_config``, the layout
+    "auto" resolves to on the CPU included."""
     (_, knobs, seconds, n), = [p for p in bench.plan_configs(4096, 4.0, False)
                                if p[0] == name]
     model, opts = bench.config_options(n, seconds, knobs)
     want = _plain(jharness.make_sim_config(
         JRaftModel(n_nodes_hint=3, log_cap=64, heartbeat=8),
         jax_options(n, seconds, knobs)))
-    assert want.pop("layout") == "'lead'"
+    assert want["layout"] == "'lead'"
     assert _plain(harness.make_sim_config(model, opts)) == want
     assert (model.log_cap, model.heartbeat) == (64, 8)
 

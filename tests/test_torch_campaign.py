@@ -25,6 +25,7 @@ import copy
 import glob
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -278,6 +279,10 @@ FORMAT_CASES = {
     "echo-device-lanes": (
         lambda: (jget_model("echo", 2), get_model("echo", 2)),
         dict(CKPT, check_mode="device")),
+    # a minor run's state.npz holds its batch-last leaves, as JAX's does
+    "echo-minor": (
+        lambda: (jget_model("echo", 2), get_model("echo", 2)),
+        dict(CKPT, layout="minor")),
 }
 
 
@@ -374,6 +379,32 @@ def test_resume_bit_identical(tmp_path, check_mode):
     assert not got
     if check_mode == "device":
         assert base.carry.check_summary is not None
+
+
+def test_minor_checkpoint_resumes_in_either_layout(tmp_path):
+    """A minor run killed after its first checkpoint resumes bit-exactly
+    in place (its recorded layout), and a copy resumed under the lead
+    layout (a card's run resumed on the CPU: "auto" resolves the other
+    way there) turns the restored carry over once and ends with the same
+    results."""
+    # 200 ticks (cut from 300): the first checkpoint at tick 100
+    opts = dict(CKPT, layout="minor", time_limit=0.2)
+    oracle = harness.run_torch_test(get_model("echo", 2), dict(
+        opts, store_root=str(tmp_path / "oracle")), device="cpu")
+    run_dir = _killed_run(
+        lambda: harness.run_torch_test(get_model("echo", 2), dict(
+            opts, store_root=str(tmp_path / "killed")), device="cpu"),
+        ckpt, str(tmp_path / "killed"))
+    ck = load_checkpoint(run_dir)
+    assert ck["meta"]["layout"] == "minor"
+    assert ck["carry"][0].shape[-1] == opts["n_instances"]   # the pool
+    copy_dir = str(tmp_path / "copy")
+    shutil.copytree(run_dir, copy_dir)
+    resumed = resume_run(run_dir, device="cpu")
+    lead = harness.run_torch_test(get_model("echo", 2),
+                                  dict(opts, layout="lead"), device="cpu",
+                                  resume_from=copy_dir)
+    assert _strip(resumed) == _strip(lead) == _strip(oracle)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from maelstrom_tpu_torch.campaign import queue as cqueue
 from maelstrom_tpu_torch.campaign.runner import LeaseKeeper
 from maelstrom_tpu_torch.campaign.spec import (SpecError, expand_items,
                                                load_spec)
+from maelstrom_tpu_torch import harness
 from maelstrom_tpu_torch.harness import prepare_store_dir
 
 from test_campaign import ECHO_OPTS
@@ -56,6 +57,21 @@ def test_spec_matrix_expansion_matches_jax():
     assert items[8] == {"time_limit": 1.0, "checkpoint_every": 4,
                         "workload": "echo", "seed": 9, "retries": 2,
                         "backoff_s": 0.5}
+
+
+def test_spec_matrix_varies_the_layout_as_jax():
+    """A matrix over ``layout`` expands as JAX's, and each item takes its
+    layout into its sim."""
+    from maelstrom_tpu_torch.campaign.runner import _run_opts, build_model
+    spec = {"name": "layouts", "defaults": dict(ECHO_OPTS),
+            "matrix": {"workload": ["echo"], "layout": ["lead", "minor"]}}
+    items = expand_items(spec)
+    assert items == jexpand_items(spec)
+    for item, layout in zip(items, ("lead", "minor")):
+        opts = {k: v for k, v in item.items() if k != "workload"}
+        sim = harness.make_sim_config(build_model("echo", opts),
+                                      _run_opts(opts))
+        assert sim.layout == item["layout"] == layout
 
 
 @pytest.mark.parametrize("spec", [

@@ -247,3 +247,31 @@ def test_check_summary_carry_every_tick(workload):
     assert summ.shape == (opts["n_instances"], ds.N_LANES)
     # the availability twins counted completions
     assert summ[:, ds.L_OK].sum() > 0
+
+
+@pytest.mark.parametrize("workload", ["g-set"])
+def test_check_summary_minor_layout_matches_jax(workload):
+    """The lanes over a minor carry (the node state batch-last, the
+    summary block batch-leading): the final carry, ``check_summary``
+    included, equals the live JAX minor run's as it lies, and the
+    events JAX's, over 100 ticks."""
+    from maelstrom_tpu.tpu import runtime as jruntime
+    from maelstrom_tpu_torch import convert, runtime
+    opts = dict(_opts(workload), time_limit=0.1, recovery_time=0.05,
+                layout="minor")
+    n = opts["node_count"]
+    jmodel, model = jget_model(workload, n), get_model(workload, n)
+    sim = harness.make_sim_config(model, opts)
+    carry, ys = runtime.run_sim(model, sim, opts["seed"], "cpu")
+    assert tuple(carry.check_summary.shape) == (opts["n_instances"],
+                                                ds.N_LANES)
+    jsim = jharness.make_sim_config(jmodel, opts)
+    jcarry, jys = jruntime.run_sim(jmodel, jsim, opts["seed"],
+                                   jmodel.make_params(n))
+    ref = dict(convert.carry_leaves(jax.tree.map(np.asarray, jcarry)))
+    got = dict(convert.carry_leaves(convert.carry_to_numpy(carry)))
+    assert ref.keys() == got.keys()
+    for name in ref:
+        np.testing.assert_array_equal(ref[name], got[name], err_msg=name)
+    np.testing.assert_array_equal(np.asarray(jys.events), ys.events.numpy())
+    assert got["carry.check_summary"][:, ds.L_OK].sum() > 0

@@ -259,6 +259,28 @@ def test_run_matches_jax_every_tick(run_case):
         assert set(carry.snapshots) == set(RaftModel.DURABLE_LANES)
 
 
+def test_membership_plan_minor_layout_matches_lead():
+    """The membership plan (the phase-0 members stamped at init, a join
+    at tick 40, a park with a crash from tick 80) in the minor layout,
+    100 ticks: the snapshot slab lies batch-last, and the final carry
+    and every tick's events equal the port's lead run's (held to JAX's
+    at every tick above) in the canonical orientation."""
+    opts = dict(OPTS, **RUNS["membership"], time_limit=0.1)
+    _, model = _models(opts)
+    out = {}
+    for layout in ("minor", "lead"):
+        sim = harness.make_sim_config(model, dict(opts, layout=layout))
+        carry, ys = runtime.run_sim(model, sim, opts["seed"], "cpu")
+        out[layout] = (carry, _leaves(convert.carry_to_numpy(
+            runtime.canonical_carry(carry, sim))), ys.events.numpy())
+    assert out["minor"][0].snapshots["term"].shape[-1] == opts["n_instances"]
+    ref, got = out["lead"][1], out["minor"][1]
+    assert ref.keys() == got.keys()
+    for name in ref:
+        np.testing.assert_array_equal(ref[name], got[name], err_msg=name)
+    np.testing.assert_array_equal(out["lead"][2], out["minor"][2])
+
+
 def test_all_healthy_plan_equals_bare_run():
     """A plan whose lanes are present but value-neutral leaves every
     leaf of the bare run's carry as it is, at every tick."""
@@ -320,7 +342,8 @@ def test_harness_under_plan_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,msg", [
     (dict(topology="tree"), "topology"),
-    (dict(layout="minor"), "layout"),
+    # both carry layouts are ported; an unknown name raises
+    (dict(layout="sideways"), "layout"),
     (dict(check_mode="bogus"), "check_mode"),
     # profile_dir is taken since the profiler was ported; a misspelt
     # option is what could still be dropped

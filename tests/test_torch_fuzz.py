@@ -317,6 +317,26 @@ def test_pipelined_run_equals_unpipelined_under_faults():
         pipeline.expand_compact_events(model, sim, res.compact), dense)
 
 
+def test_four_lane_minor_run_matches_lead(four_lane_runs):
+    """The minor layout under the four-lane distribution, through the
+    chunked executor with fail-fast: the schedules, the slab and the
+    state ride the carry batch-last, and the final carry equals the
+    port's lead run (held to JAX's at every tick above) in the canonical
+    orientation."""
+    opts, _, lead = four_lane_runs
+    opts = dict(opts, layout="minor")
+    model = RaftModel(**MODEL_KW)
+    sim = harness.make_sim_config(model, opts)
+    res = pipeline.run_sim_pipelined(model, sim, 7, "cpu", chunk=50,
+                                     event_cap=512, fail_fast=True)
+    assert res.perf["chunks"] == 4 and not res.perf.get("stopped-early")
+    assert res.carry.fault_sched.crash.shape[-1] == sim.n_instances
+    canon = _port_leaves(runtime.canonical_carry(res.carry, sim))
+    assert canon.keys() == lead[-1].keys()
+    for k in canon:
+        np.testing.assert_array_equal(lead[-1][k], canon[k], err_msg=k)
+
+
 def _histories(run_dir, n):
     out = []
     for i in range(n):

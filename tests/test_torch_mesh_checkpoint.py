@@ -324,6 +324,39 @@ def test_reshard_sweep_raft_lanes(tmp_path, S):
             assert np.array_equal(np.asarray(a), b), f
 
 
+def test_minor_sharded_checkpoint_is_the_lead_wire_and_reshards(tmp_path):
+    """The wire is canonical: a minor run's sharded ``state.npz`` equals
+    the lead run's array by array, header included, and it reshards from
+    2 shards to 1 and resumes in the minor layout equal to the
+    uninterrupted minor run."""
+    tm, tsim = echo_sim("torch", 2)
+    npz = {}
+    for layout in ("lead", "minor"):
+        d = str(tmp_path / layout)
+        _killed_run(mesh.run_sim_sharded_chunked, tm,
+                    tsim._replace(layout=layout), cpu_mesh(2), d,
+                    ckpt.save_checkpoint)
+        npz[layout] = _npz(ckpt.checkpoint_path(d))
+    (a, ha), (b, hb) = npz["lead"], npz["minor"]
+    assert ha == hb and a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    ck = ckpt.load_checkpoint(str(tmp_path / "minor"))
+    _, tsim1 = echo_sim("torch", 1)
+    tsim1 = tsim1._replace(layout="minor")
+    msh = cpu_mesh(1)
+    want = mesh.run_sim_sharded_chunked(tm, tsim1, 3, mesh=msh, chunk=40,
+                                        return_check_summary=True)
+    got = mesh.run_sim_sharded_chunked(
+        tm, tsim1, 3, mesh=msh, chunk=40, return_check_summary=True,
+        resume=ResumeState(
+            carry=ckpt.restore_carry(mesh.wire_template(tm, tsim1, msh),
+                                     ck["carry"], shard=ck["meta"]["shard"]),
+            ticks=ck["ticks"], chunks=ck["chunks"],
+            events=tuple(ck["events"])))
+    _same(want, got)
+
+
 def test_restore_is_on_the_requested_device(tmp_path):
     """``restore_carry`` of a sharded wire lands on ``device`` (the CPU by
     default); the executor then moves each shard to its own device."""

@@ -3,9 +3,10 @@
 - At one worker, with no latency, loss or nemesis, a fixed seed and a
   deterministic node, a run's history projected onto ``(process, type,
   f, value)`` and its net journal projected onto ``(src, dest, body)``
-  equal the JAX run's over their common prefix (a run stops on the wall
-  clock, so one may hold an op more than the other), with at least 20
-  completed ops in each.
+  equal the JAX run's over the common prefix of their main phases (a
+  run stops on the wall clock, so one may hold an op more than the
+  other, and one that falls behind starts its final reads an op
+  earlier), with at least 20 completed ops in each.
 - A node that exits early, and one that prints a line that is not JSON:
   both packages give ``valid?`` False and the same ``crashed`` text once
   the paths are taken out.
@@ -18,8 +19,9 @@ import textwrap
 
 import pytest
 
-from torch_process_cases import (common_prefix_equal, history_projection,
-                                 journal_projection, node_opts, run_pair)
+from torch_process_cases import (common_prefix_equal, final_phase_start,
+                                 history_projection, journal_projection,
+                                 node_opts, run_pair)
 from torch_tutorial_cases import one_torch_thread  # noqa: F401
 
 ONE_WORKER = dict(concurrency=1, rate=50.0, time_limit=1.5, latency=0.0,
@@ -42,12 +44,16 @@ def test_one_worker_projection(case, tmp_path):
                                "node_count": 1}, tmp_path)
     (jres, jdir), (tres, tdir) = runs["jax"], runs["torch"]
     assert jres["valid?"] is True and tres["valid?"] is True
-    jh, th = history_projection(jdir), history_projection(tdir)
+    # each run's main phase: its generator's ops are the seed's, but the
+    # op at which the wall clock ends the phase is not (a run that falls
+    # behind under load switches to its final reads earlier)
+    jend, tend = final_phase_start(jdir), final_phase_start(tdir)
+    jh, th = history_projection(jdir, jend), history_projection(tdir, tend)
     n = common_prefix_equal(jh, th)
     completed = [r for r in th[:n] if r[1] != "invoke"]
     assert len(completed) >= 20, len(completed)
-    assert common_prefix_equal(journal_projection(jdir),
-                               journal_projection(tdir)) >= 40
+    assert common_prefix_equal(journal_projection(jdir, jend),
+                               journal_projection(tdir, tend)) >= 40
 
 
 # a node that answers init and three echoes, then exits 3

@@ -139,6 +139,26 @@ def test_pipelined_bit_identity_on_off():
         np.testing.assert_array_equal(ref[name], x, err_msg=name)
 
 
+def test_pipelined_bit_identity_on_off_minor():
+    """The minor layout with the profiler on: the phase marks of the
+    minor tick are observational (the carry, batch-last, and the
+    compacted chunks equal the unprofiled run's; its JAX twin is
+    ``tests/test_torch_campaign.py``'s echo-minor ``state.npz``), and
+    its timed weights count the minor tick."""
+    model = EchoModel()
+    sim = harness.make_sim_config(model, dict(OPTS, layout="minor",
+                                              time_limit=0.1))
+    assert sim.layout == "minor"
+    off = run_sim_pipelined(model, sim, 3, CPU, chunk=50)
+    prof = DeviceProfiler("on", model=model, sim=sim, device=CPU)
+    on = run_sim_pipelined(model, sim, 3, CPU, chunk=50, profiler=prof)
+    _same_carry(off.carry, on.carry)
+    _same_compact(off.compact, on.compact)
+    assert on.carry.pool.shape[-1] == sim.n_instances
+    assert on.perf["device"]["captured-chunks"] == 2
+    assert set(phase_weights(model, sim)) >= {"deliver", "enqueue"}
+
+
 def test_sharded_bit_identity_on_off():
     model = EchoModel()
     sim = harness.make_sim_config(model, dict(ECHO_OPTS, n_instances=4,

@@ -78,16 +78,30 @@ def store_files(run_dir):
     return out
 
 
-def history_projection(run_dir):
-    """``(process, type, f, value)`` of each record of ``history.jsonl``."""
+def _history(run_dir):
     with open(os.path.join(run_dir, "history.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
+        return [json.loads(line) for line in f]
+
+
+def final_phase_start(run_dir):
+    """The time the run's final generator invoked its first op (None
+    when it has none). Where the main phase ends is a matter of the wall
+    clock: each run's own time, which no second run shares."""
+    return next((r["time"] for r in _history(run_dir) if r.get("final")),
+                None)
+
+
+def history_projection(run_dir, before=None):
+    """``(process, type, f, value)`` of each record of ``history.jsonl``
+    (those earlier than ``before``, when given)."""
     return [(r["process"], r["type"], r["f"], r.get("value"))
-            for r in recs]
+            for r in _history(run_dir)
+            if before is None or r["time"] < before]
 
 
-def journal_projection(run_dir):
-    """``(src, dest, body)`` of each journal event, in time order."""
+def journal_projection(run_dir, before=None):
+    """``(src, dest, body)`` of each journal event, in time order (those
+    earlier than ``before``, when given)."""
     d = os.path.join(run_dir, "net-journal")
     evs = []
     for name in os.listdir(d):
@@ -95,7 +109,8 @@ def journal_projection(run_dir):
             evs.extend(json.loads(line) for line in f if line.strip())
     evs.sort(key=lambda e: e["time"])
     return [(e["message"]["src"], e["message"]["dest"],
-             e["message"]["body"]) for e in evs]
+             e["message"]["body"]) for e in evs
+            if before is None or e["time"] < before]
 
 
 def common_prefix_equal(a, b):

@@ -289,9 +289,12 @@ Phase 2 holds both delivery entries: ``deliver`` (the lead pool ``[I,
 S, L]``) against ``netsim.deliver_reference`` and ``deliver_minor`` (the
 same pools batch-last, ``[S, L, I]``) against
 ``netsim.deliver_reference_minor``, at every shape and on every edge
-pool, and times both at the timed shapes (the minor entry without the
-warm-L2 time). Phase 3 also checks a 150-tick minor-layout lin-kv run
-under a crash, links and skew plan, card against CPU.
+pool (the minor entry also at ``delivery_cases.MINOR_EDGE_SHAPES``, rows
+too wide for its shared memory, which the lead kernel refuses), and
+times both at the timed shapes (the minor entry without the warm-L2
+time; its launch geometry goes into its record). Phase 3 also checks a
+150-tick minor-layout lin-kv run under a crash, links and skew plan,
+card against CPU.
 
 Phase 2's txn and kafka shapes: txn-list-append (L=66, timed),
 txn-rw-register (L=26) and kafka (NT=7, L=32, timed); phase 3 also checks
@@ -717,10 +720,13 @@ def check_delivery(dev, shapes, iters):
     kernel_names = {"deliver": delivery.KERNEL_NAME,
                     "deliver_minor": delivery.MINOR_KERNEL_NAME}
     max_err = {name: 0 for name, _, _, _ in _entries()}
-    for name, (n, c, S, K, body, I) in dc.EDGE_SHAPES.items():
+    # the minor-only edge shapes go through the batch-last entry alone
+    edges = [(shape, _entries()) for shape in dc.EDGE_SHAPES.items()] \
+        + [(shape, _entries()[1:]) for shape in dc.MINOR_EDGE_SHAPES.items()]
+    for (name, (n, c, S, K, body, I)), entries in edges:
         cfg = dc.net_config(n, c, S, K, body)
         cases = dc.edge_pools(cfg, I, 3)
-        for ename, entry, plain, layout in _entries():
+        for ename, entry, plain, layout in entries:
             for case, (pools, parts, t) in cases.items():
                 max_err[ename] = max(max_err[ename], _check(
                     dev, f"{name}/{case}", pools, parts, t, cfg, entry,
@@ -743,6 +749,9 @@ def check_delivery(dev, shapes, iters):
                 continue
             call = lambda: entry(pool, part, t, cfg)
             rec = {"I": I, "S": S, "K": K, "NT": NT, "L": L}
+            if layout == "minor":
+                rec["geometry"] = delivery.minor_geometry(
+                    S, L, NT, K, I % 4 == 0)._asdict()
             if on_card:
                 rec["device_ms"] = devtime.device_ms(
                     call, kernel_names[ename], iters)

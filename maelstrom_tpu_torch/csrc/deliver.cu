@@ -301,156 +301,428 @@ cudaError_t launch(const int32_t* pool, const uint8_t* part, int t,
 // The batch-last entry: the same function over the minor carry layout's
 // pool [S, L, I] (instances minormost, contiguous), read and written in
 // that orientation. It replaces no Pallas kernel: the JAX package's minor
-// layout runs XLA's netsim.deliver under vmap. It exists because the
+// layout runs XLA's netsim.deliver under vmap
+// (maelstrom_tpu/tpu/runtime.py, the minor tick). It exists because the
 // card's main path runs no plain version, and a transpose of the pool to
 // [I, S, L] and back each tick would move the pool three times more.
 // Partitions stay batch-leading [I, NT, NT] (the tick builds them so);
 // the inbox comes out [I, NT, K, L] and the counts [I], as the JAX minor
-// tick's batch-leading outputs. Its bound is the lead kernel's: the pool
-// and the partition plane read once, pool', the inbox and the counts
-// written once.
+// tick's batch-leading outputs.
 //
-// Design: a block of kMinorWarps warps owns 32 neighbouring instances,
-// one per lane, so a warp's loads of pool[s, l, i0..i0+31] are 128
-// contiguous bytes.
-//   1. Classify: warp w walks slots w, w + kMinorWarps, ... of its
-//      lane's instance (four coalesced header loads a slot). Dropped
-//      slots set bits in the instance's cleared mask; eligible ones
-//      append (priority, dest << 16 | slot) to the instance's column of
-//      shared memory (entry e of instance x at [e * 32 + x]: a warp's
-//      accesses are consecutive words) through a shared counter, in an
-//      order that does not matter: the rank below reads none.
-//   2. Rank: warp w takes entries w, w + kMinorWarps, ... of its lane's
-//      instance. An entry is taken iff fewer than K entries of its
-//      endpoint rank above it (higher priority, or equal priority and a
-//      lower slot): E * E compares for E eligible slots in all, its rank
-//      its inbox row. The (endpoint, k) -> slot table goes to shared
-//      memory, and taken slots join the cleared mask.
-//   3. Every warp moves data: pool' by rows (s, l) of 32 instances, warp
-//      w taking rows w, w + kMinorWarps, ... (a coalesced 128-byte load
-//      and store a row, 0 for a cleared slot); the inbox of the 32
-//      instances, one contiguous stretch of the output, word by word over
-//      the block's threads, each word gathered from the pool through the
-//      row table.
-//   Three block barriers separate the steps.
+// Bound on an H100: memory, the lead kernel's bytes (the pool and the
+// partition plane read once; pool', the inbox and the two counts written
+// once): 13,799,424 B at I=4096, S=16, K=1, NT=9, L=20 (4.12 us at 3.35
+// TB/s), 107,843,584 B at S=128, K=8 (32.19 us).
+//
+// Design: a block of W warps owns a tile of W neighbouring instances, one
+// warp per instance (W = 8 wherever the block fits in shared memory: a
+// row (s, l) of the tile is then 32 contiguous bytes of [S, L, I], whole
+// sectors). ceil(I / W) blocks: 512 at I=4096, up to 6 resident on an SM
+// at the small shapes, so one block's copies overlap another's selection
+// and stores.
+//   1. Stage: the block copies the tile's pool [S, L, W] into shared
+//      memory with cp.async, every copy in flight together: 16-byte
+//      units (four instances of a row) where I % 4 == 0 and the pointers
+//      are 16-byte aligned, 4-byte units otherwise. The pool is read from
+//      device memory once, headers included. The slot stride is padded
+//      to an odd number of 16-byte units (of words on the 4-byte path),
+//      so lanes reading the headers of consecutive slots spread over the
+//      banks (unpadded, L=20 and W=8 put them all in one bank). The
+//      tile's partition planes [W, NT, NT] come along where they take at
+//      most kPlaneBytes; wider ones (broadcast-25's 20,000 B) are read
+//      through the read-only cache, since staging them would cost the
+//      block its second place on an SM.
+//   2. Classify and rank, a warp per instance, as the lead kernel: a lane
+//      per slot (at most 8 a lane), headers from the staged tile;
+//      __ballot_sync masks for the dropped slots; each eligible slot's
+//      rank among its endpoint's eligible slots (higher priority, or
+//      equal and a lower slot) from compacted (priority, dest << 8 |
+//      slot) entries read as shared-memory broadcasts (E * S / 32
+//      compares a lane). Above 128 slots the entries are first bucketed
+//      by endpoint (count with shared atomics, a warp scan, scatter), so
+//      a slot compares only with its own endpoint's. A taken slot fills
+//      the (endpoint, k) -> slot table, and a byte per (slot, instance)
+//      marks the cleared slots. Only __syncwarp inside the step.
+//   3. Store from shared memory, coalesced, no global gather: pool' row
+//      by row (16-byte stores on the vector path, 0 for a cleared slot),
+//      then the tile's inbox [W, NT, K, L], one contiguous stretch of the
+//      output, consecutive threads on consecutive 16-byte units (words
+//      where L % 4 != 0), each read from the tile through the table. The
+//      indices advance incrementally (Cursor3): no division per unit.
+//   Two block barriers: after the copy and before the stores. Where not
+//   even one instance's S * L words fit (S * L * 4 above ~227 KB: at 256
+//   slots, L above ~220), the same kernel (kStaged = false) keeps its
+//   tables in shared memory and reads the headers, pool' and the inbox
+//   rows straight from device memory.
 
-constexpr int kMinorWarps = 32;
+constexpr int kMinorMaxW = 8;
+constexpr int kPlaneBytes = 4096;     // partition planes staged up to this
+constexpr size_t kSmemOptin = 232448; // an H100 block's limit
 
-// Shared memory of one block (the Python geometry helper computes the
-// same): compacted entries, cleared masks, the row table, and three
-// counters, for 32 instances.
-size_t minor_block_smem(int S, int NT, int K) {
-  const size_t b = 32 * (8 * static_cast<size_t>(S) +
-                         4 * static_cast<size_t>((S + 31) / 32) + 4 * 3 +
-                         2 * static_cast<size_t>(NT) * K);
-  return (b + 15) / 16 * 16;
+__host__ __device__ __forceinline__ size_t round16(size_t n) {
+  return (n + 15) / 16 * 16;
 }
 
-__global__ void __launch_bounds__(32 * kMinorWarps) deliver_minor_kernel(
-    const int32_t* __restrict__ pool, const uint8_t* __restrict__ part,
-    int t, int32_t* __restrict__ pool_out, int32_t* __restrict__ inbox,
-    int32_t* __restrict__ n_del, int32_t* __restrict__ n_drop, int I,
-    int S, int L, int NT, int K) {
+// (a, b, c) over dims (., B, C), c fastest, advanced by a fixed step of d
+// units at a time: no division per unit
+struct Cursor3 {
+  int a, b, c, da, db, dc, B, C;
+  __device__ Cursor3(int x, int d, int B_, int C_) : B(B_), C(C_) {
+    c = x % C_;
+    b = (x / C_) % B_;
+    a = x / C_ / B_;
+    dc = d % C_;
+    db = (d / C_) % B_;
+    da = d / C_ / B_;
+  }
+  __device__ void next() {
+    c += dc;
+    int carry = c >= C;
+    if (carry) c -= C;
+    b += db + carry;
+    carry = b >= B;
+    if (carry) b -= B;
+    a += da + carry;
+  }
+};
+
+// The launch shape of one batch-last round; the Python geometry helper
+// (kernels/delivery.py, minor_geometry) computes the same and the launcher
+// checks it.
+struct MinorGeo {
+  int W;         // instances (warps) a block; 0: no geometry
+  int ss;        // int32 a staged slot in shared memory; 0: unstaged
+  bool vec;      // 16-byte units of four instances (staged only)
+  size_t smem;   // shared memory of a block
+};
+
+// Beside the tile: compacted entries [W][S] int2, bucket offsets [W][NT +
+// 1] int, cleared bytes [S][kMinorMaxW], the (endpoint, k) -> slot table
+// [W][NT * K] int16, then the partition planes where they are staged
+// (W * NT * NT bytes, with room to align them as in device memory).
+size_t minor_aux(int S, int NT, int K, int W) {
+  const size_t planes = static_cast<size_t>(W) * NT * NT;
+  return 8 * static_cast<size_t>(W) * S +
+         4 * static_cast<size_t>(W) * (NT + 1) +
+         kMinorMaxW * static_cast<size_t>(S) +
+         2 * static_cast<size_t>(W) * NT * K +
+         (planes <= kPlaneBytes ? planes + 32 : 0);
+}
+
+int minor_stride(int L, int W, bool vec) {
+  int ss = L * W;
+  if (vec) {
+    ss = (ss + 3) / 4 * 4;
+    if ((ss / 4) % 2 == 0) ss += 4;
+  } else if (ss % 2 == 0) {
+    ss += 1;
+  }
+  return ss;
+}
+
+MinorGeo minor_geometry(int S, int L, int NT, int K, bool vec) {
+  for (int W = kMinorMaxW; W >= 1; W /= 2) {
+    const bool v = vec && W % 4 == 0;
+    const int ss = minor_stride(L, W, v);
+    const size_t smem = round16(round16(4 * static_cast<size_t>(S) * ss) +
+                                minor_aux(S, NT, K, W));
+    if (smem <= kSmemOptin) return {W, ss, v, smem};
+  }
+  for (int W = kMinorMaxW; W >= 1; W /= 2) {
+    const size_t smem = round16(minor_aux(S, NT, K, W));
+    if (smem <= kSmemOptin) return {W, 0, false, smem};
+  }
+  return {0, 0, false, 0};
+}
+
+__device__ __forceinline__ int4 cleared_unit(int4 v, const uint8_t* g) {
+  const uint32_t m = *reinterpret_cast<const uint32_t*>(g);
+  return make_int4(m & 0xffu ? 0 : v.x, m & 0xff00u ? 0 : v.y,
+                   m & 0xff0000u ? 0 : v.z, m & 0xff000000u ? 0 : v.w);
+}
+__device__ __forceinline__ int32_t cleared_unit(int32_t v, const uint8_t* g) {
+  return *g ? 0 : v;
+}
+
+// The tile's rows (s, l) of nw instances, as units of V int32 (V = 4: 16
+// bytes), walked by the block's threads: `gtile` the tile in device
+// memory ([S, L, I], I words a row), `tile` in shared memory (ss words a
+// slot, W a row).
+template <int V>
+__device__ void stage_rows(int32_t* tile, const int32_t* gtile, int x,
+                           int nthr, int S, int L, size_t I, int ss, int W,
+                           int nw) {
+  const int upr = nw / V;
+  Cursor3 c(x, nthr, L, upr);
+  for (int u = x; u < S * L * upr; u += nthr, c.next())
+    copy_async(tile + c.a * ss + c.b * W + c.c * V,
+               gtile + (static_cast<size_t>(c.a) * L + c.b) * I + c.c * V,
+               V == 4);
+}
+
+// pool' of the tile: each unit from shared memory (or, unstaged, from
+// device memory), 0 for an instance whose slot is cleared
+template <int V, bool kStaged>
+__device__ void store_rows(int32_t* out, const int32_t* tile,
+                           const int32_t* gtile, const uint8_t* gone, int x,
+                           int nthr, int S, int L, size_t I, int ss, int W,
+                           int nw) {
+  using U = typename Unit<V>::T;
+  const int upr = nw / V;
+  Cursor3 c(x, nthr, L, upr);
+  for (int u = x; u < S * L * upr; u += nthr, c.next()) {
+    const size_t g = (static_cast<size_t>(c.a) * L + c.b) * I + c.c * V;
+    const U v =
+        kStaged
+            ? *reinterpret_cast<const U*>(tile + c.a * ss + c.b * W + c.c * V)
+            : __ldg(reinterpret_cast<const U*>(gtile + g));
+    *reinterpret_cast<U*>(out + g) =
+        cleared_unit(v, gone + c.a * kMinorMaxW + c.c * V);
+  }
+}
+
+// kSpl: slots a lane (S <= 32 * kSpl); kVec: 16-byte units of the pool;
+// kStaged: the tile's rows in shared memory (ss > 0). The unstaged branch
+// has one instance, <8, false, false>: it takes any S and I.
+template <int kSpl, bool kVec, bool kStaged>
+__global__ void __launch_bounds__(32 * kMinorMaxW, kSpl <= 2 ? 6 : 2)
+    deliver_minor_kernel(const int32_t* __restrict__ pool,
+                         const uint8_t* __restrict__ part, int t,
+                         int32_t* __restrict__ pool_out,
+                         int32_t* __restrict__ inbox,
+                         int32_t* __restrict__ n_del,
+                         int32_t* __restrict__ n_drop, int I, int S, int L,
+                         int NT, int K, int W, int ss) {
+  constexpr int V = kVec ? 4 : 1;
+  constexpr bool kBucket = kSpl == 8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int x = threadIdx.x;
+  const int nthr = blockDim.x;   // 32 * W
   const int lane = x & 31;
-  const int warp = x >> 5;
-  const int i0 = blockIdx.x * 32;   // the block's first instance
-  const int nw = min(32, I - i0);   // instances of this block
-  const int i = i0 + lane;
-  const bool own = lane < nw;
+  const int w = x >> 5;          // the warp's instance in the tile
+  const int i0 = blockIdx.x * W;
+  const int nw = min(W, I - i0);   // instances of this tile
   const int R = NT * K;
-  const int W = (S + 31) / 32;
-  int2* ckey = reinterpret_cast<int2*>(smem);                    // [S][32]
-  uint32_t* cleared = reinterpret_cast<uint32_t*>(ckey + 32 * S);  // [W][32]
-  int* n_elig = reinterpret_cast<int*>(cleared + 32 * W);          // [32]
-  int* ndel = n_elig + 32;                                         // [32]
-  int* ndrop = ndel + 32;                                          // [32]
-  int16_t* src = reinterpret_cast<int16_t*>(ndrop + 32);           // [R][32]
-  const size_t plane = static_cast<size_t>(L) * I;   // one slot's words
+  const int P = NT * NT;           // bytes of one partition plane
+  const size_t Is = static_cast<size_t>(I);
+  // row (s, l) of the tile at tile[s * ss + l * W], W instances
+  int32_t* tile = reinterpret_cast<int32_t*>(smem);
+  const size_t tile_bytes =
+      kStaged ? round16(4 * static_cast<size_t>(S) * ss) : 0;
+  int2* ckey = reinterpret_cast<int2*>(smem + tile_bytes);       // [W][S]
+  int* boff = reinterpret_cast<int*>(ckey + W * S);               // [W][NT+1]
+  uint8_t* gone = reinterpret_cast<uint8_t*>(boff + W * (NT + 1));  // [S][8]
+  int16_t* src = reinterpret_cast<int16_t*>(gone + kMinorMaxW * S);  // [W][R]
+  // the tile's planes: byte k of the stretch part[i0 * P ...] at
+  // planes[k], where planes - 4 .. planes + W * P lie in shared memory
+  // and planes has the stretch's alignment mod 4
+  const uint8_t* gplanes = part + static_cast<size_t>(i0) * P;
+  const bool staged_planes = W * P <= kPlaneBytes;
+  uint8_t* planes = reinterpret_cast<uint8_t*>(
+      ((reinterpret_cast<uintptr_t>(src + W * R) + 15) & ~uintptr_t(15)) +
+      4 + (reinterpret_cast<uintptr_t>(gplanes) & 3));
+  // word (s, l, n) of the tile in device memory at (s * L + l) * I + n
+  const int32_t* gtile = pool + i0;
+  auto word = [&](int s, int l, int n) -> int32_t {
+    return kStaged ? tile[s * ss + l * W + n]
+                   : __ldg(gtile + (static_cast<size_t>(s) * L + l) * Is + n);
+  };
 
-  for (int k = x; k < 32 * (W + 3); k += 32 * kMinorWarps)
-    cleared[k] = 0u;   // the masks and the three counters
-  for (int k = x; k < 32 * R; k += 32 * kMinorWarps) src[k] = -1;
+  // 1. stage the tile (16-byte units: nw % 4 == 0) and its planes
+  if (kStaged) stage_rows<V>(tile, gtile, x, nthr, S, L, Is, ss, W, nw);
+  if (staged_planes) {
+    // 4-byte copies over the aligned middle, bytes at the two ends
+    const int nb = nw * P;
+    const int head = min(nb, static_cast<int>(
+                                 (4 - (reinterpret_cast<uintptr_t>(gplanes) &
+                                       3)) & 3));
+    const int words = (nb - head) / 4;
+    for (int k = x; k < words; k += nthr)
+      copy_async(planes + head + 4 * k, gplanes + head + 4 * k, false);
+    for (int k = x; k < nb - 4 * words; k += nthr) {
+      const int at = k < head ? k : 4 * words + k;
+      planes[at] = gplanes[at];
+    }
+  }
+  for (int r = x; r < W * R; r += nthr) src[r] = -1;
+  if (kBucket)
+    for (int r = x; r < W * (NT + 1); r += nthr) boff[r] = 0;
+  copy_async_wait();
   __syncthreads();
 
-  // 1. classify
-  if (own) {
-    const uint8_t* ipart = part + static_cast<size_t>(i) * NT * NT;
-#pragma unroll 4
-    for (int s = warp; s < S; s += kMinorWarps) {
-      const int32_t* col = pool + s * plane + i;
-      const int valid = col[static_cast<size_t>(kValid) * I];
-      const int dtick = col[static_cast<size_t>(kDtick) * I];
-      const int dest = col[static_cast<size_t>(kDest) * I];
-      const int origin = col[static_cast<size_t>(kOrigin) * I];
-      if (valid != 1 || dtick > t) continue;
-      const bool blocked =
-          __ldg(ipart + jax_index(dest, NT) * NT + jax_index(origin, NT)) !=
-          0;
-      if (blocked) {
-        atomicOr(&cleared[(s >> 5) * 32 + lane], 1u << (s & 31));
-        atomicAdd(&ndrop[lane], 1);
-        continue;
+  // 2. classify and rank the warp's instance
+  if (w < nw) {
+    const int i = i0 + w;
+    int2* key = ckey + w * S;
+    int16_t* wsrc = src + w * R;
+    int32_t prio[kSpl];
+    int dest[kSpl], pidx[kSpl], rank[kSpl];
+    bool due[kSpl], drop[kSpl], elig[kSpl];
+    unsigned drop_mask[kSpl];
+#pragma unroll
+    for (int j = 0; j < kSpl; ++j) {
+      const int s = lane + 32 * j;
+      due[j] = false;
+      dest[j] = -1;
+      pidx[j] = 0;
+      prio[j] = 0;
+      if (s < S) {
+        const int valid = word(s, kValid, w);
+        const int dtick = word(s, kDtick, w);
+        dest[j] = word(s, kDest, w);
+        const int origin = word(s, kOrigin, w);
+        due[j] = valid == 1 && dtick <= t;
+        pidx[j] = jax_index(dest[j], NT) * NT + jax_index(origin, NT);
+        // int32 wrap, as the JAX priority arithmetic
+        prio[j] = static_cast<int32_t>(
+            (static_cast<uint32_t>(1 << 20) - static_cast<uint32_t>(dtick)) *
+                static_cast<uint32_t>(S) +
+            static_cast<uint32_t>(S - s));
       }
-      // int32 wrap, as the JAX priority arithmetic
-      const int32_t prio = static_cast<int32_t>(
-          (static_cast<uint32_t>(1 << 20) - static_cast<uint32_t>(dtick)) *
-              static_cast<uint32_t>(S) +
-          static_cast<uint32_t>(S - s));
-      if (dest >= 0 && dest < NT && prio > 0)
-        ckey[atomicAdd(&n_elig[lane], 1) * 32 + lane] =
-            make_int2(prio, (dest << 16) | s);
+    }
+    // every partition byte of the lane in flight together
+    if (staged_planes) {
+      const uint8_t* ipart = planes + w * P;
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j)
+        drop[j] = due[j] && ipart[pidx[j]] != 0;
+    } else {
+      const uint8_t* ipart = part + static_cast<size_t>(i) * P;
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j)
+        drop[j] = due[j] && __ldg(ipart + pidx[j]) != 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kSpl; ++j) {
+      elig[j] = due[j] && !drop[j] && dest[j] >= 0 && dest[j] < NT &&
+                prio[j] > 0;
+      drop_mask[j] = __ballot_sync(kFull, drop[j]);
+      rank[j] = 0;
+    }
+    if constexpr (kBucket) {
+      // the eligible slots in buckets by endpoint: count, scan, scatter
+      int* off = boff + w * (NT + 1);
+      int pos[kSpl];
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j)
+        pos[j] = elig[j] ? atomicAdd(&off[dest[j]], 1) : 0;
+      __syncwarp();
+      int carry = 0;
+      for (int b = 0; b < NT; b += 32) {
+        const int d = b + lane;
+        const int v = d < NT ? off[d] : 0;
+        int incl = v;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += y;
+        }
+        if (d < NT) off[d] = carry + incl - v;
+        carry += __shfl_sync(kFull, incl, 31);
+      }
+      if (lane == 0) off[NT] = carry;
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j)
+        if (elig[j])
+          key[off[dest[j]] + pos[j]] = make_int2(prio[j], lane + 32 * j);
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j) {
+        if (!elig[j]) continue;
+        const int s = lane + 32 * j;
+        const int e1 = off[dest[j] + 1];
+        for (int e = off[dest[j]]; e < e1 && rank[j] < K; ++e) {
+          const int2 k2 = key[e];
+          rank[j] += (k2.x > prio[j]) | ((k2.x == prio[j]) & (k2.y < s));
+        }
+      }
+    } else {
+      // the eligible slots compacted in slot order, read as broadcasts
+      int n_elig = 0;
+      const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j) {
+        const unsigned em = __ballot_sync(kFull, elig[j]);
+        if (elig[j])
+          key[n_elig + __popc(em & below)] =
+              make_int2(prio[j], (dest[j] << 8) | (lane + 32 * j));
+        n_elig += __popc(em);
+      }
+      __syncwarp();
+      for (int e = 0; e < n_elig; ++e) {
+        const int2 k2 = key[e];   // one 8-byte broadcast read
+        const int d = k2.y >> 8;
+        const int s2 = k2.y & 0xff;
+#pragma unroll
+        for (int j = 0; j < kSpl; ++j)
+          rank[j] += (d == dest[j]) &
+                     ((k2.x > prio[j]) |
+                      ((k2.x == prio[j]) & (s2 < lane + 32 * j)));
+      }
+    }
+    int ndel = 0, ndrop = 0;
+#pragma unroll
+    for (int j = 0; j < kSpl; ++j) {
+      const int s = lane + 32 * j;
+      const bool take = elig[j] && rank[j] < K;
+      if (take) wsrc[dest[j] * K + rank[j]] = static_cast<int16_t>(s);
+      const unsigned tmask = __ballot_sync(kFull, take);
+      if (s < S)
+        gone[s * kMinorMaxW + w] =
+            static_cast<uint8_t>(((tmask | drop_mask[j]) >> lane) & 1u);
+      ndel += __popc(tmask);
+      ndrop += __popc(drop_mask[j]);
+    }
+    if (lane == 0) {
+      n_del[i] = ndel;
+      n_drop[i] = ndrop;
     }
   }
   __syncthreads();
 
-  // 2. rank
-  if (own) {
-    const int n = n_elig[lane];
-    for (int a = warp; a < n; a += kMinorWarps) {
-      const int2 ka = ckey[a * 32 + lane];
-      const int da = ka.y >> 16, sa = ka.y & 0xffff;
-      int rank = 0;
-      for (int b = 0; b < n && rank < K; ++b) {
-        const int2 kb = ckey[b * 32 + lane];
-        rank += ((kb.y >> 16) == da) &
-                ((kb.x > ka.x) | ((kb.x == ka.x) & ((kb.y & 0xffff) < sa)));
-      }
-      if (rank < K) {
-        src[(da * K + rank) * 32 + lane] = static_cast<int16_t>(sa);
-        atomicOr(&cleared[(sa >> 5) * 32 + lane], 1u << (sa & 31));
-        atomicAdd(&ndel[lane], 1);
-      }
+  // 3a. pool', row by row, cleared slots 0
+  store_rows<V, kStaged>(pool_out + i0, tile, gtile, gone, x, nthr, S, L, Is,
+                         ss, W, nw);
+  // 3b. the tile's inbox [nw, R, L], one contiguous stretch
+  int32_t* out = inbox + static_cast<size_t>(i0) * R * L;
+  if (L % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    const int L4 = L / 4;
+    Cursor3 c(x, nthr, R, L4);
+    for (int u = x; u < nw * R * L4; u += nthr, c.next()) {
+      const int sl = src[c.a * R + c.b];
+      const int l = 4 * c.c;
+      reinterpret_cast<int4*>(out)[u] =
+          sl >= 0 ? make_int4(word(sl, l, c.a), word(sl, l + 1, c.a),
+                              word(sl, l + 2, c.a), word(sl, l + 3, c.a))
+                  : make_int4(0, 0, 0, 0);
+    }
+  } else {
+    Cursor3 c(x, nthr, R, L);
+    for (int u = x; u < nw * R * L; u += nthr, c.next()) {
+      const int sl = src[c.a * R + c.b];
+      out[u] = sl >= 0 ? word(sl, c.c, c.a) : 0;
     }
   }
-  __syncthreads();
-  if (warp == 0 && own) {
-    n_del[i] = ndel[lane];
-    n_drop[i] = ndrop[lane];
-  }
+}
 
-  // 3a. pool' by rows (s, l) of the block's instances
-  if (own) {
-    for (int row = warp; row < S * L; row += kMinorWarps) {
-      const int s = row / L;
-      const size_t at = s * plane + static_cast<size_t>(row - s * L) * I + i;
-      const bool gone = (cleared[(s >> 5) * 32 + lane] >> (s & 31)) & 1u;
-      pool_out[at] = gone ? 0 : pool[at];
-    }
+template <int kSpl, bool kVec, bool kStaged>
+cudaError_t launch_minor(const int32_t* pool, const uint8_t* part, int t,
+                         int32_t* pool_out, int32_t* inbox, int32_t* n_del,
+                         int32_t* n_drop, int I, int S, int L, int NT, int K,
+                         const MinorGeo& g, cudaStream_t stream) {
+  auto* kern = deliver_minor_kernel<kSpl, kVec, kStaged>;
+  if (g.smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(g.smem));
+    if (e != cudaSuccess) return e;
   }
-  // 3b. the block's inbox stretch [nw * R * L] words, thread by word
-  const int RL = R * L;
-  int32_t* out = inbox + static_cast<size_t>(i0) * RL;
-  for (int u = x; u < nw * RL; u += 32 * kMinorWarps) {
-    const int n = u / RL;
-    const int rem = u - n * RL;
-    const int r = rem / L;
-    const int q = rem - r * L;
-    const int sl = src[r * 32 + n];
-    out[u] = sl >= 0 ? pool[sl * plane + static_cast<size_t>(q) * I + i0 + n]
-                     : 0;
-  }
+  const int blocks = (I + g.W - 1) / g.W;
+  kern<<<blocks, 32 * g.W, g.smem, stream>>>(pool, part, t, pool_out, inbox,
+                                             n_del, n_drop, I, S, L, NT, K,
+                                             g.W, g.ss);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -493,29 +765,39 @@ int deliver_launch(const int32_t* pool, const uint8_t* part, int t,
 }
 
 // The batch-last entry on `stream`: pool and pool_out [S, L, I], inbox
-// [I, NT, K, L], partitions [I, NT, NT]; a block of 32 * kMinorWarps
-// threads for each 32 instances, with minor_block_smem(S, NT, K) bytes of
-// shared memory. Returns the launch's cudaError_t: cudaErrorInvalidValue
-// for a geometry the kernel does not take.
+// [I, NT, K, L], partitions [I, NT, NT]; `vec` asks for 16-byte units (I
+// % 4 == 0, pool and pool_out 16-byte aligned). A block of 32 * W threads
+// for each W instances, with `smem` bytes of shared memory and a staged
+// slot stride of `ss` int32 (0: unstaged), as minor_geometry gives them
+// (the launcher checks). Returns the launch's cudaError_t:
+// cudaErrorInvalidValue for a geometry the kernel does not take.
 int deliver_minor_launch(const int32_t* pool, const uint8_t* part, int t,
                          int32_t* pool_out, int32_t* inbox, int32_t* n_del,
                          int32_t* n_drop, int I, int S, int L, int NT,
-                         int K, void* stream) {
-  const size_t smem = minor_block_smem(S, NT, K);
-  if (S < 1 || S > 256 || K < 1 || K > S || NT < 1 || L < 8 || I < 1 ||
-      smem > 232448)
+                         int K, int W, int ss, int smem, int vec,
+                         void* stream) {
+  if (S < 1 || S > 256 || K < 1 || K > S || NT < 1 || L < 8 || I < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        deliver_minor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int blocks = (I + 31) / 32;
-  deliver_minor_kernel<<<blocks, 32 * kMinorWarps, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      pool, part, t, pool_out, inbox, n_del, n_drop, I, S, L, NT, K);
-  return static_cast<int>(cudaGetLastError());
+  const MinorGeo g = minor_geometry(S, L, NT, K, vec != 0);
+  if (g.W == 0 || g.W != W || g.ss != ss ||
+      g.smem != static_cast<size_t>(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int spl = S <= 32 ? 1 : S <= 64 ? 2 : S <= 128 ? 4 : 8;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MINOR_LAUNCH(SPL, VEC, STAGED)                                     \
+  launch_minor<SPL, VEC, STAGED>(pool, part, t, pool_out, inbox, n_del,    \
+                                 n_drop, I, S, L, NT, K, g, st)
+#define MINOR_BY_SPL(VEC)                                                  \
+  (spl == 1   ? MINOR_LAUNCH(1, VEC, true)                                 \
+   : spl == 2 ? MINOR_LAUNCH(2, VEC, true)                                 \
+   : spl == 4 ? MINOR_LAUNCH(4, VEC, true)                                 \
+              : MINOR_LAUNCH(8, VEC, true))
+  const cudaError_t e = g.ss == 0 ? MINOR_LAUNCH(8, false, false)
+                        : g.vec   ? MINOR_BY_SPL(true)
+                                  : MINOR_BY_SPL(false);
+#undef MINOR_BY_SPL
+#undef MINOR_LAUNCH
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

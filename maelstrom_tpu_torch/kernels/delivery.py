@@ -29,20 +29,26 @@ the limits of the first kernel of this port, which gave one block of
 
 The minor carry layout keeps the pool batch-last, ``[S, L, I]``. Its
 entry, :func:`deliver_minor`, launches ``deliver_minor_kernel`` of the
-same source: a block of eight warps for each 32 instances, a lane of
-each warp on one instance, the warps splitting its slots to classify
-and rank them and then pool' and the inbox to move them, so a warp's
-loads of ``pool[s, l, i..i+31]`` are 128 contiguous bytes (the source's
-second header has the design). It replaces no Pallas kernel (the JAX package's minor layout
-runs XLA); it exists because the card's main path runs no plain
-version. :func:`minor_smem` sizes it; its plain version is
-``netsim.deliver_reference_minor``. The two entries count their
-launches apart.
+same source: a block of W warps for each W neighbouring instances (W =
+8 wherever the block fits in shared memory), a warp per instance. The
+block stages its tile of the pool, ``[S, L, W]``, and its partition
+planes into shared memory with ``cp.async`` (16-byte units of four
+instances where ``I % 4 == 0``), classifies and ranks each instance's
+slots with warp ballots as the lead kernel does (bucketed by endpoint
+above 128 slots), and writes pool' row by row and the tile's inbox as
+one contiguous stretch from shared memory, with two block barriers in
+all (the source's second header has the design). Where one instance's rows do not fit, the same
+kernel reads them straight from device memory. It replaces no Pallas
+kernel (the JAX package's minor layout runs XLA); it exists because the
+card's main path runs no plain version. :func:`minor_geometry` sizes
+it; its plain version is ``netsim.deliver_reference_minor``. The two
+entries count their launches apart.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -57,6 +63,8 @@ MINOR_KERNEL_NAME = "deliver_minor_kernel"
 MAX_SLOTS = 256
 SMEM_OPTIN_BYTES = 232_448      # an H100 block's shared-memory limit
 _MAX_WARPS_PER_BLOCK = 4
+# the batch-last kernel stages a tile's partition planes up to this size
+MINOR_PLANE_BYTES = 4096
 
 
 class Geometry(NamedTuple):
@@ -92,19 +100,60 @@ def geometry(S: int, L: int, NT: int, K: int, vec: bool) -> Geometry:
     return Geometry(rs, warp_bytes, wpb)
 
 
-def minor_smem(S: int, NT: int, K: int) -> int:
-    """Shared bytes of one block of the batch-last kernel (its 32
-    instances' compacted entries, cleared masks, three counters and
-    (endpoint, k) -> slot tables), as ``minor_block_smem`` in
-    ``csrc/deliver.cu``; raises for a shape the kernel does not take."""
-    if not (1 <= S <= MAX_SLOTS and 1 <= K <= S and NT >= 1):
-        raise ValueError(f"deliver_minor: no geometry for S={S} NT={NT} "
-                         f"K={K} (1 <= K <= S <= {MAX_SLOTS})")
-    smem = _round16(32 * (8 * S + 4 * -(-S // 32) + 4 * 3 + 2 * NT * K))
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(f"deliver_minor: 32 instances need {smem} B of "
-                         f"shared memory (limit {SMEM_OPTIN_BYTES})")
-    return smem
+class MinorGeometry(NamedTuple):
+    instances: int    # W: instances (warps) a block, ceil(I / W) blocks
+    slot_stride: int  # int32 a staged slot in shared memory (0: unstaged)
+    smem_bytes: int   # shared memory of one block
+    vec: bool         # 16-byte units of four instances (staged only)
+    staged: bool      # the tile's rows in shared memory
+
+
+def _minor_stride(L: int, W: int, vec: bool) -> int:
+    """The staged slot stride: ``L * W`` padded to an odd number of
+    16-byte units (of words on the 4-byte path), so lanes reading the
+    headers of consecutive slots spread over the banks."""
+    ss = L * W
+    if vec:
+        ss = -(-ss // 4) * 4
+        return ss + 4 if (ss // 4) % 2 == 0 else ss
+    return ss + 1 if ss % 2 == 0 else ss
+
+
+@functools.lru_cache(maxsize=64)
+def minor_geometry(S: int, L: int, NT: int, K: int,
+                   vec: bool) -> MinorGeometry:
+    """The launch shape of one batch-last round, as ``minor_geometry`` in
+    ``csrc/deliver.cu`` (which the launcher checks): the largest W of 8,
+    4, 2, 1 whose block fits in shared memory: the staged tile ``[S, L,
+    W]``, then the compacted entries ``[W, S]``, the bucket offsets
+    ``[W, NT + 1]``, the cleared bytes ``[S, 8]``, the (endpoint, k) ->
+    slot tables ``[W, NT * K]`` and the tile's partition planes where
+    they take at most ``MINOR_PLANE_BYTES``. Where not even one
+    instance's rows fit, the unstaged branch (the tables alone, 4-byte
+    units). ``vec`` asks for 16-byte units (``I % 4 == 0`` and aligned
+    pointers); they need W >= 4. Raises for a shape the kernel does not
+    take."""
+    if not (1 <= S <= MAX_SLOTS and 1 <= K <= S and NT >= 1 and L >= 8):
+        raise ValueError(f"deliver_minor: no geometry for S={S} L={L} "
+                         f"NT={NT} K={K} (1 <= K <= S <= {MAX_SLOTS}, "
+                         f"L >= 8)")
+    widths = (8, 4, 2, 1)
+    aux = {W: 8 * W * S + 4 * W * (NT + 1) + 8 * S + 2 * W * NT * K
+           + (W * NT * NT + 32 if W * NT * NT <= MINOR_PLANE_BYTES else 0)
+           for W in widths}
+    for W in widths:
+        v = vec and W % 4 == 0
+        ss = _minor_stride(L, W, v)
+        smem = _round16(_round16(4 * S * ss) + aux[W])
+        if smem <= SMEM_OPTIN_BYTES:
+            return MinorGeometry(W, ss, smem, v, True)
+    for W in widths:
+        smem = _round16(aux[W])
+        if smem <= SMEM_OPTIN_BYTES:
+            return MinorGeometry(W, 0, smem, False, False)
+    raise ValueError(f"deliver_minor: one instance's tables need "
+                     f"{_round16(aux[1])} B of shared memory (limit "
+                     f"{SMEM_OPTIN_BYTES})")
 
 
 _launch_fn = None
@@ -137,7 +186,7 @@ def _minor_launcher():
     """``deliver_minor_launch`` of the built library, resolved once."""
     global _minor_launch_fn
     if _minor_launch_fn is None:
-        _minor_launch_fn = _resolve("deliver_minor_launch", 5)
+        _minor_launch_fn = _resolve("deliver_minor_launch", 9)
     return _minor_launch_fn
 
 
@@ -218,13 +267,16 @@ def deliver_minor_cuda(pool: torch.Tensor, partitions: torch.Tensor, t: int,
     n_drop = torch.empty((I,), dtype=torch.int32, device=dev)
     if I == 0:
         return pool_out, inbox, n_del, n_drop
-    minor_smem(S, NT, K)
+    vec = I % 4 == 0 and all(x.data_ptr() % 16 == 0
+                             for x in (pool, pool_out))
+    geo = minor_geometry(S, L, NT, K, vec)
     fn = _minor_launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pool.data_ptr(), partitions.data_ptr(), int(t),
                  pool_out.data_ptr(), inbox.data_ptr(), n_del.data_ptr(),
-                 n_drop.data_ptr(), I, S, L, NT, K, stream)
+                 n_drop.data_ptr(), I, S, L, NT, K, geo.instances,
+                 geo.slot_stride, geo.smem_bytes, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"deliver_minor kernel launch failed: CUDA "
                            f"error {err}")

@@ -3,8 +3,8 @@ random pools, edge-case pools that reach every rule of the delivery
 contract (numpy, so the tests can hand the same arrays to the JAX
 package), and the least time the card could take for a round.
 
-    SHAPES[name], EDGE_SHAPES[name] -> (n_nodes, n_clients, S, K,
-                                        body_lanes, I)
+    SHAPES[name], EDGE_SHAPES[name], MINOR_EDGE_SHAPES[name]
+        -> (n_nodes, n_clients, S, K, body_lanes, I)
     random_pools(rs, I, cfg) -> (pools [I, S, L] int32, parts [I, NT, NT])
     edge_pools(cfg, I, seed) -> {name: (pools, parts, t)}
     bound(pool, parts, t, cfg) -> (ms, "bytes" | "operations", bytes, ops)
@@ -52,7 +52,9 @@ TIMED = ("flagship", "k1-16k", "k3", "defaults", "broadcast-25",
 # tutorial workloads' rows on the 4-byte path (L = 9, 10, 14), and the
 # NETID rows of the flagship (L = 21) and of kafka (L = 33: off the
 # 16-byte path), and the shape of the forget-snapshot fuzz run that
-# chip_smoke.py's phase 10 shrinks (S = 24, K = 2, NT = 7)
+# chip_smoke.py's phase 10 shrinks (S = 24, K = 2, NT = 7), and 37
+# instances, a multiple of neither the batch-last kernel's tile of 8 nor
+# 4 (its 4-byte path and a partial last tile)
 EDGE_SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
                "flagship": (3, 6, 16, 1, 12, 64),
                "defaults": (3, 6, 128, 8, 12, 64),
@@ -68,7 +70,13 @@ EDGE_SHAPES = {"pallas-test": (3, 3, 32, 4, 6, 8),
                "flagship-netid": (3, 6, 16, 1, 13, 64),
                "kafka-netid": (1, 6, 16, 1, 25, 64),
                "bug-hunt-netid": (3, 3, 128, 8, 13, 64),
-               "fuzz-shrink": (3, 4, 24, 2, 12, 64)}
+               "fuzz-shrink": (3, 4, 24, 2, 12, 64),
+               "ragged": (3, 6, 16, 1, 12, 37)}
+# edge shapes of the batch-last entry alone: 256 slots of L = 228 (a
+# many-node CRDT fleet's body of 2 * n_nodes lanes), where not even one
+# instance's rows fit in shared memory (its unstaged branch); the lead
+# kernel's geometry refuses them
+MINOR_EDGE_SHAPES = {"unstaged": (3, 6, 256, 1, 220, 9)}
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12

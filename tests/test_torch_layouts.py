@@ -185,12 +185,15 @@ def test_sharded_chunked_minor_matches_unsharded():
 
 
 @pytest.mark.parametrize("name", ["flagship", "odd", "broadcast-25",
-                                  "flagship-netid"])
+                                  "flagship-netid", "ragged", "unstaged"])
 def test_deliver_minor_reference_equals_lead(name):
     """The plain version of the batch-last entry equals the lead plain
     version on the transposed pool, on every edge-case pool; pool' is
-    batch-last and contiguous."""
-    shape = delivery_cases.EDGE_SHAPES[name]
+    batch-last and contiguous. "ragged" (37 instances) is a multiple of
+    neither the kernel's tile nor 4, "unstaged" (256 slots of L = 228) a
+    shape only the batch-last kernel takes."""
+    shape = {**delivery_cases.EDGE_SHAPES,
+             **delivery_cases.MINOR_EDGE_SHAPES}[name]
     cfg = delivery_cases.net_config(*shape[:5])
     for pname, (pools, parts, t) in delivery_cases.edge_pools(
             cfg, shape[5], 11).items():

@@ -136,6 +136,28 @@ def test_deliver_edge_cases_match_pallas_interpret(shape, case):
         np.testing.assert_array_equal(np.asarray(r), g)
 
 
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_deliver_minor_edge_shapes_match_xla(case):
+    """The batch-last entry (its plain version here) against
+    ``vmap(netsim.deliver)`` at the shapes only it takes: rows too wide
+    for the kernel's shared memory (the lead kernel refuses them)."""
+    n, c, S, K, body, I = delivery_cases.MINOR_EDGE_SHAPES["unstaged"]
+    cfg, jcfg = _cfgs(n, c, S, K, body)
+    pools, parts, t = delivery_cases.edge_pools(cfg, I, seed=3)[case]
+    with pytest.raises(ValueError):
+        delivery.geometry(S, cfg.lanes, cfg.n_total, K, False)
+    ref = jax.vmap(lambda p, pa: jnetsim.deliver(p, pa, jnp.int32(t),
+                                                 jcfg))(
+        jnp.asarray(pools), jnp.asarray(parts))
+    got = delivery.deliver_minor(
+        torch.from_numpy(pools).movedim(0, -1).contiguous(),
+        torch.from_numpy(parts), t, cfg)
+    np.testing.assert_array_equal(np.asarray(ref[0]),
+                                  got[0].movedim(-1, 0).numpy())
+    for r, g in zip(ref[1:], got[1:]):
+        np.testing.assert_array_equal(np.asarray(r), g.numpy())
+
+
 def test_edge_cases_reach_their_rules():
     """Each edge pool exercises what its name says (plain version)."""
     n, c, S, K, body, I = EDGE_SHAPES["odd"]
@@ -181,6 +203,53 @@ def test_deliver_geometry(vec):
                 (8, 7, 9, 1)):
         with pytest.raises(ValueError):
             delivery.geometry(*bad, vec=False)
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("NT", [7, 9, 50])
+def test_deliver_minor_geometry(NT, vec):
+    """Every S in 1..256, K in 1..8 and L in 8..66 (and 120, 228) gets a
+    batch-last launch: W in {1, 2, 4, 8}, a block within the card's
+    shared memory, a staged slot stride padded to an odd number of
+    16-byte units (of words on the 4-byte path), 16-byte units only at W
+    >= 4 and staged; where one instance's rows do not fit, the unstaged
+    branch, not a refusal. The timed shapes get W = 8; shapes outside the contract
+    raise."""
+    for S in range(1, delivery.MAX_SLOTS + 1):
+        for K in range(1, min(8, S) + 1):
+            for L in list(range(8, 67)) + [120, 228]:
+                geo = delivery.minor_geometry(S, L, NT, K, vec)
+                W = geo.instances
+                assert W in (1, 2, 4, 8)
+                assert geo.smem_bytes % 16 == 0
+                assert geo.smem_bytes <= delivery.SMEM_OPTIN_BYTES
+                assert geo.vec == (vec and W % 4 == 0 and geo.staged)
+                rows = 4 * S * L     # one instance's rows
+                if not geo.staged:
+                    assert geo.slot_stride == 0
+                    assert rows > delivery.SMEM_OPTIN_BYTES - 16 * 1024
+                    continue
+                assert geo.smem_bytes >= S * geo.slot_stride * 4
+                assert geo.slot_stride >= L * W
+                unit = 4 if geo.vec else 1
+                assert geo.slot_stride % unit == 0
+                assert (geo.slot_stride // unit) % 2 == 1
+                if W < 8:    # only where twice W's rows are wide
+                    assert 2 * W * rows > 2 * delivery.SMEM_OPTIN_BYTES // 3
+    for name in delivery_cases.TIMED:
+        n, c, S, K, body, I = delivery_cases.SHAPES[name]
+        cfg = delivery_cases.net_config(n, c, S, K, body)
+        geo = delivery.minor_geometry(S, cfg.lanes, cfg.n_total, K,
+                                      vec and I % 4 == 0)
+        assert geo.instances == 8 and geo.staged, name
+    n, c, S, K, body, I = delivery_cases.MINOR_EDGE_SHAPES["unstaged"]
+    cfg = delivery_cases.net_config(n, c, S, K, body)
+    geo = delivery.minor_geometry(S, cfg.lanes, cfg.n_total, K, vec)
+    assert not geo.staged and geo.slot_stride == 0
+    for bad in ((0, 20, NT, 1), (257, 20, NT, 1), (8, 20, NT, 9),
+                (8, 7, NT, 1), (8, 20, 0, 1)):
+        with pytest.raises(ValueError):
+            delivery.minor_geometry(*bad, vec=vec)
 
 
 def test_deliver_wrapper_counts_no_cpu_launch():

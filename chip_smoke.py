@@ -179,7 +179,10 @@ Phases (any failure exits non-zero and prints no result line):
     phase with launches has static operators and the reverse, and the
     per-tick total outside ``deliver`` lies within 0.75-1.33x of the
     static count (``deliver`` is the plain version's operators on
-    ``meta`` against the one kernel launch, reported as a pair). At
+    ``meta`` against the one kernel launch, reported as a pair). Those
+    profiled windows wait for the host work started beside them (the
+    lint, the demo and the native run) to end, and the script logs
+    their spans and any overlap in seconds into the script. At
     tick 480 every int32 leaf of the card's carry, its min and max over
     the 4,096 instances, lies inside the ranges pass's proven interval
     for the fleet's own sim at T = 480 (``analysis/absint.py``). Once
@@ -219,11 +222,18 @@ Phases (any failure exits non-zero and prints no result line):
     --pass contract --pass schema --ir --cost --lanes --ranges --shard
     --aot`` as a child process must exit 0 with the trace, contract and
     schema passes, the IR-hazard, cost, lane and value-range passes over
-    the aten graph of every model's tick, the shard pass over the mesh
-    executor and the aot pass over the chunk dispatch run, no error
-    finding and no stale baseline entry, having loaded no kernel
-    library and initialised no CUDA, and no module of the port may be
-    the one that imports ``triton`` (torch's own compiler stack may).
+    the aten graph of every model's tick in both carry layouts, the
+    shard pass over the mesh executor and the aot pass over the chunk
+    dispatch run, no error finding and no stale baseline entry, having
+    loaded no kernel library and initialised no CUDA, and no module of
+    the port may be the one that imports ``triton`` (torch's own
+    compiler stack may); the same holds in each of the static workers
+    that record the ticks for it (the report's ``static-workers``, every
+    job reported), and neither the child nor they import anything of
+    JAX. Each of its five manifests must hold minor
+    entries (as many as lead ones for the cost, lanes and ranges
+    passes); it prints the phase's wall time and the entries checked
+    per layout.
 
 17. the certified store of the kernel libraries (``aot_store.py``),
     behind phase 15 in phase 13's card worker: the flagship
@@ -249,9 +259,10 @@ Phases (any failure exits non-zero and prints no result line):
     30 entries of ``DEMOS``, the process entries at ``--time-limit 3``,
     cut from the default 5 s; the six native entries at their own
     settings, one engine thread each) runs through the port's CLI in a
-    child process with a temporary store, behind phase 16's lint in its
-    reference worker (no card visible): the child must exit 0, every
-    entry must be valid but the mutants, which must be caught
+    child process with a temporary store, in a reference worker of its
+    own alongside phase 16's lint (no card visible): the child must
+    exit 0, every entry must be valid but the mutants, which must be
+    caught
     (``kafka_txn.py --no-atomic``, and the native engine's
     txn-list-append dirty-apply, unique-ids collision and kafka
     poll-skip), and neither the child nor the worker may have
@@ -319,7 +330,7 @@ the timed source, and its bench child checks that the bench module
 refuses to run; its
 phase 17 plants a library into the CPU entry, whose dispatch launches
 none, for the tamper steps; its phase 18 runs the demo's echo and lin-kv
-proxy entries and its native lin-kv entry at ``--time-limit 1``, and
+proxy entries and its native lin-kv entry at ``--time-limit 3``, and
 (b) at 64 instances for 0.5 simulated seconds).
 ``--time-limit S`` runs the paths of phases 4-8 for at most ``S``
 simulated seconds instead (a quicker check; the broadcast fleet for at
@@ -480,27 +491,25 @@ MESH_CKPT = "mesh-checkpoint"
 # the aten graph of the tick, the shard and aot passes), run through runpy
 # so that the child can report, after the lint, which file imported triton
 # first (torch's own compiler stack may; the port must not), which kernel
-# libraries it loaded and whether CUDA was initialised; phase 17's audits
-# run the same child with `lint --aot --aot-store DIR`
+# libraries it loaded, whether CUDA was initialised and what of JAX it
+# imported (`analysis/runner.process_state`, as its static workers report
+# in the report's `static-workers`); phase 17's audits run the same child
+# with `lint --aot --aot-store DIR`
 LINT_ARGV = ["lint", "--strict", "--json", "--pass", "trace", "--pass",
              "contract", "--pass", "schema", "--ir", "--cost", "--lanes",
              "--ranges", "--shard", "--aot"]
 LINT_PASSES = ["trace", "contract", "schema", "ir", "cost", "lanes",
                "ranges", "shard", "aot"]
+# the manifests phase 16's lint gates, each keyed <workload>/n=<nodes>/
+# <layout>/...; the cost, lanes and ranges passes record every model in
+# both layouts
+LINT_MANIFESTS = ("cost_baseline", "lane_manifest", "range_manifest",
+                  "shard_manifest", "aot_manifest")
+LINT_PAIRED = ("cost_baseline", "lane_manifest", "range_manifest")
 LINT_CHILD = """
 import json, runpy, sys
-class TritonImporter:
-    file = None
-    def find_spec(self, name, path=None, target=None):
-        if name == "triton" and TritonImporter.file is None:
-            f = sys._getframe(1)
-            while f is not None and ("importlib" in f.f_code.co_filename
-                                     or f.f_code.co_filename.startswith(
-                                         "<frozen")):
-                f = f.f_back
-            TritonImporter.file = f.f_code.co_filename if f else "?"
-        return None
-sys.meta_path.insert(0, TritonImporter())
+from maelstrom_tpu_torch.analysis import runner
+runner.watch_imports()
 sys.argv = ["maelstrom_tpu_torch"] + json.loads(sys.argv[1])
 try:
     runpy.run_module("maelstrom_tpu_torch", run_name="__main__",
@@ -508,13 +517,7 @@ try:
     rc = 0
 except SystemExit as e:
     rc = e.code or 0
-import torch
-from maelstrom_tpu_torch.kernels import build
-print(json.dumps({"triton-imported": "triton" in sys.modules,
-                  "triton-importer": TritonImporter.file,
-                  "kernel-libraries": sorted(build._loaded),
-                  "cuda-initialized": torch.cuda.is_initialized()}),
-      file=sys.stderr)
+print(json.dumps(runner.process_state()), file=sys.stderr)
 sys.exit(rc)
 """
 # phases 4-13 run without the device profiler (whose default is auto), so
@@ -603,17 +606,20 @@ BENCH = dict(seconds=0.2, dispatch_s=0.5)
 # the static count outside `deliver` predicts the launches outside it
 # within this ratio (launched / static)
 STATIC_RATIO = (0.75, 1.33)
-# phase 18: the port's `demo` through its CLI in a child process, behind
-# phase 16's lint in its reference worker: every process entry at
-# --time-limit 3 (cut from the demo's default 5 s: at 5 s the demo took
+# phase 18: the port's `demo` through its CLI in a child process, in a
+# reference worker of its own beside phase 16's lint: every process entry
+# at --time-limit 3 (cut from the demo's default 5 s: at 5 s the demo took
 # 207.8 s beside phases 7-9 and the last mark came at 721.7 s on an
 # NVIDIA H100 80GB HBM3's host; at 3 s both packages catch the
 # --no-atomic mutant, tests/test_torch_process_trace.py); the native
 # entries take their own settings. The rehearsal runs entries 0, 9 and
-# 24 (echo, the lin-kv proxy, the native lin-kv) at 1 s. The child is
-# killed after DEMO_TIMEOUT_S
+# 24 (echo, the lin-kv proxy, the native lin-kv) at 3 s too: the stats
+# checker wants an ok of every f, seed 1's proxy history has its first
+# ok cas at completed op 10, and an unloaded run completes 11 ops in 1 s
+# but 34 in 3 s, so a run beside the lint on a busy host still gets
+# there. The child is killed after DEMO_TIMEOUT_S
 DEMO_ARGV = ["--time-limit", "3"]
-DEMO_REHEARSAL = dict(picks=[0, 9, 24], argv=["--time-limit", "1"])
+DEMO_REHEARSAL = dict(picks=[0, 9, 24], argv=DEMO_ARGV)
 DEMO_TIMEOUT_S = 600.0
 # phase 18 (b): the native bench's k1 shape (bench.py:895-899, 954-958)
 # on two engine threads (the engine's default, 0, takes every core, and
@@ -858,6 +864,45 @@ def _timed(fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
     return out, time.monotonic() - t0
+
+
+# the host work this script starts beside phase 14 (the lint with its
+# static workers, the demo, the native run): each writes its span on the
+# host's monotonic clock under the script's root when it ends, pass or
+# fail, and phase 14's profiled windows wait for all of them (at most
+# HOST_SPAN_WAIT_S) so that their load does not reach the trace
+HOST_SPANS = ("lint", "demo", "native")
+HOST_SPAN_WAIT_S = 600.0
+
+
+def _write_span(root, name, t0):
+    import os
+    path = os.path.join(root, f"{name}.span")
+    with open(path + ".tmp", "w") as f:
+        json.dump([t0, time.monotonic()], f)
+    os.replace(path + ".tmp", path)
+
+
+def read_spans(root):
+    """The spans written so far: ``{name: [start, end]}``."""
+    import os
+    out = {}
+    for name in HOST_SPANS:
+        path = os.path.join(root, f"{name}.span")
+        if os.path.exists(path):
+            with open(path) as f:
+                out[name] = json.load(f)
+    return out
+
+
+def wait_for_spans(root, limit=HOST_SPAN_WAIT_S):
+    """Wait until every one of :data:`HOST_SPANS` has ended or ``limit``
+    seconds have passed; the seconds waited."""
+    t0 = time.monotonic()
+    while (len(read_spans(root)) < len(HOST_SPANS)
+           and time.monotonic() - t0 < limit):
+        time.sleep(0.5)
+    return time.monotonic() - t0
 
 
 def _cpu_test(spec, opts):
@@ -1843,10 +1888,14 @@ def finish_lint(proc):
             "loaded": json.loads(tail[-1]) if tail else None}
 
 
-def lint_phase():
+def lint_phase(root):
     """Phase 16 in a reference worker (no card visible): the lint as a
     child process; its exit code, report and what it imported."""
-    return finish_lint(start_lint())
+    t0 = time.monotonic()
+    try:
+        return finish_lint(start_lint())
+    finally:
+        _write_span(root, "lint", t0)
 
 
 def native_build_phase():
@@ -1866,27 +1915,29 @@ def native_build_phase():
                                            os.path.abspath(__file__)))}
 
 
-def native_phase(rehearse):
+def native_phase(root, rehearse):
     """Phase 18 (b) behind the demo in its reference worker: one lin-kv
     run of the native engine at the native bench's ``k1`` shape; its
     options and results."""
     from maelstrom_tpu_torch.bench import native_base_opts
     from maelstrom_tpu_torch.native.harness import run_native_test
-    opts = dict(native_base_opts(), **NATIVE_K1)
-    if rehearse:
-        opts.update(NATIVE_K1_REHEARSAL)
-    return {"opts": opts, "results": run_native_test(opts),
-            "worker-cuda": torch.cuda.is_initialized()}
+    t0 = time.monotonic()
+    try:
+        opts = dict(native_base_opts(), **NATIVE_K1)
+        if rehearse:
+            opts.update(NATIVE_K1_REHEARSAL)
+        return {"opts": opts, "results": run_native_test(opts),
+                "worker-cuda": torch.cuda.is_initialized()}
+    finally:
+        _write_span(root, "native", t0)
 
 
 def demo_phase(root, rehearse):
-    """Phase 18 behind phase 16 in its reference worker (no card
+    """Phase 18 in a reference worker of its own (no card
     visible): the port's ``demo`` as a child process with a store under
     ``root``; its exit code, each output line with the seconds since the
     start, and whether the child and this worker initialised CUDA."""
     import os
-    import subprocess
-    import threading
     repo = os.path.dirname(os.path.abspath(__file__))
     store = os.path.join(root, "demo-store")
     picks, argv = ((DEMO_REHEARSAL["picks"], DEMO_REHEARSAL["argv"])
@@ -1895,6 +1946,16 @@ def demo_phase(root, rehearse):
                PYTHONIOENCODING="utf-8")
     err_path = os.path.join(root, "demo.err")
     t0 = time.monotonic()
+    try:
+        return _demo_child(repo, store, picks, argv, env, err_path, t0)
+    finally:
+        _write_span(root, "demo", t0)
+
+
+def _demo_child(repo, store, picks, argv, env, err_path, t0):
+    """:func:`demo_phase`'s child, from its start at ``t0``."""
+    import subprocess
+    import threading
     with open(err_path, "w") as err:
         proc = subprocess.Popen(
             [sys.executable, "-c", DEMO_CHILD, json.dumps(picks), *argv,
@@ -2308,7 +2369,7 @@ def _profile_phase(dev_name, root, opts):
     out["trace"] = {"bytes": os.path.getsize(traces[0]), "wall-s": wall,
                     "ticks": res["perf"]["ticks"]}
     out["launches"]["phase 14 profile_dir run"] = launches
-    out["static"] = static_vs_launched(dev_name, opts)
+    out["static"] = static_vs_launched(dev_name, root, opts)
     return out
 
 
@@ -2459,13 +2520,15 @@ BENCH_KEYS = {
     "check_valid", "latency_ticks", "complete", "funnel"}
 
 
-def static_vs_launched(dev_name, opts):
+def static_vs_launched(dev_name, root, opts):
     """Phase 14's check of the static cost model: the flagship under
     ``BENCH_FUZZ_DIST`` stepped on the card to the end of the last
     stretch; per stretch, 20 ticks timed on the host clock, then 20
     profiled (``profile_tick._breakdown``: the kernels by phase per
     tick), beside the static operators of the same tick variant
-    (``profile_tick.static_ops``). Without a card it counts the static
+    (``profile_tick.static_ops``). The profiled windows (their spans on
+    the host's monotonic clock kept) come after the host work of
+    :data:`HOST_SPANS` has ended. Without a card it counts the static
     side only."""
     from maelstrom_tpu_torch import fleets, profile_tick
     from maelstrom_tpu_torch.faults import BENCH_FUZZ_DIST
@@ -2481,10 +2544,15 @@ def static_vs_launched(dev_name, opts):
     with torch.no_grad():
         for start in opts["stretches"]:
             fleet.run(start - n - fleet.t)
+            window = None
             if on_card:
+                if "host-wait-s" not in out:
+                    out["host-wait-s"] = wait_for_spans(root)
                 wall = fleet.wall_ms(n)
+                w0 = time.monotonic()
                 b = profile_tick._breakdown(fleet, n, wall,
                                             delivery.KERNEL_NAME)
+                window = [w0, time.monotonic()]
                 launched = {ph: d["device_kernels_per_tick"]
                             for ph, d in b["phases"].items()}
                 total = b["device_kernels_per_tick"]
@@ -2496,7 +2564,7 @@ def static_vs_launched(dev_name, opts):
             rec = {"from_tick": t_s, "variant": st["variant"],
                    "static": st["phases"], "static_total": st["ops_per_tick"],
                    "launched": launched, "launched_total": total,
-                   "wall_ms_per_tick": wall}
+                   "wall_ms_per_tick": wall, "window": window}
             if on_card:
                 busy = {ph for ph, k in launched.items() if k > 0}
                 static = {ph for ph, k in st["phases"].items()
@@ -2527,10 +2595,12 @@ def static_vs_launched(dev_name, opts):
         with torch.no_grad():
             mfleet.run(opts["stretches"][0] - n)
             wall = mfleet.wall_ms(n)
+            w0 = time.monotonic()
             b = profile_tick._breakdown(mfleet, n, wall,
                                         delivery.MINOR_KERNEL_NAME)
         out["minor"] = {
             "from_tick": mfleet.t - n, "wall_ms_per_tick": wall,
+            "window": [w0, time.monotonic()],
             "launched_total": b["device_kernels_per_tick"],
             "launched": {ph: d["device_kernels_per_tick"]
                          for ph, d in b["phases"].items()},
@@ -2599,7 +2669,8 @@ def log_profile_phase(dev, profile_ref):
         f"{t['bytes']} B Chrome trace; the run took {t['wall-s']:.1f} s")
     st = m["static"]
     for variant, r in st.items():
-        if variant in ("wall-s", "ranges", "instances", "minor"):
+        if variant in ("wall-s", "ranges", "instances", "minor",
+                       "host-wait-s"):
             continue
         span = f"ticks {r['from_tick']}-{r['from_tick'] + 19} ({variant})"
         if r["launched"] is None:
@@ -2840,11 +2911,13 @@ def main(argv) -> int:
     engine_pool = ThreadPoolExecutor(1)
     build_ref = engine_pool.submit(_timed, native_build_phase)
     lint_pool = worker_pool(1, cuda=False)
-    lint_ref = submit(lint_pool, lint_phase)
-    # phase 18: behind the lint, in the same reference worker; (b) behind
-    # the demo
-    demo_ref = submit(lint_pool, demo_phase, root, rehearse)
-    native_ref = submit(lint_pool, native_phase, rehearse)
+    lint_ref = submit(lint_pool, lint_phase, root)
+    # phase 18: in a reference worker of its own, beside the lint (which
+    # audits both carry layouts: behind it the demo would end the
+    # script); (b) behind the demo
+    demo_pool = worker_pool(1, cuda=False)
+    demo_ref = submit(demo_pool, demo_phase, root, rehearse)
+    native_ref = submit(demo_pool, native_phase, root, rehearse)
     refs, side = worker_pool(2, cuda=False), worker_pool(1, cuda=True)
     # phase 13's card work: a card worker of its own, alongside the rest
     shards = worker_pool(1, cuda=True)
@@ -2872,7 +2945,7 @@ def main(argv) -> int:
                            root, opts, flagship, bopts, bmodel, paths,
                            txn_paths, hunt_model, hunt_opts, lanes_spec,
                            lanes_opts, sweep_model, sweep_opts, campaign,
-                           mesh_refs, profile_ref, late_refs)
+                           mesh_refs, profile_ref, late_refs, start)
     finally:
         # a failed phase cancels phase 14's queued runs: the marker ends
         # the bench child's wait for them at once
@@ -2881,7 +2954,8 @@ def main(argv) -> int:
             with open(done + ".tmp", "w") as f:
                 f.write(ABORTED)
             os.replace(done + ".tmp", done)
-        for pool in (shards, side, refs, lint_pool, engine_pool):
+        for pool in (shards, side, refs, lint_pool, demo_pool,
+                     engine_pool):
             pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3019,6 +3093,51 @@ def log_store_phase(dev, store_ref):
             for name, r in legs.items()}
 
 
+def lint_manifest_counts():
+    """The entries of each manifest phase 16's lint gates, by carry
+    layout (a strict run with no missing and no stale entry checked each
+    of them against a live one)."""
+    import os
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "maelstrom_tpu_torch", "analysis")
+    out = {}
+    for name in LINT_MANIFESTS:
+        with open(os.path.join(d, name + ".json")) as f:
+            entries = json.load(f)["entries"]
+        counts = out.setdefault(name, {})
+        for key in entries:
+            layout = key.split("/")[2]
+            counts[layout] = counts.get(layout, 0) + 1
+    return out
+
+
+def log_host_spans(start, root, profile_ref):
+    """Phase 14's profiled windows beside the host work of
+    :data:`HOST_SPANS`, in seconds into the script, and their overlap."""
+    label = "phase 14 (static against launched)"
+    st = profile_ref.result()[0]["static"]
+    windows = {f"from tick {r['from_tick']}": r["window"]
+               for k, r in st.items()
+               if k != "minor" and isinstance(r, dict) and r.get("window")}
+    if st.get("minor"):
+        windows[f"minor from tick {st['minor']['from_tick']}"] = \
+            st["minor"]["window"]
+    spans = read_spans(root)
+
+    def rel(span):
+        return f"{span[0] - start:.1f}-{span[1] - start:.1f} s"
+    overlap = sum(max(0.0, min(w[1], sp[1]) - max(w[0], sp[0]))
+                  for w in windows.values() for sp in spans.values())
+    waited = st.get("host-wait-s")
+    log(f"{label}: profiled windows "
+        + (", ".join(f"{k} {rel(w)}" for k, w in windows.items())
+           + " into the script" if windows else "none (no card)")
+        + ("" if waited is None else f" (after waiting {waited:.1f} s)")
+        + "; host work beside them: "
+        + ", ".join(f"{k} {rel(sp)}" for k, sp in spans.items())
+        + f"; overlap {overlap:.1f} s")
+
+
 def log_lint_phase(lint_ref):
     """Phase 16's result, checked in the main process."""
     label = "phase 16 (lint)"
@@ -3035,9 +3154,32 @@ def log_lint_phase(lint_ref):
                              f"{rep['summary']}")
     importer = loaded["triton-importer"] or ""
     if "maelstrom_tpu_torch" in importer or loaded["kernel-libraries"] \
-            or loaded["cuda-initialized"]:
+            or loaded["cuda-initialized"] or loaded["jax-modules"]:
         raise AssertionError(f"{label}: the lint imported or touched the "
                              f"card's toolchain: {loaded}")
+    # the static workers that recorded every model x layout's tick (and
+    # the ranges fixtures) for it: each job reported, none held the
+    # toolchain
+    from maelstrom_tpu_torch.analysis import cost_model
+    from maelstrom_tpu_torch.models.ir_hazards import RANGE_FIXTURE_MODELS
+    workers = rep["static-workers"] or {}
+    jobs = len(cost_model.AUDIT_LAYOUTS) * (len(cost_model.cost_specs())
+                                            + len(RANGE_FIXTURE_MODELS))
+    if workers.get("jobs") != jobs or workers["lost-jobs"] \
+            or workers["cuda-initialized"] or workers["kernel-libraries"] \
+            or workers["jax-modules"] or any(
+                "maelstrom_tpu_torch" in f
+                for f in workers["triton-importers"]):
+        raise AssertionError(f"{label}: the lint's static workers ({jobs} "
+                             f"jobs expected) imported or touched the "
+                             f"card's toolchain: {workers}")
+    counts = lint_manifest_counts()
+    unpaired = [name for name, c in counts.items()
+                if not c.get("minor") or (name in LINT_PAIRED
+                                          and c["minor"] != c.get("lead"))]
+    if unpaired:
+        raise AssertionError(f"{label}: manifests without both layouts: "
+                             f"{unpaired} ({counts})")
     exp = sum(1 for f in rep["suppressed"]
               if f["baseline-status"] == "expected")
     warn = [f"{f['rule']} {f['message'][:200]}" for f in rep["findings"]]
@@ -3049,7 +3191,15 @@ def log_lint_phase(lint_ref):
         f"{json.dumps(rep['summary'])} ({exp} expected-fixture); "
         f"{rep['files-scanned']} files; no kernel library, no CUDA "
         f"context; triton imported: {loaded['triton-imported']} (first "
-        f"asked for by {importer or 'nothing'}, not by the port)")
+        f"asked for by {importer or 'nothing'}, not by the port); the "
+        f"same in its {workers['processes']} static workers over their "
+        f"{workers['jobs']} jobs (triton imported: "
+        f"{workers['triton-imported']})")
+    log(f"{label}: {t_lint:.1f} s wall; manifest entries checked by "
+        f"layout: " + "; ".join(
+            f"{name} " + ", ".join(f"{lay} {n}" for lay, n in
+                                   sorted(c.items()))
+            for name, c in counts.items()))
 
 
 def log_demo_phase(demo_ref):
@@ -3090,7 +3240,7 @@ def log_demo_phase(demo_ref):
     log(f"{label}: `python -m maelstrom_tpu_torch demo "
         f"{' '.join(r['argv'])}` ({len(demos)} entries, {native} on the "
         f"native engine) exit 0 in "
-        f"{t_demo:.1f} s in phase 16's reference worker: {last}; "
+        f"{t_demo:.1f} s in a reference worker of its own: {last}; "
         f"torch.cuda.is_initialized() False in the child and the worker")
 
 
@@ -3175,7 +3325,7 @@ def drive_paths(dev, full, rehearse, records, mark, refs, side, root, opts,
                 flagship, bopts, bmodel, paths, txn_paths, hunt_model,
                 hunt_opts, lanes_spec, lanes_opts, sweep_model,
                 sweep_opts, campaign, mesh_refs, profile_ref,
-                late_refs) -> int:
+                late_refs, start) -> int:
     """Phases 3-12 and the result lines. Phase 10's fuzz run and card
     shrink, then phase 3's card runs, then phase 12's card work, then
     phase 14's bench child go to the side card worker ``side``, and the CPU halves of phases 3, 10,
@@ -3397,10 +3547,11 @@ def drive_paths(dev, full, rehearse, records, mark, refs, side, root, opts,
     mark("phase 17 (the store, behind phase 15 in its card worker)")
     log_native_build(late_refs[4])
     log_demo_phase(late_refs[3])
-    mark("phase 18 (demo, behind phase 16 in its reference worker)")
+    mark("phase 18 (demo, in a reference worker of its own)")
     log_native_phase(late_refs[5])
     mark("phase 18 (b) (native lin-kv, behind the demo in its reference "
          "worker)")
+    log_host_spans(start, root, profile_ref)
     record, minor_record = records
     record["launches"] = launches["deliver"]
     record["launches_by_path"] = by_path

@@ -567,11 +567,13 @@ def _parser() -> argparse.ArgumentParser:
                              "registered model or the dispatch)")
     p_lint.add_argument("--ir", action="store_true",
                         help="run the IR hazard pass (JXP4xx) over the "
-                             "aten graph of every registered model's tick")
+                             "aten graph of the tick of every registered "
+                             "model x both carry layouts")
     p_lint.add_argument("--cost", action="store_true",
                         help="run the cost-budget gate (COST5xx): the "
                              "static tick cost of every registered model "
-                             "vs analysis/cost_baseline.json; >10%% "
+                             "x both carry layouts vs "
+                             "analysis/cost_baseline.json; >10%% "
                              "regression is an error")
     p_lint.add_argument("--update-baseline", action="store_true",
                         help="re-record analysis/cost_baseline.json from "
@@ -582,8 +584,9 @@ def _parser() -> argparse.ArgumentParser:
                              "cost_baseline.json)")
     p_lint.add_argument("--lanes", action="store_true",
                         help="run the lane-liveness pass (LNE6xx): the "
-                             "backward slice of every registered model's "
-                             "tick, gated against "
+                             "backward slice of the tick of every "
+                             "registered model x both carry layouts, "
+                             "gated against "
                              "analysis/lane_manifest.json")
     p_lint.add_argument("--update-manifest", action="store_true",
                         help="re-record analysis/lane_manifest.json from "
@@ -594,8 +597,9 @@ def _parser() -> argparse.ArgumentParser:
                              "lane_manifest.json)")
     p_lint.add_argument("--ranges", action="store_true",
                         help="run the value-range pass (ABS7xx): the "
-                             "interval abstract interpretation of every "
-                             "registered model's tick, gated against "
+                             "interval abstract interpretation of the tick "
+                             "of every registered model x both carry "
+                             "layouts, gated against "
                              "analysis/range_manifest.json")
     p_lint.add_argument("--update-ranges", action="store_true",
                         help="re-record analysis/range_manifest.json from "
@@ -609,8 +613,9 @@ def _parser() -> argparse.ArgumentParser:
                              "the default 2^24, and gate ABS701 on it")
     p_lint.add_argument("--shard", action="store_true",
                         help="run the shard pass (SHD8xx): the collective "
-                             "census of every registered model's sharded "
-                             "chunk vs analysis/shard_manifest.json, the "
+                             "census of the sharded chunk of every "
+                             "registered model x both carry layouts vs "
+                             "analysis/shard_manifest.json, the "
                              "replicated-params and reshard checks")
     p_lint.add_argument("--update-shard-manifest", action="store_true",
                         help="re-record analysis/shard_manifest.json from "
@@ -620,8 +625,10 @@ def _parser() -> argparse.ArgumentParser:
                              "maelstrom_tpu_torch/analysis/"
                              "shard_manifest.json)")
     p_lint.add_argument("--aot", action="store_true",
-                        help="run the aot pass (EXE9xx): the chunk "
-                             "dispatch's certificate vs analysis/"
+                        help="run the aot pass (EXE9xx): the "
+                             "certificates of the chunk dispatch in both "
+                             "carry layouts and of the sharded one vs "
+                             "analysis/"
                              "aot_manifest.json, and every entry of the "
                              "kernel-library store")
     p_lint.add_argument("--update-aot", action="store_true",

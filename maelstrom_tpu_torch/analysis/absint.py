@@ -113,9 +113,9 @@ Where it differs from the JAX pass, and why:
 - **ABS703.** Torch does not clamp: the port reproduces XLA's clamping
   with an explicit ``.clamp``, so the silent hazard is an index whose
   range before that clamp lies outside the axis.
-- **Workers.** The full sweep analyzes the models in spawned worker
-  processes (``POOL_WORKERS``), each shipped the graphs the other
-  passes recorded.
+- **Workers.** The lint analyzes the models in the spawned workers
+  that record their ticks (``runner.STATIC_WORKERS``); the pass is
+  handed their reports and analyzes the rest itself.
 - **The scatter census.** ``netsim_scatters`` counts the scatter
   operators of the deliver and enqueue phases: the port's plain
   delivery has one ``scatter_add_`` (the taken-slot count, integer and
@@ -1928,7 +1928,7 @@ class TickRanges:
         self.n = len(self.paths)
         self.dtypes = [g0.values[v].dtype for v in g0.inputs]
         self.pool_idx = self.paths.index(".pool")
-        self.interps = [_Interp(g, tagger_of(g, self.L), self.L)
+        self.interps = [_Interp(g, tagger_of(g, self.L, sim.layout), self.L)
                         for g in graphs.values()]
         init_i = _Interp(init, None, self.L)
         outs = init_i.run([])
@@ -2058,7 +2058,7 @@ def tick_ranges(model, sim, trace_cache=None) -> TickRanges:
     key = None
     if trace_cache is not None:
         key = cost_model.entry_key(_model_name(model), sim.net.n_nodes,
-                                   "lead") + "::init"
+                                   sim.layout) + "::init"
     init = trace_cache.get(key) if key is not None else None
     if init is None:
         init = cost_model.record_init(model, sim)
@@ -2076,10 +2076,10 @@ def analyze_model(model, node_count: int, layout: str = "lead",
     own); ``trace_cache`` holds one sim's graphs, shared with the other
     passes; ``probe_log2`` raises or lowers the largest horizon probed
     (2^31 plants the synthetic overflow budget every cumulative counter
-    trips)."""
-    label = label or f"{_model_name(model)}/{layout}"
+    trips). A given ``sim`` brings its own layout."""
     if sim is None:
         sim = cost_model.audit_sim(model, node_count, layout)
+    label = label or f"{_model_name(model)}/{sim.layout}"
     tr = tick_ranges(model, sim, trace_cache=trace_cache)
     probe = PROBE_LOG2 if probe_log2 is None else int(probe_log2)
 
@@ -2429,15 +2429,10 @@ def proven_horizon_log2(model_name: str,
 # --- orchestration ---------------------------------------------------------
 
 
-# the pass analyzes the models in this many worker processes when it has
-# at least as many to do (the full sweep: ~2 s a model after its trace);
-# fewer run in the calling process
-POOL_WORKERS = 4
-
-
-def _range_job(spec, n: int, label: str, graphs, probe_log2):
-    """One model's analysis, in the calling process or a worker:
-    ``spec`` is ``("workload", name)`` or ``("fixture", kind)``;
+def range_job(spec, n: int, layout: str, label: str, graphs,
+              probe_log2):
+    """One model's analysis in one layout, in the calling process or a
+    worker: ``spec`` is ``("workload", name)`` or ``("fixture", kind)``;
     ``graphs`` its recorded graphs by ``trace_cache`` key. Returns
     ``(report, None)`` or ``(None, "Error: message")``."""
     try:
@@ -2447,50 +2442,11 @@ def _range_job(spec, n: int, label: str, graphs, probe_log2):
         else:
             from ..models.ir_hazards import RANGE_FIXTURE_MODELS
             model = RANGE_FIXTURE_MODELS[spec[1]]()
-        return analyze_model(model, n, "lead", label=label,
+        return analyze_model(model, n, layout, label=label,
                              trace_cache=graphs,
                              probe_log2=probe_log2), None
     except Exception as e:
         return None, f"{type(e).__name__}: {e}"
-
-
-def _submit_jobs(jobs, trace_cache, probe_log2) -> Callable[[], List[Any]]:
-    """Start the jobs; returns the call that waits for each job's
-    ``_range_job`` result, in order. With enough jobs they run in a pool
-    of spawned workers, each shipped the graphs the caller's cache
-    already holds, while the caller goes on; else here, in that call."""
-    if len(jobs) < POOL_WORKERS:
-        cache = trace_cache if trace_cache is not None else {}
-        return lambda: [_range_job(spec, n, label, cache, probe_log2)
-                        for spec, model, n, label in jobs]
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-    held = trace_cache if trace_cache is not None else {}
-    pool = ProcessPoolExecutor(
-        max_workers=POOL_WORKERS,
-        mp_context=multiprocessing.get_context("spawn"))
-    try:
-        futures = []
-        for spec, model, n, label in jobs:
-            sim = cost_model.audit_sim(model, n)
-            key = cost_model.entry_key(_model_name(model), n, "lead")
-            names = list(cost_model.tick_variants(sim)) + ["init"]
-            graphs = {f"{key}::{v}": held.get(f"{key}::{v}")
-                      for v in names}
-            futures.append(pool.submit(
-                _range_job, spec, n, label,
-                {k: g for k, g in graphs.items() if g is not None},
-                probe_log2))
-    except BaseException:
-        pool.shutdown(cancel_futures=True)
-        raise
-
-    def wait():
-        try:
-            return [f.result() for f in futures]
-        finally:
-            pool.shutdown(cancel_futures=True)
-    return wait
 
 
 def run_range_lint(repo_root: str = ".",
@@ -2500,27 +2456,14 @@ def run_range_lint(repo_root: str = ".",
                    layouts: Sequence[str] = cost_model.AUDIT_LAYOUTS,
                    include_fixtures: bool = True,
                    trace_cache=None,
-                   probe_log2: Optional[int] = None) -> List[Finding]:
+                   probe_log2: Optional[int] = None,
+                   reports: Optional[Dict[str, Tuple[Any, Optional[str]]]]
+                   = None) -> List[Finding]:
     """The ranges pass: analyze every registered model (or a restricted
     list), emit ABS7xx findings, and gate against (or re-record) the
-    manifest."""
-    return start_range_lint(repo_root, manifest_path, update_manifest,
-                            workloads, layouts, include_fixtures,
-                            trace_cache, probe_log2)()
-
-
-def start_range_lint(repo_root: str = ".",
-                     manifest_path: Optional[str] = None,
-                     update_manifest: bool = False,
-                     workloads: Optional[List[Tuple[str, int]]] = None,
-                     layouts: Sequence[str] = cost_model.AUDIT_LAYOUTS,
-                     include_fixtures: bool = True,
-                     trace_cache=None,
-                     probe_log2: Optional[int] = None
-                     ) -> Callable[[], List[Finding]]:
-    """:func:`run_range_lint` in two steps, so that the lint runs another
-    pass while the workers analyze: this starts the analyses and returns
-    the call that waits for them and gates their results."""
+    manifest. ``reports`` holds :func:`range_job` results already in
+    hand by label (the lint's static workers); those are not done
+    again."""
     from ..models import get_model
 
     full = workloads is None
@@ -2530,7 +2473,7 @@ def start_range_lint(repo_root: str = ".",
     paths: Dict[str, Tuple[str, str]] = {}
     errored: Set[str] = set()
 
-    # (spec, model, node count, label) per analysis: the registered
+    # (spec, model, node count, layout, label) per analysis: the registered
     # models, then the fixtures (never gated against the manifest)
     jobs = []
     for wl, n in specs:
@@ -2545,49 +2488,48 @@ def start_range_lint(repo_root: str = ".",
                            for lay in layouts)
             continue
         for layout in layouts:
-            jobs.append((("workload", wl), model, n,
+            jobs.append((("workload", wl), model, n, layout,
                          cost_model.entry_key(wl, n, layout)))
     n_registered = len(jobs)
     if full and include_fixtures:
         from ..models.ir_hazards import RANGE_FIXTURE_MODELS
         for kind, cls in sorted(RANGE_FIXTURE_MODELS.items()):
             for layout in layouts:
-                jobs.append((("fixture", kind), cls(), 2,
+                jobs.append((("fixture", kind), cls(), 2, layout,
                              f"fixture-{kind}/{layout}"))
-    pending = _submit_jobs(jobs, trace_cache, probe_log2)
-
-    def finish() -> List[Finding]:
-        for i, ((spec, model, n, label), (rep, err)) in enumerate(
-                zip(jobs, pending())):
-            if err is not None:
-                findings.append(_finding(
-                    "ABS708", "range-analysis-failure", SEV_ERROR,
-                    _model_path(model), type(model).__name__,
-                    f"[{label}] range analysis raised {err}"))
-                if i < n_registered:
-                    errored.add(label)
-                continue
-            findings.extend(findings_of_report(model, rep))
-            if i < n_registered:
-                live[label] = rep
-                paths[label] = (_model_path(model), type(model).__name__)
-
-        if update_manifest:
-            path = save_range_manifest(
-                {k: r.to_entry() for k, r in live.items()}, manifest_path)
+    cache = trace_cache if trace_cache is not None else {}
+    for i, (spec, model, n, layout, label) in enumerate(jobs):
+        done = (reports or {}).get(label)
+        rep, err = done if done is not None else range_job(
+            spec, n, layout, label, cache, probe_log2)
+        if err is not None:
             findings.append(_finding(
-                "ABS700", "range-manifest-updated", SEV_INFO,
-                os.path.relpath(path, os.path.abspath(repo_root))
-                if os.path.isabs(path) else path, "",
-                f"recorded {len(live)} range-manifest entr"
-                f"{'y' if len(live) == 1 else 'ies'}"))
-        else:
-            manifest = load_range_manifest(manifest_path)
-            findings.extend(compare_manifest(live, manifest, paths,
-                                             full_universe=full,
-                                             errored=errored))
-        return findings
-    return finish
+                "ABS708", "range-analysis-failure", SEV_ERROR,
+                _model_path(model), type(model).__name__,
+                f"[{label}] range analysis raised {err}"))
+            if i < n_registered:
+                errored.add(label)
+            continue
+        findings.extend(findings_of_report(model, rep))
+        if i < n_registered:
+            live[label] = rep
+            paths[label] = (_model_path(model), type(model).__name__)
+
+    if update_manifest:
+        path = save_range_manifest(
+            {k: r.to_entry() for k, r in live.items()}, manifest_path)
+        findings.append(_finding(
+            "ABS700", "range-manifest-updated", SEV_INFO,
+            os.path.relpath(path, os.path.abspath(repo_root))
+            if os.path.isabs(path) else path, "",
+            f"recorded {len(live)} range-manifest entr"
+            f"{'y' if len(live) == 1 else 'ies'}"))
+    else:
+        manifest = load_range_manifest(manifest_path)
+        findings.extend(compare_manifest(live, manifest, paths,
+                                         full_universe=full,
+                                         errored=errored))
+    return findings
 
 
 # --- bench surface -----------------------------------------------------------
@@ -2598,6 +2540,6 @@ def tick_range_stats(model, sim, cache=None) -> Dict[str, int]:
     (bits to int32 max at the production horizon) of this exact
     configuration's tick. 0 = unproven. ``cache`` holds ``sim``'s
     graphs (the ones ``cost_model.tick_cost`` traced)."""
-    rep = analyze_model(model, sim.net.n_nodes, "lead", sim=sim,
+    rep = analyze_model(model, sim.net.n_nodes, sim.layout, sim=sim,
                         trace_cache=cache)
     return {"ovf_margin_bits": rep.ovf_margin_bits}

@@ -8,9 +8,9 @@ an entry whose dispatch no longer is what the source records, or one
 carrying a collective the shard pass never certified. This pass checks
 them without loading a library and without creating a CUDA context:
 
-- For the audit subjects (``echo`` at two nodes, the pipelined chunk
-  dispatch and one shard's chunk on a one-shard mesh, the lead layout:
-  the passes do not audit the batch-minor one yet) it re-records the
+- For the audit subjects (``echo`` at two nodes: the pipelined chunk
+  dispatch in each carry layout, and one shard's chunk on a one-shard
+  mesh in the lead layout) it re-records the
   dispatch on ``meta`` tensors at ``aot_store.AOT_CHUNK_LEN`` ticks and
   derives its certificate (``aot_store.graph_digest``), pinned in the
   checked-in, torch-version-stamped ``analysis/aot_manifest.json``.
@@ -111,19 +111,23 @@ def _finding(rule, name, severity, path, symbol, message) -> Finding:
 
 def audit_subjects() -> List[Dict[str, Any]]:
     """The subject list (nothing recorded yet): per subject the model,
-    sim, label, kind and the (path, symbol) its findings point at."""
+    sim, label, kind and the (path, symbol) its findings point at. The
+    pipelined dispatch is audited in every layout, the sharded one in
+    the lead layout."""
     from ..models import get_model
     wl, n = DONATION_WORKLOAD
     model = get_model(wl, n)
-    sim = cost_model.audit_sim(model, n)
-    return [
-        {"model": model, "sim": sim, "kind": "pipelined",
-         "label": f"{wl}/n={n}/lead/pipelined",
-         "path": _PIPELINE_PATH, "symbol": "issue_chunk"},
-        {"model": model, "sim": sim, "kind": "sharded",
+    subjects = [
+        {"model": model, "sim": cost_model.audit_sim(model, n, layout),
+         "kind": "pipelined", "label": f"{wl}/n={n}/{layout}/pipelined",
+         "path": _PIPELINE_PATH, "symbol": "issue_chunk"}
+        for layout in cost_model.AUDIT_LAYOUTS]
+    subjects.append(
+        {"model": model, "sim": cost_model.audit_sim(model, n, "lead"),
+         "kind": "sharded",
          "label": f"{wl}/n={n}/lead/sharded/s={AOT_MESH_SIZE}",
-         "path": _MESH_PATH, "symbol": "shard_chunk"},
-    ]
+         "path": _MESH_PATH, "symbol": "shard_chunk"})
+    return subjects
 
 
 def _subject_sig(subject: Dict[str, Any]) -> Dict[str, Any]:
@@ -217,7 +221,7 @@ def save_aot_manifest(entries: Dict[str, Dict[str, Any]],
         "_comment": (
             "Certificates of the chunk dispatches for `python -m "
             "maelstrom_tpu_torch lint --aot`. Keys: <workload>/n=<nodes>/"
-            "lead/<pipelined|sharded>[/s=<mesh>]; graph-digest = "
+            "<layout>/<pipelined|sharded>[/s=<mesh>]; graph-digest = "
             "aot_store.graph_digest of the dispatch's aten graph recorded "
             "on meta tensors at chunk-length ticks. A stored entry (or "
             "this manifest) whose certificate no longer matches current "

@@ -20,10 +20,15 @@ Where it differs from the JAX model, and why:
   ``torch.fx``'s ``make_fx`` records the same operators, but its
   per-node bookkeeping made one trace of the lin-kv audit tick take
   10.5 s against 1.5 s for the recorder on a CPU, and the lint traces
-  some thirty models. Functionalization makes every in-place write a
-  pure operator, as every equation of a jaxpr is (the lanes pass needs
-  that): a write through a view (``x[..., VALID] = v``) is recorded as
-  the operator (``copy``, ``mul``, ...) plus the ``select_scatter`` /
+  some thirty models. The recorder memoises a functional pointwise
+  operator's meta output by its arguments' metadata (:func:`_meta_key`):
+  torch's meta versions of those operators are Python references, run
+  once per operator and metadata (the graph is the same,
+  ``tests/test_torch_cost.py``).
+  Functionalization makes every in-place write a pure operator, as
+  every equation of a jaxpr is (the lanes pass needs that): a write
+  through a view (``x[..., VALID] = v``) is recorded as the operator
+  (``copy``, ``mul``, ...) plus the ``select_scatter`` /
   ``slice_scatter`` that puts the result back into its base. On the
   card that write is one launch, so the cost counts leave those
   scatters out (the tick calls none itself): the counts then equal the
@@ -102,12 +107,13 @@ DEFAULT_COST_BASELINE = os.path.join(
 # baseline figures before COST501 fails the gate
 DEFAULT_TOLERANCE = 0.10
 
-# the passes audit the batch-leading layout (not the batch-minor one yet)
-AUDIT_LAYOUTS = ("lead",)
+# the passes audit both carry layouts: batch-leading and batch-minor
+AUDIT_LAYOUTS = ("lead", "minor")
 
 META = torch.device("meta")
 
 X64_DTYPES = ("int64", "uint64", "float64")
+_X64 = frozenset(getattr(torch, name) for name in X64_DTYPES)
 
 # the operators functionalization adds to put an in-place write's result
 # back into its base (the eager tick launches only the write itself)
@@ -251,15 +257,25 @@ def flatten_paths(tree, path: str = "") -> List[Tuple[str, torch.Tensor]]:
         t, f"{path}.{names[i]}" if names else f"{path}[{i}]")]
 
 
+# the site of each function of the port that issued a 64-bit operator
+_SITES: Dict[Any, Tuple[str, str]] = {}
+
+
 def _site() -> Optional[Tuple[str, str]]:
     """The innermost frame of the port (outside this package) on the
     stack: ``(repo-relative path, qualified function name)``."""
     f = sys._getframe(2)
     while f is not None:
-        fn = f.f_code.co_filename
+        code = f.f_code
+        site = _SITES.get(code)
+        if site is not None:
+            return site
+        fn = code.co_filename
         if fn.startswith(_PKG_DIR) and not fn.startswith(_ANALYSIS_DIR):
-            return (os.path.relpath(fn, _REPO_DIR),
-                    getattr(f.f_code, "co_qualname", f.f_code.co_name))
+            site = _SITES[code] = (
+                os.path.relpath(fn, _REPO_DIR),
+                getattr(code, "co_qualname", code.co_name))
+            return site
         f = f.f_back
     return None
 
@@ -463,8 +479,7 @@ class _Recorder:
                 outs.append(vid)
         name = func.overloadpacket.__name__
         site = None
-        if any(_dtype_name(self.g.values[v].dtype) in X64_DTYPES
-               for v in outs):
+        if any(self.g.values[v].dtype in _X64 for v in outs):
             site = _site()
         sym = None
         live = self.ticks.live if self.ticks is not None else None
@@ -517,6 +532,47 @@ def _off_meta_copy(func, args, kwargs) -> bool:
             and isinstance(args[0], torch.Tensor) and args[0].is_meta)
 
 
+# per operator: whether its meta output may be memoised (a functional
+# pointwise operator: a fresh tensor whose shape, strides and dtype
+# follow from its arguments' alone)
+_MEMOISABLE: Dict[Any, bool] = {}
+# the meta versions' outputs, (shape, strides, dtype), by operator and
+# :func:`_meta_key`; emptied when it reaches this many entries
+_META_OUTS: Dict[Any, Tuple] = {}
+META_OUTS_MAX = 1 << 16
+
+
+def _meta_key(func, args, kwargs):
+    """The key of a functional pointwise operator's meta output: the
+    operator, each tensor argument's shape, strides, offset and dtype,
+    and every other argument with its type. None where the output is
+    not memoised (another operator, a tensor off ``meta``, a list, a
+    tuple or an unhashable argument)."""
+    ok = _MEMOISABLE.get(func)
+    if ok is None:
+        ok = _MEMOISABLE[func] = (torch.Tag.pointwise in func.tags
+                                  and not func._schema.is_mutable)
+    if not ok:
+        return None
+    key = [func]
+    for name, a in (*enumerate(args), *kwargs.items()):
+        if isinstance(a, torch.Tensor):
+            if not a.is_meta:
+                return None
+            key.append((name, a.shape, a.stride(), a.storage_offset(),
+                        a.dtype))
+        elif isinstance(a, (list, tuple)):
+            return None
+        else:
+            key.append((name, type(a), a))
+    key = tuple(key)
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
 def _recording(rec: _Recorder, group_size: int = 2):
     """The dispatch mode that feeds ``rec``. A collective (the tick of a
     shard that talks to its peers) is recorded with the shapes of
@@ -533,7 +589,21 @@ def _recording(rec: _Recorder, group_size: int = 2):
             elif _off_meta_copy(func, args, kwargs):
                 out = func(*args, **{**kwargs, "device": META})
             else:
-                out = func(*args, **kwargs)
+                # torch's meta versions of the pointwise operators are
+                # Python references: each is run once per operator and
+                # arguments' metadata
+                key = _meta_key(func, args, kwargs)
+                hit = _META_OUTS.get(key) if key is not None else None
+                if hit is not None:
+                    out = torch.empty_strided(*hit[:2], dtype=hit[2],
+                                              device=META)
+                else:
+                    out = func(*args, **kwargs)
+                    if key is not None and isinstance(out, torch.Tensor):
+                        if len(_META_OUTS) >= META_OUTS_MAX:
+                            _META_OUTS.clear()
+                        _META_OUTS[key] = (out.shape, out.stride(),
+                                           out.dtype)
             # the phase ranges' own profiler ops launch nothing
             if func.namespace != "profiler":
                 rec.add(func, args, kwargs, out)
@@ -678,14 +748,15 @@ def tick_variants(sim) -> Dict[str, int]:
 def trace_tick(model, sim, t: int = 0, cache=None,
                variant: Optional[str] = None) -> TickGraph:
     """The recorded tick at ``t`` (:func:`record_tick`). ``cache`` (a
-    mutable mapping) holds one graph per model and variant, keyed by
-    :func:`entry_key` and ``variant``, so that ``lint --ir --cost
-    --lanes`` traces each model once per variant. The key does not
-    capture the sim config: a cache holds one sim's graphs per model
-    (the lint passes' :func:`audit_sim` sims, or a caller's own)."""
+    mutable mapping) holds one graph per model, layout and variant,
+    keyed by :func:`entry_key` and ``variant``, so that ``lint --ir
+    --cost --lanes`` traces each model once per layout and variant. The
+    key does not capture the rest of the sim config: a cache holds one
+    sim's graphs per model and layout (the lint passes' :func:`audit_sim`
+    sims, or a caller's own)."""
     key = None
     if cache is not None:
-        key = (entry_key(_model_name(model), sim.net.n_nodes, "lead")
+        key = (entry_key(_model_name(model), sim.net.n_nodes, sim.layout)
                + f"::{variant or t}")
         hit = cache.get(key)
         if hit is not None:
@@ -862,8 +933,8 @@ def tick_lane_stats(model, sim, cost: Optional[CostReport] = None,
 
 def cost_specs() -> List[Tuple[str, int]]:
     """Every registered model: the contract audit's workload table plus
-    the registered mutants (the universe CON2xx audits), in the lead
-    layout (the passes do not audit the batch-minor one yet)."""
+    the registered mutants (the universe CON2xx audits); the passes
+    audit each in every layout of :data:`AUDIT_LAYOUTS`."""
     from .contract_audit import AUDIT_WORKLOADS, _buggy_workloads
     return list(AUDIT_WORKLOADS) + _buggy_workloads()
 

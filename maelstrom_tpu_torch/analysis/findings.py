@@ -154,6 +154,9 @@ class LintReport:
     stale: List[BaselineEntry] = field(default_factory=list)
     files_scanned: int = 0
     passes_run: Tuple[str, ...] = ()
+    # what the lint's static workers held (``runner.merge_states``), None
+    # where none ran: the no-device gate covers them too
+    static_workers: Optional[dict] = None
 
     def errors(self) -> List[Finding]:
         return [f for f in self.findings if f.severity == SEV_ERROR]
@@ -171,6 +174,7 @@ class LintReport:
                  "baseline-reason": e.reason}
                 for f, e in self.suppressed],
             "stale-baseline-entries": [asdict(e) for e in self.stale],
+            "static-workers": self.static_workers,
             "summary": {
                 "errors": len(self.errors()),
                 "warnings": len(self.warnings()),

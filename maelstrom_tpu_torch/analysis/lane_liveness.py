@@ -849,33 +849,42 @@ def _field(path: str) -> str:
     return path.split(".")[1].split("[")[0] if "." in path else path
 
 
-def _new_tagger(g: TickGraph, n_lanes: int) -> _Analyzer:
-    pool_i = g.input_paths.index(".pool")
-    pool = g.inputs[pool_i]
-    if g.values[pool].shape[-1] != n_lanes:
-        raise ValueError(f"pool leaf {g.values[pool].shape} does not "
-                         f"carry {n_lanes} lanes on its last axis")
-    ana = _Analyzer(g, n_lanes, {pool: len(g.values[pool].shape) - 1})
+def _pool_lane_axis(layout: str, pool_shape: Tuple[int, ...],
+                    n_lanes: int) -> int:
+    """The pool leaf's lane axis: the last of the lead pool ``[I, S,
+    L]``, axis 1 of the minor pool ``[S, L, I]``."""
+    axis = 1 if layout == "minor" else len(pool_shape) - 1
+    if pool_shape[axis] != n_lanes:
+        raise ValueError(
+            f"pool leaf {pool_shape} does not carry {n_lanes} lanes at "
+            f"axis {axis} (layout={layout!r})")
+    return axis
+
+
+def _new_tagger(g: TickGraph, n_lanes: int, layout: str) -> _Analyzer:
+    pool = g.inputs[g.input_paths.index(".pool")]
+    axis = _pool_lane_axis(layout, tuple(g.values[pool].shape), n_lanes)
+    ana = _Analyzer(g, n_lanes, {pool: axis})
     ana.fold_consts()
     ana.infer_tags()
     return ana
 
 
-def tagger_of(g: TickGraph, n_lanes: int) -> _Analyzer:
+def tagger_of(g: TickGraph, n_lanes: int, layout: str) -> _Analyzer:
     """The graph's folded constants and lane tags (the first two
-    fixpoints), computed once per graph: the ranges pass reads them
-    too."""
+    fixpoints), computed once per graph (a graph is of one layout): the
+    ranges pass reads them too."""
     cached = getattr(g, "_tagger", None)
     if cached is None or cached.L != n_lanes:
-        cached = _new_tagger(g, n_lanes)
+        cached = _new_tagger(g, n_lanes, layout)
         g._tagger = cached
     return cached
 
 
-def analyze_graph(g: TickGraph, n_lanes: int) -> _Analyzer:
+def analyze_graph(g: TickGraph, n_lanes: int, layout: str) -> _Analyzer:
     """Run the three fixpoints over one functional tick graph (the first
     two on a fresh tagger: the demand fixpoint writes to it)."""
-    ana = _new_tagger(g, n_lanes)
+    ana = _new_tagger(g, n_lanes, layout)
     n_carry = len(g.inputs)
     out_demands: List[Any] = [None] * len(g.outputs)
     for i, p in enumerate(g.output_paths):
@@ -897,14 +906,16 @@ def analyze_model(model, node_count: int, layout: str = "lead",
     ``trace_cache`` holds the graphs of one sim (the audit sims' in the
     lint, the bench's own in the bench); ``cost`` (the same graphs'
     ``cost_model.cost_of_variants``) skips the duplicate walk for the
-    byte figures."""
-    label = label or f"{getattr(model, 'name', type(model).__name__)}" \
-                     f"/{layout}"
+    byte figures. A given ``sim`` brings its own layout."""
     if sim is None:
         sim = cost_model.audit_sim(model, node_count, layout)
+    layout = sim.layout
+    label = label or f"{getattr(model, 'name', type(model).__name__)}" \
+                     f"/{layout}"
     n_lanes = sim.net.lanes
     graphs = cost_model.trace_variants(model, sim, cache=trace_cache)
-    anas = {name: analyze_graph(g, n_lanes) for name, g in graphs.items()}
+    anas = {name: analyze_graph(g, n_lanes, layout)
+            for name, g in graphs.items()}
     live: Set[int] = set()
     conservative = False
     notes: List[str] = []
@@ -1189,10 +1200,13 @@ def run_lane_lint(repo_root: str = ".",
                   workloads: Optional[List[Tuple[str, int]]] = None,
                   layouts: Sequence[str] = cost_model.AUDIT_LAYOUTS,
                   include_fixtures: bool = True,
-                  trace_cache=None) -> List[Finding]:
+                  trace_cache=None,
+                  reports: Optional[Dict[str, LaneReport]] = None
+                  ) -> List[Finding]:
     """The lanes pass: analyze every registered model (or a restricted
     list), emit LNE6xx findings, and gate against (or re-record) the
-    manifest."""
+    manifest. ``reports`` holds analyses already in hand by entry key
+    (the lint's static workers); those are not done again."""
     from ..models import get_model
 
     full = workloads is None
@@ -1215,10 +1229,13 @@ def run_lane_lint(repo_root: str = ".",
             continue
         for layout in layouts:
             key = cost_model.entry_key(wl, n, layout)
+            rep = (reports or {}).get(key)
             try:
-                rep = analyze_model(
-                    model, n, layout, label=key, trace_cache=trace_cache,
-                    cost=(trace_cache or {}).get(key + "::cost"))
+                if rep is None:
+                    rep = analyze_model(
+                        model, n, layout, label=key,
+                        trace_cache=trace_cache,
+                        cost=(trace_cache or {}).get(key + "::cost"))
             except Exception as e:
                 findings.append(_finding(
                     "LNE609", "lane-analysis-failure", SEV_ERROR,
@@ -1275,7 +1292,7 @@ def lane_stats(model, sim, cost=None, cache=None) -> Dict[str, int]:
     live lane count, dead lane count, and the dead-byte estimate next
     to ``ir_bytes_est``. ``cache`` holds ``sim``'s graphs (the ones
     ``cost_model.tick_cost`` traced for ``cost``)."""
-    rep = analyze_model(model, sim.net.n_nodes, "lead", sim=sim,
+    rep = analyze_model(model, sim.net.n_nodes, sim.layout, sim=sim,
                         trace_cache=cache, cost=cost)
     return {"lanes_live": len(rep.live_lanes),
             "lanes_dead": rep.lanes - len(rep.live_lanes),

@@ -8,8 +8,8 @@ per-instance table smuggled into the params every shard holds whole,
 a wire-carry leaf without a reshard kind. This pass finds them without
 a device:
 
-- For every registered model (lead layout; the passes do not audit the
-  batch-minor one yet) it takes a **collective census** of the recorded graphs
+- For every registered model in both carry layouts it takes a
+  **collective census** of the recorded graphs
   (``cost_model.record_tick`` / ``record_call`` on ``meta`` tensors):
   *tick* holds each ``torch.distributed`` operator (the functional
   collectives ``_c10d_functional.*`` and the ``c10d.*`` ops behind the
@@ -509,7 +509,7 @@ def save_shard_manifest(entries: Dict[str, Dict[str, Any]],
         "_comment": (
             "Per-model collective census and ICI estimate for `python -m "
             "maelstrom_tpu_torch lint --shard`. Keys: <workload>/"
-            "n=<nodes>/lead/s=<mesh size> (plus run:* for the single-"
+            "n=<nodes>/<layout>/s=<mesh size> (plus run:* for the single-"
             "dispatch runner); tick-collectives = collectives in a "
             "shard's recorded tick (the heaviest tick variant), "
             "dispatch-collectives = the executor's cross-shard reductions "
@@ -604,12 +604,13 @@ def run_shard_lint(repo_root: str = ".",
                    include_fixtures: bool = True,
                    trace_cache=None) -> List[Finding]:
     """The shard pass: census and SHD8xx audit of every registered model
-    (or a restricted list), the runner subject, the manifest gate, the
-    fixture sweep and the reshardability proof."""
+    x layout (or a restricted list), the runner subject, the manifest
+    gate, the fixture sweep and the reshardability proof."""
     from ..models import get_model
 
     full = workloads is None
     specs = cost_model.cost_specs() if full else list(workloads)
+    layouts = cost_model.AUDIT_LAYOUTS
     findings: List[Finding] = []
     live: Dict[str, Dict[str, Any]] = {}
     paths: Dict[str, Tuple[str, str]] = {}
@@ -617,7 +618,6 @@ def run_shard_lint(repo_root: str = ".",
     cache = trace_cache if trace_cache is not None else {}
 
     for wl, n in specs:
-        label = cost_model.entry_key(wl, n, "lead")
         try:
             model = get_model(wl, n, "grid")
         except Exception as e:
@@ -625,30 +625,33 @@ def run_shard_lint(repo_root: str = ".",
                 "SHD800", "shard-audit-failure", SEV_ERROR,
                 "maelstrom_tpu_torch/models/__init__.py", "get_model",
                 f"get_model({wl!r}, {n}) raised: {e!r}"))
-            errored.update(size_key(wl, n, "lead", s) for s in mesh_sizes)
+            errored.update(size_key(wl, n, lay, s)
+                           for lay in layouts for s in mesh_sizes)
             continue
-        sim = cost_model.audit_sim(model, n)
-        census = cache.get("shard:" + label)
-        if census is None:
-            try:
-                census = chunk_census(model, sim, cache=cache)
-            except Exception as e:
-                findings.append(_finding(
-                    "SHD800", "shard-audit-failure", SEV_ERROR,
-                    _model_path(model), type(model).__name__,
-                    f"[{label}] recording the sharded chunk raised "
-                    f"{type(e).__name__}: {e}"))
-                errored.update(size_key(wl, n, "lead", s)
-                               for s in mesh_sizes)
-                continue
-            cache["shard:" + label] = census
-        findings.extend(hot_loop_findings(model, census, label, wl))
-        findings.extend(replicated_leaf_findings(model, sim, label))
-        findings.extend(reshard_findings(model, sim, label))
-        for s in mesh_sizes:
-            key = size_key(wl, n, "lead", s)
-            live[key] = entry_of_census(census, s)
-            paths[key] = (_model_path(model), type(model).__name__)
+        for layout in layouts:
+            label = cost_model.entry_key(wl, n, layout)
+            sim = cost_model.audit_sim(model, n, layout)
+            census = cache.get("shard:" + label)
+            if census is None:
+                try:
+                    census = chunk_census(model, sim, cache=cache)
+                except Exception as e:
+                    findings.append(_finding(
+                        "SHD800", "shard-audit-failure", SEV_ERROR,
+                        _model_path(model), type(model).__name__,
+                        f"[{label}] recording the sharded chunk raised "
+                        f"{type(e).__name__}: {e}"))
+                    errored.update(size_key(wl, n, layout, s)
+                                   for s in mesh_sizes)
+                    continue
+                cache["shard:" + label] = census
+            findings.extend(hot_loop_findings(model, census, label, wl))
+            findings.extend(replicated_leaf_findings(model, sim, label))
+            findings.extend(reshard_findings(model, sim, label))
+            for s in mesh_sizes:
+                key = size_key(wl, n, layout, s)
+                live[key] = entry_of_census(census, s)
+                paths[key] = (_model_path(model), type(model).__name__)
 
     if full:
         # the single-dispatch runner: its dispatch census pins the
@@ -657,7 +660,7 @@ def run_shard_lint(repo_root: str = ".",
         wl, n = DONATION_WORKLOAD
         try:
             model = get_model(wl, n, "grid")
-            sim = cost_model.audit_sim(model, n)
+            sim = cost_model.audit_sim(model, n, "lead")
             run_census = trace_sharded_run(model, sim, cache=cache)
             findings.extend(hot_loop_findings(
                 model, run_census, f"run:{wl}/n={n}/lead", wl))
@@ -678,19 +681,22 @@ def run_shard_lint(repo_root: str = ".",
         from ..models.ir_hazards import SHARD_FIXTURE_MODELS
         for kind, cls in sorted(SHARD_FIXTURE_MODELS.items()):
             model = cls()
-            label = f"fixture-{kind}/lead"
-            try:
-                sim = cost_model.audit_sim(model, 2)
-                census = chunk_census(model, sim, cache=cache)
-            except Exception as e:
-                findings.append(_finding(
-                    "SHD800", "shard-audit-failure", SEV_ERROR,
-                    _model_path(model), type(model).__name__,
-                    f"[{label}] recording the fixture's sharded chunk "
-                    f"raised {type(e).__name__}: {e}"))
-                continue
-            findings.extend(hot_loop_findings(model, census, label, kind))
-            findings.extend(replicated_leaf_findings(model, sim, label))
+            for layout in layouts:
+                label = f"fixture-{kind}/{layout}"
+                try:
+                    sim = cost_model.audit_sim(model, 2, layout)
+                    census = chunk_census(model, sim, cache=cache)
+                except Exception as e:
+                    findings.append(_finding(
+                        "SHD800", "shard-audit-failure", SEV_ERROR,
+                        _model_path(model), type(model).__name__,
+                        f"[{label}] recording the fixture's sharded "
+                        f"chunk raised {type(e).__name__}: {e}"))
+                    continue
+                findings.extend(hot_loop_findings(model, census, label,
+                                                  kind))
+                findings.extend(replicated_leaf_findings(model, sim,
+                                                         label))
 
     if update_manifest:
         path = save_shard_manifest(live, manifest_path)
@@ -721,7 +727,7 @@ def shard_stats(model, sim, mesh_size: int = 8,
     config's)."""
     key = "shard-sim:" + cost_model.entry_key(
         getattr(model, "name", type(model).__name__), sim.net.n_nodes,
-        "lead")
+        sim.layout)
     census = cache.get(key) if cache is not None else None
     if census is None:
         census = chunk_census(model, sim, cache=cache)

@@ -195,11 +195,10 @@ def static_fields(model, sim) -> dict:
     unless ``BENCH_LANES=0`` the lane pass's (``lanes_live``,
     ``lanes_dead``, ``lanes_dead_bytes``), unless ``BENCH_RANGES=0`` the
     ranges pass's ``ovf_margin_bits`` and unless ``BENCH_SHARD=0`` the
-    shard pass's ``collectives_per_tick`` and ``ici_bytes_est``. The
-    lane and ranges passes read the lead layout only, so a minor ``sim``
-    hands them its lead twin: which lanes are live and what values a
-    leaf takes do not depend on the layout. A failure logs and leaves
-    its fields ``None``: it never stops the bench."""
+    shard pass's ``collectives_per_tick`` and ``ici_bytes_est``. Every
+    pass reads ``sim``'s own tick, in its own layout, traced once into
+    one cache. A failure logs and leaves its fields ``None``: it never
+    stops the bench."""
     from .analysis import cost_model
     out = dict(ir_eqns=None, ir_bytes_est=None, lanes_live=None,
                lanes_dead=None, lanes_dead_bytes=None,
@@ -216,13 +215,10 @@ def static_fields(model, sim) -> dict:
             f"per tick, traced in {time.monotonic() - t0:.1f} s")
     except Exception as e:
         log(f"tick_cost unavailable: {e!r}")
-    lead, lead_cache = sim, cache
-    if sim.layout != "lead":
-        lead, lead_cache, cost = sim._replace(layout="lead"), {}, None
     if _on("BENCH_LANES"):
         try:
-            out.update(cost_model.tick_lane_stats(model, lead, cost=cost,
-                                                  cache=lead_cache))
+            out.update(cost_model.tick_lane_stats(model, sim, cost=cost,
+                                                  cache=cache))
             log(f"lane liveness: {out['lanes_live']} live / "
                 f"{out['lanes_dead']} dead lanes, "
                 f"~{out['lanes_dead_bytes'] / 1e3:.0f} kB/tick dead")
@@ -231,8 +227,8 @@ def static_fields(model, sim) -> dict:
     if _on("BENCH_RANGES"):
         t0 = time.monotonic()
         try:
-            out.update(cost_model.tick_range_stats(model, lead,
-                                                   cache=lead_cache))
+            out.update(cost_model.tick_range_stats(model, sim,
+                                                   cache=cache))
             log(f"value ranges: {out['ovf_margin_bits']} bit(s) of proven "
                 f"counter headroom at the production horizon "
                 f"({time.monotonic() - t0:.1f} s)")

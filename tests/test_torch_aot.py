@@ -383,7 +383,7 @@ def fresh_store(tmp_path_factory):
                             trace_cache=TRACE_CACHE)
     assert [f.rule for f in findings] == ["EXE900"]
     entries = dict(AotStore(store).entries())
-    assert len(entries) == 2
+    assert len(entries) == 3
     _plant(store, next(k for k, m in entries.items()
                        if m["kind"] == "pipelined"))
     return store, manifest
@@ -573,7 +573,32 @@ def test_checked_in_manifest_matches_current_source():
                         trace_cache=TRACE_CACHE) == []
     data = load_aot_manifest()
     assert set(data["entries"]) == {"echo/n=2/lead/pipelined",
+                                    "echo/n=2/minor/pipelined",
                                     "echo/n=2/lead/sharded/s=1"}
+
+
+def test_minor_subject_is_certified_under_its_own_entry():
+    """The pipelined dispatch of the minor carry is a subject of its own,
+    as in JAX's audit: a minor sim, the entry label a minor run's store
+    entry carries, and a certificate and configuration of its own,
+    pinned in the checked-in manifest."""
+    subjects = {s["label"]: s for s in aot_audit.audit_subjects()}
+    assert sorted(subjects) == sorted(s["label"]
+                                      for s in jaudit.audit_subjects())
+    label = "echo/n=2/minor/pipelined"
+    minor = subjects[label]
+    assert minor["kind"] == "pipelined" and minor["sim"].layout == "minor"
+    assert aot_store.entry_label(minor["model"], minor["sim"],
+                                 "pipelined") == label
+    live, _, failures = aot_audit.live_entries(list(subjects.values()),
+                                               trace_cache=TRACE_CACHE)
+    assert failures == []
+    lead = live["echo/n=2/lead/pipelined"]
+    assert live[label]["graph-digest"] != lead["graph-digest"]
+    assert live[label]["config-digest"] != lead["config-digest"]
+    entry = load_aot_manifest()["entries"][label]
+    assert entry == {k: live[label][k] for k in entry}
+    assert entry["graph-digest"] == live[label]["graph-digest"]
 
 
 # --- the gates in triage and campaign resume ------------------------------------

@@ -8,9 +8,12 @@ the JAX package's.
   it), COST502, COST503 (only on the full universe), COST504 and
   COST505; the baseline io round-trips, and ``lint --cost
   --update-baseline`` re-records a file the gate then passes.
-- **Phase coverage.** For every registered model the phases with
-  operators (over the tick variants) are the JAX scopes
-  (``KNOWN_SCOPES``) with equations in its jaxpr of the same model.
+- **Phase coverage.** For every registered model in both carry layouts
+  the phases with operators (over the tick variants) are the JAX scopes
+  (``KNOWN_SCOPES``) with equations in its jaxpr of the same model and
+  layout.
+- **The trace cache.** One cache holds a lead and a minor sim's graphs
+  apart: the minor tick's cost from it is a fresh cache's.
 - **Consistency with the profiler.** The cost pass's per-phase
   operator counts at tick 0 equal ``telemetry/profiler.
   phase_op_counts``, an independent count of the operators the eager
@@ -19,7 +22,8 @@ the JAX package's.
   ticks are traced apart; the partition tick counts more operators
   than the heal tick; a scripted schedule gives one variant per phase.
 - **The consumers.** The bench line's static fields on a small sim,
-  ``BENCH_LANES=0`` and a failing trace; ``profile_tick.static_ops``.
+  ``BENCH_LANES=0`` and a failing trace, and on a minor sim its own
+  tick's lanes and ranges; ``profile_tick.static_ops``.
 
 Sizes: the lint's audit config (four instances a model). Exact counts.
 """
@@ -42,6 +46,11 @@ from torch_static_cases import static_traces  # noqa: F401 (fixture)
 from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SPECS = cost_model.cost_specs()
+# every registered model x layout: the lead cases keep their ids
+LAYOUT_SPECS = [(wl, n, lay) for lay in cost_model.AUDIT_LAYOUTS
+                for wl, n in SPECS]
+LAYOUT_IDS = [f"{wl}-{n}" + ("" if lay == "lead" else f"-{lay}")
+              for wl, n, lay in LAYOUT_SPECS]
 
 
 @pytest.fixture(scope="module")
@@ -52,9 +61,9 @@ def traces(static_traces):
     return static_traces
 
 
-def _report(traces, wl, n):
+def _report(traces, wl, n, layout="lead"):
     model = get_model(wl, n, "grid")
-    sim = cost_model.audit_sim(model, n)
+    sim = cost_model.audit_sim(model, n, layout)
     return model, sim, cost_model.cost_of_variants(
         cost_model.trace_variants(model, sim, cache=traces))
 
@@ -165,7 +174,8 @@ def test_update_baseline_roundtrips_through_the_cli(tmp_path, monkeypatch,
     out = json.loads(capsys.readouterr().out)
     assert [f["rule"] for f in out["findings"]] == ["COST500"]
     assert sorted(cost_model.load_cost_baseline(path)["entries"]) == \
-        ["echo/n=2/lead", "unique-ids/n=3/lead"]
+        ["echo/n=2/lead", "echo/n=2/minor", "unique-ids/n=3/lead",
+         "unique-ids/n=3/minor"]
     assert cli(["lint", "--json", "--strict", "--cost", "--cost-baseline",
                 path]) == 0
     out = json.loads(capsys.readouterr().out)
@@ -175,7 +185,7 @@ def test_update_baseline_roundtrips_through_the_cli(tmp_path, monkeypatch,
 def test_checked_in_baseline_covers_the_registry():
     entries = cost_model.load_cost_baseline()["entries"]
     assert sorted(entries) == sorted(
-        cost_model.entry_key(wl, n, "lead") for wl, n in SPECS)
+        cost_model.entry_key(wl, n, lay) for wl, n, lay in LAYOUT_SPECS)
     for e in entries.values():
         assert e["fusion-breakers"] == 0 and e["eqns"] > 0
         assert e["eqns"] == max(e["variants"].values())
@@ -184,12 +194,11 @@ def test_checked_in_baseline_covers_the_registry():
 # --- phase coverage and the profiler ------------------------------------------
 
 
-@pytest.mark.parametrize("wl,n", SPECS,
-                         ids=[f"{wl}-{n}" for wl, n in SPECS])
-def test_phase_coverage_matches_jax_scopes(traces, wl, n):
-    _, _, rep = _report(traces, wl, n)
+@pytest.mark.parametrize("wl,n,layout", LAYOUT_SPECS, ids=LAYOUT_IDS)
+def test_phase_coverage_matches_jax_scopes(traces, wl, n, layout):
+    _, _, rep = _report(traces, wl, n, layout)
     jm = jget_model(wl, n, "grid")
-    jrep = jcost.tick_cost(jm, jcost.audit_sim(jm, n, "lead"))
+    jrep = jcost.tick_cost(jm, jcost.audit_sim(jm, n, layout))
     mine = {s for s, c in rep.scopes.items()
             if s in cost_model.KNOWN_SCOPES and c}
     theirs = {s for s, c in jrep.scopes.items()
@@ -197,6 +206,21 @@ def test_phase_coverage_matches_jax_scopes(traces, wl, n):
     assert mine == theirs
     assert rep.loops == 0 and rep.unknown_scopes == ()
     assert rep.eqns == sum(rep.phases.values())
+
+
+def test_trace_cache_keeps_the_layouts_apart(traces):
+    """A cache shared across layouts, as the lint's is: lin-kv's minor
+    tick read from it costs what a fresh cache's does, and not what the
+    lead tick costs."""
+    model = get_model("lin-kv", 5, "grid")
+    lead, minor = (cost_model.audit_sim(model, 5, lay)
+                   for lay in ("lead", "minor"))
+    lead_cost = cost_model.tick_cost(model, lead, cache=traces)
+    shared = cost_model.tick_cost(model, minor, cache=traces)
+    fresh = cost_model.tick_cost(model, minor, cache={})
+    assert shared.to_entry() == fresh.to_entry()
+    assert shared.to_entry() != lead_cost.to_entry()
+    assert shared.eqns != lead_cost.eqns
 
 
 # the profiler check on one model of each family (the phase check above
@@ -266,10 +290,10 @@ def test_scripted_schedule_gives_one_variant_per_phase():
 # --- the consumers ------------------------------------------------------------
 
 
-def _small_bench_sim():
+def _small_bench_sim(layout="lead"):
     from maelstrom_tpu_torch import fleets
     model, opts = fleets.fleet("lin-kv")
-    opts.update(n_instances=8, time_limit=1.0)
+    opts.update(n_instances=8, time_limit=1.0, layout=layout)
     return model, harness.make_sim_config(model, opts)
 
 
@@ -293,6 +317,38 @@ def test_bench_static_fields(monkeypatch):
     assert bench.static_fields(model, sim)["ir_eqns"] is None
 
 
+def test_bench_static_fields_of_a_minor_sim(monkeypatch):
+    """A minor sim's lanes and ranges fields are those of its own tick,
+    and no lead graph is recorded for them. The passes' own run below
+    reads the graphs the bench recorded (one recording per variant)."""
+    from maelstrom_tpu_torch import bench
+    from maelstrom_tpu_torch.analysis import absint, lane_liveness
+    model, sim = _small_bench_sim("minor")
+    recorded, graphs = [], {}
+    record_tick = cost_model.record_tick
+
+    def spy(model, sim, t):
+        recorded.append(sim.layout)
+        if t not in graphs:
+            graphs[t] = record_tick(model, sim, t)
+        return graphs[t]
+    monkeypatch.setattr(cost_model, "record_tick", spy)
+    f = bench.static_fields(model, sim)
+    assert recorded and set(recorded) == {"minor"}
+    n = sim.net.n_nodes
+    cache: dict = {}
+    lanes = lane_liveness.analyze_model(model, n, "minor", sim=sim,
+                                        trace_cache=cache)
+    ranges = absint.analyze_model(model, n, "minor", sim=sim,
+                                  trace_cache=cache)
+    assert f["lanes_live"] == len(lanes.live_lanes)
+    assert f["lanes_dead"] == lanes.lanes - len(lanes.live_lanes)
+    assert f["lanes_dead_bytes"] == lanes.dead_bytes_est
+    assert f["ovf_margin_bits"] == ranges.ovf_margin_bits
+    assert None not in (f["lanes_live"], f["ovf_margin_bits"])
+    assert set(recorded) == {"minor"}
+
+
 def test_profile_tick_static_ops():
     from maelstrom_tpu_torch import profile_tick
     model, sim = _small_bench_sim()
@@ -302,6 +358,56 @@ def test_profile_tick_static_ops():
     assert sum(st["phases"].values()) == st["ops_per_tick"]
     assert st["ops_per_tick"] == cost_model.tick_cost(
         model, sim).variants["partition"]
+
+
+def _check_meta_memo(wl, n, layout, monkeypatch):
+    """Record the model's tick at t=0 twice with an empty memo, the
+    second time computing each memoised output's meta version beside it;
+    then without the memo. Returns how many memoised outputs were
+    checked."""
+    model = get_model(wl, n, "grid")
+    sim = cost_model.audit_sim(model, n, layout)
+    monkeypatch.setattr(cost_model, "_META_OUTS", {})
+    cost_model.record_tick(model, sim, 0)
+    real = cost_model._meta_key
+    checked = []
+
+    def checking(func, args, kwargs):
+        key = real(func, args, kwargs)
+        hit = cost_model._META_OUTS.get(key) if key is not None else None
+        if hit is not None:
+            ref = func(*args, **kwargs)
+            assert hit == (ref.shape, ref.stride(), ref.dtype), func
+            checked.append(func)
+        return key
+    monkeypatch.setattr(cost_model, "_meta_key", checking)
+    g = cost_model.record_tick(model, sim, 0)
+    monkeypatch.setattr(cost_model, "_meta_key",
+                        lambda func, args, kwargs: None)
+    plain = cost_model.record_tick(model, sim, 0)
+    assert [n.name for n in g.nodes] == [n.name for n in plain.nodes]
+    assert [(v.shape, v.dtype) for v in g.values] == \
+        [(v.shape, v.dtype) for v in plain.values]
+    return len(checked)
+
+
+@pytest.mark.parametrize("layout", cost_model.AUDIT_LAYOUTS)
+def test_memoised_meta_outputs_equal_the_meta_versions(layout, monkeypatch):
+    """The recorder memoises a pointwise operator's meta output: in
+    lin-kv's tick every memoised output has the meta version's shape,
+    strides and dtype, and the graph is the one recorded without the
+    memo."""
+    assert _check_meta_memo("lin-kv", 5, layout, monkeypatch) > 1000
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("wl,n,layout", [
+    (wl, n, lay) for wl, n in cost_model.cost_specs()
+    for lay in cost_model.AUDIT_LAYOUTS if (wl, n) != ("lin-kv", 5)],
+    ids=str)
+def test_memoised_meta_outputs_of_every_model(wl, n, layout, monkeypatch):
+    """As above for every other registered model x layout."""
+    assert _check_meta_memo(wl, n, layout, monkeypatch) > 0
 
 
 def test_recording_touches_no_device():

@@ -6,16 +6,18 @@ gate.
   (a child process, started before the first test of the file) exits 0:
   no error and no warning outside the baseline, every accepted JXP401
   entry with its reason, no ir/cost/lanes baseline entry left unmatched
-  (stale), and the child imported no ``jax`` and no module of the JAX
-  package, and initialised no CUDA.
+  (stale), and neither the child nor any of the static workers that
+  recorded the ticks for it imported ``jax`` or a module of the JAX
+  package, loaded a kernel library or initialised CUDA.
 - **Fixtures.** Each of the four IR fixtures of ``models/ir_hazards.py``
   trips its rule, as ``tests/test_analysis_ir.py:52-147`` asserts for
   JAX's: JXP401 on the float32 carry leaf, JXP402 on the host read (and
   the trace pass's TRC104 cannot see it), JXP404 on the 2 MiB broadcast,
   JXP405 on the 128 KiB constant; their findings are ``expected``
   baseline entries; none is registered.
-- **Registered models** trip only the accepted JXP401 sites (echo and
-  lin-kv here; the gate run covers every model).
+- **Registered models** trip only the accepted JXP401 sites, in both
+  carry layouts (echo and lin-kv here; the gate run covers every model
+  x layout).
 - **The parts with no counterpart.** No JXP403 (the port donates and
   compiles nothing); no loop in an eager tick.
 
@@ -31,7 +33,7 @@ import pytest
 
 from conftest import REPO
 
-from maelstrom_tpu_torch.analysis import cost_model, ir_lint
+from maelstrom_tpu_torch.analysis import cost_model, ir_lint, runner
 from maelstrom_tpu_torch.analysis.findings import Baseline
 from maelstrom_tpu_torch.analysis.findings import fingerprint_pass
 from maelstrom_tpu_torch.models import get_model
@@ -167,9 +169,13 @@ def test_fixture_findings_are_expected_not_silent():
                 f.fingerprint
 
 
-@pytest.mark.parametrize("wl,n", [("echo", 2), ("lin-kv", 5)])
-def test_registered_models_trip_only_accepted_sites(wl, n, static_traces):
-    fs, report = ir_lint.audit_model_ir(get_model(wl, n), n, "lead",
+@pytest.mark.parametrize(
+    "wl,n,layout", [("echo", 2, "lead"), ("lin-kv", 5, "lead"),
+                    ("echo", 2, "minor"), ("lin-kv", 5, "minor")],
+    ids=["echo-2", "lin-kv-5", "echo-2-minor", "lin-kv-5-minor"])
+def test_registered_models_trip_only_accepted_sites(wl, n, layout,
+                                                    static_traces):
+    fs, report = ir_lint.audit_model_ir(get_model(wl, n), n, layout,
                                         trace_cache=static_traces)
     assert fs and all(f.rule == "JXP401" and _accepted(f) for f in fs), \
         [f.to_dict() for f in fs if not _accepted(f)]
@@ -210,3 +216,13 @@ def test_gate_is_clean_on_the_tree(gate_run):
     loaded = json.loads(r["err"].strip().splitlines()[-1])
     assert loaded == {"jax": False, "jax-package": [],
                       "cuda-initialized": False}
+    # the static workers recorded every model x layout's tick: each job
+    # reported, and none of them held what the lint's process may not
+    workers = rep["static-workers"]
+    assert workers["jobs"] == 2 * len(cost_model.cost_specs()), workers
+    assert workers["lost-jobs"] == 0 and 1 <= workers["processes"] <= \
+        runner.STATIC_WORKERS, workers
+    assert not workers["cuda-initialized"] and not workers[
+        "kernel-libraries"] and not workers["jax-modules"], workers
+    assert not any("maelstrom_tpu_torch" in f
+                   for f in workers["triton-importers"]), workers

@@ -2,10 +2,10 @@
 lane_liveness.py``) against the live JAX analyzer
 (``maelstrom_tpu/analysis/lane_liveness.py``).
 
-- **Parity.** For every registered model (``cost_specs()``, the lead
-  layout, the same audit options) the port's live header lanes, live
-  and dead body lanes, dead carry leaves, dead stores and resolution
-  equal JAX's ``analyze_model(model, n, "lead")``.
+- **Parity.** For every registered model (``cost_specs()``) in both
+  carry layouts, with the same audit options, the port's live header
+  lanes, live and dead body lanes, dead carry leaves, dead stores and
+  resolution equal JAX's ``analyze_model(model, n, layout)``.
 - **Fixtures.** Each lane fixture of ``models/ir_hazards.py`` trips its
   rule as ``tests/test_analysis_lanes.py:49-134`` asserts for JAX's
   (LNE601/602 on the dead lanes and leaves, LNE603 on the dead store,
@@ -47,6 +47,9 @@ from torch_static_cases import static_traces  # noqa: F401 (fixture)
 from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SPECS = cost_model.cost_specs()
+# every registered model x layout: the lead cases keep their ids
+LAYOUT_SPECS = [(wl, n, lay) for lay in cost_model.AUDIT_LAYOUTS
+                for wl, n in SPECS]
 FIELDS = ("live_header_lanes", "live_body_lanes", "dead_body_lanes",
           "dead_carry_leaves", "dead_stores", "resolution")
 
@@ -58,16 +61,18 @@ def _rules(findings):
 # --- parity with the live JAX analyzer ----------------------------------------
 
 
-# in reverse registry order: test_torch_cost.py walks the registry
-# forward, so under xdist each file loads the graphs the other recorded
-# once they meet (torch_static_cases)
-@pytest.mark.parametrize("wl,n", SPECS[::-1],
-                         ids=[f"{wl}-{n}" for wl, n in SPECS[::-1]])
-def test_lanes_equal_the_jax_analyzer(wl, n, static_traces):
-    mine = analyze_model(get_model(wl, n, "grid"), n, "lead",
+# in reverse order: test_torch_cost.py walks the registry forward, lead
+# then minor, so under xdist each file loads the graphs the other
+# recorded once they meet (torch_static_cases)
+@pytest.mark.parametrize(
+    "wl,n,layout", LAYOUT_SPECS[::-1],
+    ids=[f"{wl}-{n}" + ("" if lay == "lead" else f"-{lay}")
+         for wl, n, lay in LAYOUT_SPECS[::-1]])
+def test_lanes_equal_the_jax_analyzer(wl, n, layout, static_traces):
+    mine = analyze_model(get_model(wl, n, "grid"), n, layout,
                          trace_cache=static_traces).to_entry()
     theirs = jlanes.analyze_model(jget_model(wl, n, "grid"), n,
-                                  "lead").to_entry()
+                                  layout).to_entry()
     assert {k: mine[k] for k in FIELDS} == {k: theirs[k] for k in FIELDS}
 
 
@@ -191,7 +196,8 @@ def test_update_manifest_roundtrips_through_the_cli(tmp_path, monkeypatch,
     out = json.loads(capsys.readouterr().out)
     assert out["passes"] == ["lanes"]
     assert [f["rule"] for f in out["findings"]] == ["LNE600"]
-    assert list(load_lane_manifest(path)["entries"]) == ["echo/n=2/lead"]
+    assert list(load_lane_manifest(path)["entries"]) == ["echo/n=2/lead",
+                                                         "echo/n=2/minor"]
     assert cli(["lint", "--json", "--strict", "--lanes", "--lane-manifest",
                 path]) == 0
     out = json.loads(capsys.readouterr().out)
@@ -201,7 +207,7 @@ def test_update_manifest_roundtrips_through_the_cli(tmp_path, monkeypatch,
 def test_checked_in_manifest_covers_the_registry():
     entries = load_lane_manifest()["entries"]
     assert sorted(entries) == sorted(
-        cost_model.entry_key(wl, n, "lead") for wl, n in SPECS)
+        cost_model.entry_key(wl, n, lay) for wl, n, lay in LAYOUT_SPECS)
     assert all(e["resolution"] == "exact" for e in entries.values())
 
 

@@ -20,11 +20,13 @@ and with those checked-in lead entries where it is not.
   site, the same minimal overflowing T and the same ABS702 reason as
   JAX's fixture under live JAX.
 - **Real models.** echo n=2 and lin-kv n=5 (every registered model in
-  the ``slow`` sweep): ``proven``, ``max_safe_horizon_log2``,
+  the ``slow`` sweep), in the lead layout against the checked-in JAX
+  entry and in the minor one against live JAX (the checked-in minor
+  entry in the sweep): ``proven``, ``max_safe_horizon_log2``,
   ``min_overflow_t``, ``scatter_race``, ``ovf_margin_bits`` and
   unique-ids' ``flake`` verdict equal the reference's; the counters are
   equal leaf for leaf except the leaves named in ``LEAF_CAUSES``, each
-  with its cause and both values.
+  with its cause and both values, in either layout.
 - **Horizon refusal.** The port's ``make_sim_config`` and JAX's, on the
   same temporary manifest, refuse and let through the same horizons,
   name the model, let an unproven entry cap nothing, and read the
@@ -69,6 +71,9 @@ from torch_static_cases import static_traces  # noqa: F401 (fixture)
 from torch_tutorial_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SPECS = cost_model.cost_specs()
+# every registered model x layout: the lead cases keep their ids
+LAYOUT_SPECS = [(wl, n, lay) for lay in cost_model.AUDIT_LAYOUTS
+                for wl, n in SPECS]
 VERDICT = ("proven", "max_safe_horizon_log2", "min_overflow_t",
            "scatter_race", "ovf_margin_bits")
 
@@ -145,9 +150,9 @@ def jax_routed(monkeypatch):
     monkeypatch.setattr(pjit.jit_p, "name", "pjit")
 
 
-def _jax_manifest_entry(wl, n):
+def _jax_manifest_entry(wl, n, layout="lead"):
     man = json.load(open(jabsint.DEFAULT_RANGE_MANIFEST))
-    return man["entries"][f"{wl}/n={n}/lead"]
+    return man["entries"][f"{wl}/n={n}/{layout}"]
 
 
 def _rules(findings):
@@ -297,29 +302,48 @@ def test_real_models_equal_the_reference(wl, n, static_traces):
         [f.message for f in fs]
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("wl,n", SPECS, ids=[f"{wl}-{n}" for wl, n in SPECS])
-def test_every_model_equals_the_reference(wl, n, static_traces):
-    rep = analyze_model(get_model(wl, n, "grid"), n, "lead",
+@pytest.mark.parametrize("wl,n", [("echo", 2), ("lin-kv", 5)])
+def test_real_models_on_minor_equal_live_jax(wl, n, jax_routed,
+                                             static_traces):
+    """The minor tick against the live JAX pass on minor: the lead
+    verdict, and the counters differ only where the lead ones do."""
+    rep = analyze_model(get_model(wl, n, "grid"), n, "minor",
                         trace_cache=static_traces)
-    _compare(rep.to_entry(), _jax_manifest_entry(wl, n), f"{wl}/n={n}")
+    theirs = jabsint.analyze_model(jget_model(wl, n, "grid"), n,
+                                   "minor").to_entry()
+    _compare(rep.to_entry(), theirs, f"{wl}/n={n}")
+    assert rep.proven and rep.race_status == "race-free"
+    assert rep.scatter_census.get("deliver") == 1
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize(
+    "wl,n,layout", LAYOUT_SPECS,
+    ids=[f"{wl}-{n}" + ("" if lay == "lead" else f"-{lay}")
+         for wl, n, lay in LAYOUT_SPECS])
+def test_every_model_equals_the_reference(wl, n, layout, static_traces):
+    rep = analyze_model(get_model(wl, n, "grid"), n, layout,
+                        trace_cache=static_traces)
+    _compare(rep.to_entry(), _jax_manifest_entry(wl, n, layout),
+             f"{wl}/n={n}")
 
 
 def test_checked_in_manifest_matches_the_reference_and_the_registry():
-    """Every registered model has a proven lead entry, race-free, with
-    headroom, whose verdict equals the JAX manifest's and whose counters
-    differ only where ``LEAF_CAUSES`` says; stamped with the torch
-    version that recorded it."""
+    """Every registered model has a proven entry in each layout,
+    race-free, with headroom, whose verdict equals the JAX manifest's
+    entry of that layout and whose counters differ only where
+    ``LEAF_CAUSES`` says; stamped with the torch version that recorded
+    it."""
     man = load_range_manifest()
-    keys = {cost_model.entry_key(wl, n, "lead") for wl, n in SPECS}
+    keys = {cost_model.entry_key(wl, n, lay) for wl, n, lay in LAYOUT_SPECS}
     assert set(man["entries"]) == keys
     assert man["torch-version"]
-    for wl, n in SPECS:
-        e = man["entries"][cost_model.entry_key(wl, n, "lead")]
+    for wl, n, lay in LAYOUT_SPECS:
+        e = man["entries"][cost_model.entry_key(wl, n, lay)]
         assert e["proven"] is True and e["scatter_race"] == "race-free"
         assert e["max_safe_horizon_log2"] >= PRODUCTION_LOG2
         assert e["netsim_scatters"] == 1 and e["ovf_margin_bits"] >= 1
-        _compare(e, _jax_manifest_entry(wl, n), f"{wl}/n={n}")
+        _compare(e, _jax_manifest_entry(wl, n, lay), f"{wl}/n={n}")
 
 
 # --- the horizon refusal -----------------------------------------------------
@@ -459,8 +483,9 @@ def test_update_ranges_through_the_cli_then_tamper(tmp_path, monkeypatch,
     assert payload["passes"] == ["ranges"]
     assert [f["rule"] for f in payload["findings"]] == ["ABS700"]
     recorded = load_range_manifest(path)["entries"]
-    assert recorded == {"echo/n=2/lead": load_range_manifest()["entries"][
-        "echo/n=2/lead"]}
+    checked_in = load_range_manifest()["entries"]
+    assert recorded == {k: checked_in[k]
+                        for k in ("echo/n=2/lead", "echo/n=2/minor")}
     assert cli(["lint", "--strict", "--ranges", "--range-manifest",
                 path]) == 0
     capsys.readouterr()

@@ -9,17 +9,19 @@ axis_names)`` — the test's patch, no JAX file changes — and the live
 JAX audit then runs as its own tests expect.
 
 - **Census parity.** For every registered model at the audit config,
-  the port's census (the tick from the recorded tick variants, the
-  dispatch from one shard's chunk end) equals JAX's census of its
+  in both carry layouts (in tier-1 the minor one for the five models
+  of ``MINOR_TIER1``, all 24 under ``slow``), the port's census (the
+  tick from the recorded tick variants, the dispatch from one shard's
+  chunk end) equals JAX's census of its
   sharded chunk: the entry at S = 1, 2, 4 and 8 (tick and dispatch
   counts exact, ICI bytes within the manifest tolerance, 0.10), and
   every model's wire carry round-trips 4 -> 2 -> 4 and 4 -> 1 -> 4
   (SHD809 clean). The single-dispatch runner's ``psum`` x6 and its ICI
   bytes equal JAX's.
-- **Rules.** The shard fixtures trip the rules JAX's trip (SHD801+803,
-  SHD802), a small per-instance table under the 16 KiB floor does not,
-  broken kind metadata trips SHD809, the census is size-invariant, the
-  manifest cases (SHD805-808) behave as JAX's.
+- **Rules.** The shard fixtures trip the rules JAX's trip in both
+  layouts (SHD801+803, SHD802), a small per-instance table under the
+  16 KiB floor does not, broken kind metadata trips SHD809, the census
+  is size-invariant, the manifest cases (SHD805-808) behave as JAX's.
 - **Wiring.** One recording per model through the shared cache, the
   rule families' passes, the checked-in manifest covering the registry.
 
@@ -81,9 +83,9 @@ def _same_entry(got, want):
         assert _close(got[field], want[field]), (field, got, want)
 
 
-def _jax_census(wl, n):
+def _jax_census(wl, n, layout="lead"):
     model = jget_model(wl, n, "grid")
-    sim = jcost.audit_sim(model, n, "lead")
+    sim = jcost.audit_sim(model, n, layout)
     return jshard.census_of_jaxpr(jshard.trace_sharded_chunk(model,
                                                              sim)[0])
 
@@ -91,13 +93,28 @@ def _jax_census(wl, n):
 # --- census parity, every registered model -----------------------------------
 
 
-@pytest.mark.parametrize("wl,n", cost_model.cost_specs(),
-                         ids=[f"{w}-n{n}" for w, n in cost_model.cost_specs()])
-def test_census_equals_jax_at_every_mesh_size(wl, n, static_traces):
+# every registered model x layout: the lead cases keep their ids
+LAYOUT_SPECS = [(wl, n, lay) for lay in cost_model.AUDIT_LAYOUTS
+                for wl, n in cost_model.cost_specs()]
+# the minor census in tier-1: one model of each tick family and a
+# mutant (the whole minor half, ~40 s more, is `slow`)
+MINOR_TIER1 = {("echo", 2), ("lin-kv", 5), ("kafka", 1),
+               ("txn-list-append", 3), ("lin-kv-bug-double-vote", 5)}
+
+
+@pytest.mark.parametrize(
+    "wl,n,layout",
+    [pytest.param(w, n, lay, marks=() if lay == "lead"
+                  or (w, n) in MINOR_TIER1 else pytest.mark.slow)
+     for w, n, lay in LAYOUT_SPECS],
+    ids=[f"{w}-n{n}" + ("" if lay == "lead" else f"-{lay}")
+         for w, n, lay in LAYOUT_SPECS])
+def test_census_equals_jax_at_every_mesh_size(wl, n, layout,
+                                              static_traces):
     model = get_model(wl, n, "grid")
-    sim = cost_model.audit_sim(model, n)
+    sim = cost_model.audit_sim(model, n, layout)
     got = chunk_census(model, sim, cache=static_traces)
-    want = _jax_census(wl, n)
+    want = _jax_census(wl, n, layout)
     for s in MESH_SIZES:
         _same_entry(entry_of_census(got, s), entry_of_census(want, s))
     # every wire leaf has a reshard kind and round-trips across counts
@@ -131,15 +148,20 @@ def test_ici_ring_formulas_equal_jax():
 # --- the fixtures trip JAX's rules -------------------------------------------
 
 
-@pytest.mark.parametrize("kind", sorted(thaz.SHARD_FIXTURE_MODELS))
-def test_fixture_trips_the_rules_jax_trips(kind):
+@pytest.mark.parametrize(
+    "kind,layout", [(k, lay) for lay in cost_model.AUDIT_LAYOUTS
+                    for k in sorted(thaz.SHARD_FIXTURE_MODELS)],
+    ids=[k + ("" if lay == "lead" else f"-{lay}")
+         for lay in cost_model.AUDIT_LAYOUTS
+         for k in sorted(thaz.SHARD_FIXTURE_MODELS)])
+def test_fixture_trips_the_rules_jax_trips(kind, layout):
     tm = thaz.SHARD_FIXTURE_MODELS[kind]()
-    tsim = cost_model.audit_sim(tm, 2)
+    tsim = cost_model.audit_sim(tm, 2, layout)
     got = chunk_census(tm, tsim, cache={})
     tf = (shard_audit.hot_loop_findings(tm, got, kind, kind)
           + shard_audit.replicated_leaf_findings(tm, tsim, kind))
     jm = jhaz.SHARD_FIXTURE_MODELS[kind]()
-    jsim = jcost.audit_sim(jm, 2, "lead")
+    jsim = jcost.audit_sim(jm, 2, layout)
     want = jshard.census_of_jaxpr(jshard.trace_sharded_chunk(jm, jsim)[0])
     jf = (jshard.hot_loop_findings(jm, want, kind, kind)
           + jshard.replicated_leaf_findings(jm, jsim, kind))
@@ -295,9 +317,11 @@ def test_manifest_cases_equal_jax(case, static_traces):
 
 def test_checked_in_manifest_covers_the_registry():
     entries = load_shard_manifest(DEFAULT_SHARD_MANIFEST)["entries"]
-    for wl, n in cost_model.cost_specs():
+    for wl, n, lay in LAYOUT_SPECS:
         for s in MESH_SIZES:
-            assert size_key(wl, n, "lead", s) in entries
+            assert size_key(wl, n, lay, s) in entries
+    assert len(entries) == len(LAYOUT_SPECS) * len(MESH_SIZES) + \
+        len(MESH_SIZES)
     run = entries["run:echo/n=2/lead/s=2"]
     assert run["dispatch-collectives"] == {"psum": 6}
     assert run["ici-bytes-per-dispatch"] == 8020

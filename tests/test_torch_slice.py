@@ -125,7 +125,7 @@ def test_chip_smoke_without_card(tmp_path):
     assert "bit-equal to deliver_reference" in out.stdout
     assert "for 200 ticks: valid?=True" in out.stdout
     assert "phase 18 (demo): `python -m maelstrom_tpu_torch demo " \
-        "--time-limit 1` (3 entries, 1 on the native engine)" in out.stdout
+        "--time-limit 3` (3 entries, 1 on the native engine)" in out.stdout
     assert "phase 18 (b) (native lin-kv): run_native_test" in out.stdout
     assert '"ok"' not in out.stdout
 
